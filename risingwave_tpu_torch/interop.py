@@ -1,0 +1,78 @@
+"""Carry chunks and device state in and out of the port as numpy arrays.
+
+Takes and returns numpy only, so state built elsewhere (for example by
+the JAX package, read there with `np.asarray`) can continue in the port:
+the same arrays, the same slots, the same counts. Like every entry
+point of the port, each constructor puts its tensors on "cuda" unless
+the caller names another device, and raises when there is no card.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from .common.chunk import Column, StreamChunk
+from .common.types import Schema
+from .device import DEFAULT_DEVICE, resolve_device
+from .ops.hash_table import HashTable
+from .stream.hash_agg import AggState
+
+
+def _t(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    # a private copy: the port updates state tensors in place
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def chunk_from_numpy(schema: Schema, arrays: Sequence[np.ndarray],
+                     ops: np.ndarray, vis: np.ndarray,
+                     valids: Optional[Sequence[Optional[np.ndarray]]] = None,
+                     device=DEFAULT_DEVICE) -> StreamChunk:
+    """A chunk holding exactly these full-capacity arrays (invisible rows
+    included), cast to the schema's dtypes."""
+    device = resolve_device(device)
+    valids = valids or [None] * len(arrays)
+    cols = tuple(
+        Column(_t(np.asarray(a, dtype=f.data_type.np_dtype), device),
+               None if v is None else _t(np.asarray(v, dtype=bool), device))
+        for a, v, f in zip(arrays, valids, schema))
+    return StreamChunk(cols, _t(np.asarray(ops, dtype=np.int8), device),
+                       _t(np.asarray(vis, dtype=bool), device), schema)
+
+
+def chunk_to_numpy(chunk: StreamChunk):
+    """(arrays, ops, vis, valids) of the full capacity."""
+    arrays = [c.data.cpu().numpy() for c in chunk.columns]
+    valids = [None if c.valid is None else c.valid.cpu().numpy()
+              for c in chunk.columns]
+    return arrays, chunk.ops.cpu().numpy(), chunk.vis.cpu().numpy(), valids
+
+
+def hash_table_from_numpy(keys: Sequence[np.ndarray], occupied: np.ndarray,
+                          device=DEFAULT_DEVICE) -> HashTable:
+    device = resolve_device(device)
+    return HashTable(tuple(_t(np.asarray(k), device) for k in keys),
+                     _t(np.asarray(occupied, dtype=bool), device))
+
+
+def agg_state_from_numpy(table_keys: Sequence[np.ndarray],
+                         occupied: np.ndarray,
+                         agg_states: Sequence[np.ndarray],
+                         row_count: np.ndarray, dirty: np.ndarray,
+                         prev_exists: np.ndarray,
+                         prev_emit: Sequence[np.ndarray],
+                         device=DEFAULT_DEVICE) -> AggState:
+    """The port's AggState from the arrays of a hash agg's state (the
+    JAX package's `AggState` fields, same layout)."""
+    device = resolve_device(device)
+    return AggState(
+        table=hash_table_from_numpy(table_keys, occupied, device),
+        agg_states=tuple(_t(np.asarray(a), device) for a in agg_states),
+        row_count=_t(np.asarray(row_count, dtype=np.int64), device),
+        dirty=_t(np.asarray(dirty, dtype=bool), device),
+        prev_exists=_t(np.asarray(prev_exists, dtype=bool), device),
+        prev_emit=tuple(_t(np.asarray(a), device) for a in prev_emit),
+    )
+

@@ -1,0 +1,431 @@
+"""HashAgg executor — grouped streaming aggregation with device state
+(port of risingwave_tpu/stream/hash_agg.py, volatile non-retractable
+path).
+
+The group map is a `HashTable` on the device plus parallel state tensors
+[C] (one per agg call), a row count and dirty bits. Applying a chunk is
+kernel K3 (slot per row, `ops/hash_table.py`) followed by kernel K4
+(`csrc/hash_agg.cu`): signed counts into row_count and each call's
+state, dirty bits, and the overflow accumulator, all on the device. At a
+barrier the flush compacts the dirty slots and lays out UpdateDelete /
+UpdateInsert pairs (Insert for born groups, Delete for died ones), as the
+reference's changelog contract says. The flush, watermark eviction and
+rehash are plain PyTorch for now (ROADMAP Queue B6/B8).
+
+State updates happen in place where the JAX package donated the state
+buffers to its jitted programs.
+
+Left out of this slice (ROADMAP Queue A): durable state (state table
+persist/recover), the memory manager (LRU stamps, spill, reload),
+retractable MIN/MAX, and the batched interval scan (`_make_apply_scan`).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+from typing import Optional, Sequence
+
+import torch
+
+from ..common.chunk import (
+    Column, StreamChunk, OP_DELETE, OP_INSERT, OP_UPDATE_DELETE,
+    OP_UPDATE_INSERT, op_sign,
+)
+from ..common.types import Field, Schema
+from ..device import resolve_device
+from ..expr.agg import AggCall, AggKind, AggSpec
+from ..ops import kernels
+from ..ops.hash_table import (
+    HashTable, compact_mask, lookup_or_insert, needs_rebuild,
+)
+from .executor import Executor
+from .message import Barrier, BarrierKind, Watermark
+
+
+@dataclass
+class AggState:
+    """Device state of one HashAgg instance (all tensors share capacity C)."""
+
+    table: HashTable
+    agg_states: tuple[torch.Tensor, ...]  # one [C] per agg call
+    row_count: torch.Tensor               # int64 [C] — group liveness
+    dirty: torch.Tensor                   # bool [C] — touched since flush
+    prev_exists: torch.Tensor             # bool [C] — group was in output
+    prev_emit: tuple[torch.Tensor, ...]   # last emitted value per agg [C]
+
+
+# ---------------------------------------------------------------- K4
+# per-call state kinds of csrc/hash_agg.cu
+_KIND_CODES = {
+    (AggKind.COUNT, torch.int64): 0,
+    (AggKind.SUM, torch.int64): 1,
+    (AggKind.SUM, torch.float64): 2,
+    (AggKind.MIN, torch.int64): 3,
+    (AggKind.MAX, torch.int64): 4,
+    (AggKind.MIN, torch.float64): 5,
+    (AggKind.MAX, torch.float64): 6,
+}
+_VALUE_CODES = {None: 0, torch.int32: 1, torch.int64: 2, torch.float32: 3,
+                torch.float64: 4}
+MAX_CALLS = 8   # agg calls one K4 launch takes
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+# K4. Replaces stream/hash_agg.py:HashAggExecutor._apply_impl (248) with
+# expr/agg.py:AggSpec.partial (74) / combine (93).
+K_AGG = kernels.register(kernels.CudaKernel(
+    "hash_agg",
+    replaces="risingwave_tpu/stream/hash_agg.py:248",
+    functions={"rw_agg_apply": [
+        _P, _P, _I, _P, _P, _I, ctypes.POINTER(_I), ctypes.POINTER(_P),
+        ctypes.POINTER(_P), ctypes.POINTER(_I), ctypes.POINTER(_P),
+        _P, _P, _P]}))
+
+
+def _call_inputs(calls: Sequence[AggCall], chunk_cols: Sequence[Column]):
+    """(values, valid) per call; (None, None) for count(*)."""
+    out = []
+    for call in calls:
+        if call.arg is None:
+            out.append((None, None))
+        else:
+            col = chunk_cols[call.arg]
+            out.append((col.data, col.valid))
+    return out
+
+
+def agg_apply_plain(state: AggState, specs: Sequence[AggSpec],
+                    slots: torch.Tensor, ops: torch.Tensor,
+                    inputs, n_unresolved: torch.Tensor,
+                    overflow: torch.Tensor) -> None:
+    """Plain PyTorch version of kernel K4, in place: signed segment count
+    into row_count, each call's partial combined into its state, dirty
+    bits for every touched slot, n_unresolved added to overflow."""
+    C = state.table.capacity
+    ok = slots >= 0
+    seg = torch.where(ok, slots, C).to(torch.int64)   # trash segment C
+    signs = torch.where(ok, op_sign(ops), 0).to(torch.int32)
+    counts = torch.zeros(C + 1, dtype=torch.int64, device=slots.device)
+    state.row_count += counts.index_add_(0, seg, signs.to(torch.int64))[:C]
+    for spec, st, (values, valid) in zip(specs, state.agg_states, inputs):
+        if values is None:
+            values = torch.zeros(slots.shape[0], dtype=spec.state_dtype,
+                                 device=slots.device)
+        row_signs = signs if valid is None else torch.where(valid, signs, 0)
+        part = spec.partial(values, row_signs, seg, C + 1)[:C]
+        st.copy_(spec.combine(st, part))
+    state.dirty[seg[ok]] = True
+    overflow += n_unresolved.to(overflow.dtype)
+
+
+def agg_apply(state: AggState, specs: Sequence[AggSpec],
+              slots: torch.Tensor, ops: torch.Tensor, inputs,
+              n_unresolved: torch.Tensor, overflow: torch.Tensor) -> None:
+    """Kernel K4 on a CUDA device, the plain version on the CPU."""
+    dev = slots.device
+    if dev.type == "cpu":
+        return agg_apply_plain(state, specs, slots, ops, inputs,
+                               n_unresolved, overflow)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    N = slots.shape[0]
+    if slots.dtype != torch.int32 or ops.dtype != torch.int8 \
+            or ops.shape[0] != N:
+        raise ValueError("K4 takes int32 slots and int8 ops of one length")
+    if len(specs) > MAX_CALLS:
+        raise ValueError(f"K4 takes at most {MAX_CALLS} agg calls")
+    kinds, value_codes, values, valids = [], [], [], []
+    for spec, st, (v, valid) in zip(specs, state.agg_states, inputs):
+        kinds.append(_KIND_CODES[(spec.call.kind, spec.state_dtype)])
+        if v is not None and (v.dtype not in _VALUE_CODES or v.shape[0] != N
+                              or not v.is_contiguous()):
+            raise ValueError(f"K4 cannot read an input column of {v.dtype}")
+        value_codes.append(_VALUE_CODES[None if v is None else v.dtype])
+        values.append(v)
+        valids.append(valid)
+    if overflow.dtype != torch.int32 or n_unresolved.dtype != torch.int32:
+        raise ValueError("overflow and n_unresolved must be int32")
+    K_AGG.launches += 1
+    K_AGG.call("rw_agg_apply", kernels.ptr(slots), kernels.ptr(ops), N,
+               kernels.ptr(state.row_count), kernels.ptr(state.dirty),
+               len(specs), kernels.int_array(kinds),
+               kernels.ptr_array(state.agg_states), kernels.ptr_array(values),
+               kernels.int_array(value_codes), kernels.ptr_array(valids),
+               kernels.ptr(n_unresolved), kernels.ptr(overflow),
+               kernels.stream_of(slots))
+
+
+class HashAggExecutor(Executor):
+    def __init__(self, input: Executor, group_key_indices: Sequence[int],
+                 agg_calls: Sequence[AggCall], capacity: int = 1 << 16,
+                 group_key_names: Optional[Sequence[str]] = None,
+                 cleaning_watermark_col: Optional[int] = None,
+                 watchdog_interval: Optional[int] = 1,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        self.input = input
+        self.group_key_indices = tuple(group_key_indices)
+        self.agg_calls = tuple(agg_calls)
+        self.specs = tuple(c.spec() for c in agg_calls)
+        in_schema = input.schema
+        gk_names = list(group_key_names or
+                        [in_schema[i].name for i in self.group_key_indices])
+        self.schema = Schema(tuple(
+            [Field(n, in_schema[i].data_type)
+             for n, i in zip(gk_names, self.group_key_indices)]
+            + [Field(f"agg{j}", c.ret_type) for j, c in enumerate(agg_calls)]))
+        self.pk_indices = tuple(range(len(self.group_key_indices)))
+        self.capacity = capacity
+        # Watermark state cleaning: groups whose watermark-column key
+        # falls below the watermark can never be touched again, so their
+        # state is zeroed on the device at the barrier. The slot stays an
+        # occupied zombie until a rebuild purges it.
+        # `cleaning_watermark_col` is an INPUT column index and must be
+        # one of the group keys.
+        self.cleaning_watermark_key: Optional[int] = (
+            None if cleaning_watermark_col is None
+            else self.group_key_indices.index(cleaning_watermark_col))
+        self._pending_clean_wm: Optional[int] = None
+        # the last watermark whose groups were evicted (None before any)
+        self.cleaned_below: Optional[int] = None
+        self.identity = f"HashAgg(keys={self.group_key_indices})"
+        self._key_dtypes = tuple(in_schema[i].data_type.torch_dtype
+                                 for i in self.group_key_indices)
+        self.state = self._empty_state(capacity)
+        # watchdog_interval = 1: fetch (overflow, occupancy) at every
+        # barrier that follows applied chunks and fail-stop on overflow;
+        # None: never fetch (transfer-free mode) and purge zombies with a
+        # same-capacity rehash after each eviction instead.
+        if watchdog_interval not in (None, 1):
+            raise ValueError(
+                "watchdog_interval must be 1 (check before every checkpoint "
+                "commit) or None (transfer-free mode)")
+        self.watchdog_interval = watchdog_interval
+        self.rebuilds = 0
+        self._occ_known = 0
+        self._applied_since_flush = False
+        # device-side watchdog accumulator: unresolved rows of the epoch
+        self._overflow_dev = torch.zeros((), dtype=torch.int32,
+                                         device=self.device)
+
+    def fence_tokens(self) -> list:
+        return [self.state.table.keys[0]] + super().fence_tokens()
+
+    # ------------------------------------------------------------ state
+    def _empty_state(self, capacity: int) -> AggState:
+        dev = self.device
+        return AggState(
+            table=HashTable.empty(capacity, self._key_dtypes, dev),
+            agg_states=tuple(s.init_state(capacity, dev) for s in self.specs),
+            row_count=torch.zeros(capacity, dtype=torch.int64, device=dev),
+            dirty=torch.zeros(capacity, dtype=torch.bool, device=dev),
+            prev_exists=torch.zeros(capacity, dtype=torch.bool, device=dev),
+            prev_emit=tuple(
+                torch.zeros(capacity, dtype=c.ret_type.torch_dtype,
+                            device=dev)
+                for c in self.agg_calls),
+        )
+
+    # ------------------------------------------------------- chunk apply
+    def _apply_chunk(self, chunk: StreamChunk) -> None:
+        """K3 then K4; no host sync."""
+        key_cols = [chunk.columns[i].data for i in self.group_key_indices]
+        _, slots, n_unresolved = lookup_or_insert(
+            self.state.table, key_cols, chunk.vis)
+        agg_apply(self.state, self.specs, slots, chunk.ops,
+                  _call_inputs(self.agg_calls, chunk.columns),
+                  n_unresolved, self._overflow_dev)
+        self._applied_since_flush = True
+
+    # ---------------------------------------------------------- flush
+    def _flush_impl(self, state: AggState):
+        """The barrier diff as one chunk of capacity 2*C with interleaved
+        UD/UI pairs: dirty slot with rank j lands at output rows 2j (old
+        value) and 2j+1 (new). Resets dirty and the emitted-value
+        snapshot in place."""
+        C = state.table.capacity
+        exists_now = state.row_count > 0
+        d_slot, n_dirty = compact_mask(state.dirty)
+        existed = state.prev_exists[d_slot]
+        exists = exists_now[d_slot]
+        is_dirty = torch.arange(C, device=d_slot.device) < n_dirty
+
+        # no-change skip: a group that existed before, still exists and
+        # whose outputs are unchanged produces no changelog rows
+        cur_emit = [spec.emit(st) for spec, st in
+                    zip(self.specs, state.agg_states)]
+        unchanged = existed & exists
+        for cur, pe in zip(cur_emit, state.prev_emit):
+            unchanged &= cur[d_slot] == pe[d_slot]
+
+        vis_old = is_dirty & existed & ~unchanged   # UD or Delete
+        vis_new = is_dirty & exists & ~unchanged    # UI or Insert
+        ops_old = torch.where(exists, OP_UPDATE_DELETE, OP_DELETE)
+        ops_new = torch.where(existed, OP_UPDATE_INSERT, OP_INSERT)
+
+        def interleave(a, b):
+            return torch.stack([a, b], dim=1).reshape(2 * C)
+
+        out_ops = interleave(ops_old, ops_new).to(torch.int8)
+        out_vis = interleave(vis_old, vis_new)
+        out_cols = [interleave(tk[d_slot], tk[d_slot])
+                    for tk in state.table.keys]
+        for cur, pe in zip(cur_emit, state.prev_emit):
+            out_cols.append(interleave(pe[d_slot], cur[d_slot]))
+
+        state.prev_exists.copy_(exists_now)
+        for cur, pe in zip(cur_emit, state.prev_emit):
+            pe.copy_(cur)
+        state.dirty.zero_()
+        return tuple(out_cols), out_ops, out_vis
+
+    def _live_zombie(self, state: AggState):
+        occ = state.table.occupied.sum(dtype=torch.int64)
+        live = (state.row_count > 0).sum(dtype=torch.int64)
+        return occ, live
+
+    def _evict_keys_impl(self, state: AggState, watermark: int):
+        """Compacted group keys of live groups below the cleaning
+        watermark — the rows a durable state table must delete when the
+        device state is zeroed."""
+        j = self.cleaning_watermark_key
+        evict = (state.table.occupied & (state.table.keys[j] < watermark)
+                 & (state.row_count > 0))
+        sel, n = compact_mask(evict)
+        return tuple(tk[sel] for tk in state.table.keys), n
+
+    def _evict_impl(self, state: AggState, watermark: int) -> None:
+        """Zero out groups below the state-cleaning watermark, in place.
+        Slots stay occupied zombies; rebuilds reclaim them later."""
+        j = self.cleaning_watermark_key
+        evict = state.table.occupied & (state.table.keys[j] < watermark)
+        for spec, st in zip(self.specs, state.agg_states):
+            st.masked_fill_(evict, spec.init)
+        state.row_count.masked_fill_(evict, 0)
+        state.dirty &= ~evict
+        state.prev_exists &= ~evict
+        for pe in state.prev_emit:
+            pe.masked_fill_(evict, 0)
+
+    def _rehash_impl(self, state: AggState, new_capacity: int) -> AggState:
+        """Device-side rebuild: re-insert surviving groups into a fresh
+        table of `new_capacity` slots (K3 over the compacted keys)."""
+        keep = state.table.occupied & (
+            (state.row_count > 0) | (state.dirty & state.prev_exists))
+        return self._rehash_keep(state, keep, new_capacity)
+
+    def _rehash_keep(self, state: AggState, keep: torch.Tensor,
+                     new_capacity: int) -> AggState:
+        C = state.table.capacity
+        dev = keep.device
+        sel, n_keep = compact_mask(keep)
+        active = torch.arange(C, device=dev) < n_keep
+        key_cols = [tk[sel] for tk in state.table.keys]
+        fresh = self._empty_state(new_capacity)
+        table, slots, _ = lookup_or_insert(fresh.table, key_cols, active)
+        # n_unresolved is 0 by construction (new_capacity >= live set);
+        # the trash row new_capacity takes inactive rows
+        tgt = torch.where(active & (slots >= 0), slots.to(torch.int64),
+                          new_capacity)
+
+        def moved(dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+            pad = torch.cat([dst, dst[:1]])
+            pad[tgt] = src[sel]
+            return pad[:new_capacity]
+
+        return AggState(
+            table=table,
+            agg_states=tuple(moved(e, o) for e, o in
+                             zip(fresh.agg_states, state.agg_states)),
+            row_count=moved(fresh.row_count, state.row_count),
+            dirty=moved(fresh.dirty, state.dirty),
+            prev_exists=moved(fresh.prev_exists, state.prev_exists),
+            prev_emit=tuple(moved(e, o) for e, o in
+                            zip(fresh.prev_emit, state.prev_emit)),
+        )
+
+    # --------------------------------------------------------- rebuild
+    def _rebuild(self, new_capacity: int) -> int:
+        """Purge zombies / grow via the device-side rehash. Returns the
+        rebuilt occupancy (one readback — rebuilds are rare)."""
+        self.state = self._rehash_impl(self.state, new_capacity)
+        self.capacity = new_capacity
+        self.rebuilds += 1
+        occ, _ = self._live_zombie(self.state)
+        return int(occ)
+
+    def _check_watchdog(self) -> None:
+        """One small blocking fetch of the device-accumulated overflow and
+        the occupancy, per barrier. Overflow fail-stops before the epoch's
+        checkpoint commits."""
+        occ, _ = self._live_zombie(self.state)
+        vals = torch.stack([self._overflow_dev.to(torch.int64), occ]).cpu()
+        n_un = int(vals[0])
+        if n_un:
+            raise RuntimeError(
+                f"hash-agg table overflow mid-epoch ({n_un} rows, "
+                f"capacity {self.capacity}); recovery must replay the "
+                f"epoch with a larger table")
+        self._occ_known = int(vals[1])
+
+    def _maybe_rebuild_at_barrier(self) -> None:
+        """Barrier-time growth: crossing the high watermark purges zombies
+        or doubles capacity, between epochs only."""
+        if self._occ_known <= 0.7 * self.capacity:
+            return
+        occ, live = self._live_zombie(self.state)
+        rebuild, cap = needs_rebuild(int(occ), int(live), self.capacity)
+        if rebuild:
+            self._occ_known = self._rebuild(cap)
+
+    def overflow(self) -> int:
+        """Unresolved rows accumulated on the device (one fetch)."""
+        return int(self._overflow_dev)
+
+    # ----------------------------------------------------------- stream
+    async def execute(self):
+        first = True
+        async for msg in self.input.execute():
+            if isinstance(msg, StreamChunk):
+                self._apply_chunk(msg)
+            elif isinstance(msg, Barrier):
+                if first or msg.kind is BarrierKind.INITIAL:
+                    first = False
+                    yield msg
+                    continue
+                stopping = msg.mutation is not None and msg.is_stop_any()
+                if self.watchdog_interval and (
+                        stopping or self._applied_since_flush):
+                    self._check_watchdog()
+                flushed = self._applied_since_flush
+                if flushed:
+                    self._applied_since_flush = False
+                    cols, ops, vis = self._flush_impl(self.state)
+                    yield StreamChunk(tuple(Column(c) for c in cols), ops,
+                                      vis, self.schema)
+                if (self.cleaning_watermark_key is not None
+                        and self._pending_clean_wm is not None):
+                    self._evict_impl(self.state, self._pending_clean_wm)
+                    self.cleaned_below = self._pending_clean_wm
+                    self._pending_clean_wm = None
+                    flushed = True
+                    if self.watchdog_interval is None:
+                        # transfer-free mode: without occupancy readbacks
+                        # the host can never trigger a purge, so purge on
+                        # the device with a same-capacity rehash
+                        self.state = self._rehash_impl(self.state,
+                                                       self.capacity)
+                if flushed:
+                    self._maybe_rebuild_at_barrier()
+                yield msg
+            else:
+                # watermarks on group-key columns pass through re-indexed;
+                # others are consumed
+                wm: Watermark = msg
+                if wm.col_idx in self.group_key_indices:
+                    pos = self.group_key_indices.index(wm.col_idx)
+                    if pos == self.cleaning_watermark_key:
+                        self._pending_clean_wm = wm.val
+                    yield wm.with_idx(pos)

@@ -1,0 +1,150 @@
+"""Guards of the port's boundary: it never imports JAX or the JAX
+package, its entry points default to the CUDA device, and asking for
+that device without a card raises instead of running on the CPU."""
+
+import inspect
+import json
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _port():
+    """Import torch and the port when these tests run, not at collection:
+    an xdist worker then runs the JAX tests before them without torch
+    (the sharded-join recovery tests abort more often with it loaded)."""
+    global torch
+    import torch
+
+
+PORT = pathlib.Path(__file__).resolve().parent.parent / "risingwave_tpu_torch"
+
+MODULES = [
+    "risingwave_tpu_torch", "risingwave_tpu_torch.common",
+    "risingwave_tpu_torch.connectors", "risingwave_tpu_torch.expr.agg",
+    "risingwave_tpu_torch.ops.hash_table", "risingwave_tpu_torch.ops.kernels",
+    "risingwave_tpu_torch.state", "risingwave_tpu_torch.stream",
+    "risingwave_tpu_torch.meta", "risingwave_tpu_torch.interop",
+]
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    code = ("import json, sys\n"
+            + "".join(f"import {m}\n" for m in MODULES)
+            + "print(json.dumps(sorted(m for m in sys.modules if m == 'jax'"
+              " or m.startswith('jax.') or m == 'risingwave_tpu'"
+              " or m.startswith('risingwave_tpu.'))))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         cwd=str(PORT.parent))
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_collecting_the_port_tests_loads_no_torch():
+    """pytest imports every test module to collect it; the port's test
+    files leave torch and the port to their `_port` fixtures."""
+    code = ("import importlib.util, json, pathlib, sys\n"
+            "sys.path[:0] = ['.', 'tests']\n"
+            "for p in sorted(pathlib.Path('tests').glob('test_torch_*')):\n"
+            "    s = importlib.util.spec_from_file_location(p.stem, p)\n"
+            "    s.loader.exec_module(importlib.util.module_from_spec(s))\n"
+            "print(json.dumps(sorted(m for m in sys.modules"
+            " if m in ('torch', 'chip_smoke')"
+            " or m.startswith('risingwave_tpu_torch'))))\n")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=str(PORT.parent),
+                         env=env)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_port_sources_name_no_jax_import():
+    pat = re.compile(r"^\s*(import\s+jax|from\s+jax)\b|"
+                     r"\brisingwave_tpu\.(?!_)", re.M)
+    offenders = []
+    for p in sorted(PORT.rglob("*.py")):
+        for m in pat.finditer(p.read_text()):
+            offenders.append(f"{p.relative_to(PORT)}: {m.group(0).strip()}")
+    assert not offenders, offenders
+    assert len(list(PORT.rglob("*.py"))) > 20
+
+
+def _entry_points():
+    from risingwave_tpu_torch.connectors.nexmark import NexmarkGenerator
+    from risingwave_tpu_torch.device import resolve_device
+    from risingwave_tpu_torch.interop import (
+        agg_state_from_numpy, chunk_from_numpy, hash_table_from_numpy)
+    from risingwave_tpu_torch.stream.hash_agg import HashAggExecutor
+    return [NexmarkGenerator.__init__, HashAggExecutor.__init__,
+            resolve_device, chunk_from_numpy, hash_table_from_numpy,
+            agg_state_from_numpy]
+
+
+def test_entry_points_default_to_cuda():
+    for fn in _entry_points():
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_cuda_without_a_card_raises():
+    from risingwave_tpu_torch.common import DataType
+    from risingwave_tpu_torch.common import schema as make_schema
+    from risingwave_tpu_torch.connectors.nexmark import NexmarkGenerator
+    from risingwave_tpu_torch.expr.agg import count_star
+    from risingwave_tpu_torch.interop import (
+        agg_state_from_numpy, chunk_from_numpy, hash_table_from_numpy)
+    from risingwave_tpu_torch.stream.hash_agg import HashAggExecutor
+
+    class _In:
+        schema = make_schema(("k", DataType.INT64))
+        pk_indices = ()
+
+    keys, occupied = [np.arange(4, dtype=np.int64)], np.ones(4, bool)
+    builders = [
+        lambda: NexmarkGenerator("bid", chunk_size=64).device,
+        lambda: HashAggExecutor(_In(), [0], [count_star()],
+                                capacity=64).device,
+        lambda: chunk_from_numpy(_In.schema, keys, np.zeros(4, np.int8),
+                                 occupied).device,
+        lambda: hash_table_from_numpy(keys, occupied).device,
+        lambda: agg_state_from_numpy(
+            keys, occupied, [np.zeros(4, np.int64)], np.ones(4, np.int64),
+            occupied, occupied, [np.zeros(4, np.int64)]).row_count.device,
+    ]
+    for build in builders:
+        if torch.cuda.is_available():
+            assert build().type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                build()
+
+
+def test_every_kernel_is_registered_with_its_source():
+    import chip_smoke  # noqa: F401  (imports every wrapper module)
+    from risingwave_tpu_torch.ops import kernels
+    names = sorted(kernels.KERNELS)
+    assert names == ["hash_agg", "hash_table", "hop_window", "nexmark_bid"]
+    for k in kernels.KERNELS.values():
+        assert k.source.exists()
+        src = k.source.read_text()
+        for fn in k.functions:
+            assert f'extern "C" int {fn}(' in src
+        path, line = k.replaces.rsplit(":", 1)
+        ref = PORT.parent / path
+        assert ref.exists() and int(line) > 0
+
+
+def test_wrappers_refuse_other_devices():
+    from risingwave_tpu_torch.ops import hash_table as ht
+    t = ht.HashTable.empty(32, [torch.int64], "meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        ht.lookup_or_insert(t, [torch.zeros(4, dtype=torch.int64,
+                                            device="meta")],
+                            torch.ones(4, dtype=torch.bool, device="meta"))
