@@ -4,25 +4,42 @@
     python3 chip_smoke.py [--host-profile]
 
 Drives the port (`risingwave_tpu_torch`, never the JAX package) through
-Nexmark q5 — bid source -> HOP(2 s, 10 s) -> count(*) GROUP BY (auction,
-window_start) with watermark state cleaning — and holds every
-hand-written kernel against its plain PyTorch version on the card.
+two Nexmark paths and holds every hand-written kernel against its plain
+PyTorch version on the card:
+  q5 — bid source -> HOP(2 s, 10 s) -> count(*) GROUP BY (auction,
+       window_start) with watermark state cleaning;
+  q7 — one bid source broadcast to a TUMBLE(10 s) projection -> MAX(price)
+       GROUP BY window_end and to the bids, joined back on price = max
+       with a band condition (sorted join), five actors as the JAX
+       planner deploys bench.py's _q7_ddl().
 Phases, one JSON line each:
 
   1. device: the card, torch/CUDA versions, the kernels' build time;
-  2. each kernel vs its plain version at the q5 shapes, with CUDA-event
-     timings, the plain and library times and the least time the card
-     could take (bound);
+  2. each kernel vs its plain version at its path's shapes (K1-K4 at
+     q5's, K5-K8 at q7's, and K3/K4 again at q7's agg shape), with
+     CUDA-event timings, the plain and library times and the least time
+     the card could take (bound); the join's plain-torch sorts are timed;
   3. q5 end to end at full width (131072-row chunks, a 2^20-slot agg,
      barriers paced by row count) into the device blackhole sink, five
-     times from fresh state to show the spread: every kernel launched
+     times from fresh state to show the spread: every q5 kernel launched
      in each run, no overflow, the live groups equal a host recount;
   4. a short full-width q5 run under torch.profiler: device busy time by
      kernel, and the device's idle share against phase 3's unprofiled
      median wall; then q5 into a materialized view at a small size: the
      MV equals a host recount;
-  5. the kernels line: launches on phase 3's first run, error, times,
-     bounds.
+  5. q7 at bench.py's width (131072-bid chunks, inter_event_us=250, 20 s
+     watermark lag, a 2^19-row join and an 8192-slot agg, 14 barriers of
+     8 chunks) into the device blackhole sink, five times: every q7
+     kernel launched, no match or row overflow, and exactly the delete
+     misses that this geometry's band cleaning causes (q7_delete_misses,
+     which the CPU tests hold against the JAX executor); bids/s,
+     barrier latency, peak memory; then a short profiled q7 run for the
+     idle share;
+  6. q7_check: the same wiring and capacities at one barrier per
+     32768-bid chunk into a device sink that keeps the output rows; its
+     net output must equal a numpy recount and every error counter 0;
+  7. the kernels line: launches on the first run of each kernel's path
+     (q5 for K1-K4, q7 for K5-K8), error, times, bounds.
 With --host-profile, phase 4 also runs q5 under cProfile and lists the
 host functions with the most own time.
 The last line is {"ok": true, "device": {...}}. Any failed phase exits
@@ -39,30 +56,43 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 import torch
 
-from risingwave_tpu_torch.common.chunk import Column
+from risingwave_tpu_torch.common.chunk import Column, StreamChunk, op_sign
 from risingwave_tpu_torch.common.types import DataType
 from risingwave_tpu_torch.connectors.nexmark import (
     NexmarkConfig, NexmarkGenerator, gen_bid_columns, gen_bid_columns_plain,
     vocab_ids,
 )
-from risingwave_tpu_torch.expr.agg import count_star
+from risingwave_tpu_torch.expr import ExprProgram, FuncCall, call, col, lit
+from risingwave_tpu_torch.expr.agg import agg_max, count_star
+from risingwave_tpu_torch.expr.transforms import (
+    TumbleEndTransform, TumbleStartTransform,
+)
 from risingwave_tpu_torch.meta import BarrierCoordinator
 from risingwave_tpu_torch.ops import hash_table as ht
 from risingwave_tpu_torch.ops import kernels
 from risingwave_tpu_torch.state import MemoryStateStore, StateTable
 from risingwave_tpu_torch.stream import (
-    Actor, DeviceBlackholeSinkExecutor, HashAggExecutor, HopWindowExecutor,
-    MaterializeExecutor, SourceExecutor,
+    Actor, BroadcastDispatcher, Channel, ChannelInput,
+    DeviceBlackholeSinkExecutor, Executor, HashAggExecutor,
+    HopWindowExecutor, MaterializeExecutor, NoOpExecutor, ProjectExecutor,
+    RowIdGenExecutor, SimpleDispatcher, SortedJoinExecutor, SourceExecutor,
 )
 from risingwave_tpu_torch.stream.hash_agg import (
     AggState, agg_apply, agg_apply_plain,
 )
 from risingwave_tpu_torch.stream.hop_window import (
     hop_expand, hop_expand_plain,
+)
+from risingwave_tpu_torch.stream.row_id import row_ids, row_ids_plain
+from risingwave_tpu_torch.stream.sorted_join import (
+    HSENTINEL, NO_WATERMARK, SortedSideState, _Buffers, empty_sorted_side,
+    key_hash, merge, merge_plain, net_pk_runs, probe, probe_plain,
+    store_from_rows,
 )
 from risingwave_tpu_torch.stream.message import BarrierKind
 
@@ -113,31 +143,38 @@ def build_q5(device, chunk_size: int, capacity: int, inter_event_us: int,
     coord.register_source(barrier_q)
     coord.register_actor(1)
     return dict(gen=gen, src=src, hop=hop, agg=agg, mv=mv, head=head,
-                coord=coord)
+                coord=coord, actors=[Actor(1, head, None, coord)])
 
 
-async def drive_paced(q5: dict, rows_per_barrier: int, rounds: int) -> float:
-    """Initial barrier, then `rounds` barriers, each injected once the
-    source has emitted exactly rows_per_barrier more rows (it parks at
-    its rate limit); the last one is the Stop barrier, so no row follows
-    it. Returns the wall seconds of the rounds."""
-    coord, gen = q5["coord"], q5["gen"]
-    task = Actor(1, q5["head"], None, coord).spawn()
+async def drive_paced(pipe: dict, rows_per_barrier: int,
+                      rounds: int) -> float:
+    """Spawn the pipeline's actors, then the Initial barrier, then
+    `rounds` barriers, each injected once the source has emitted exactly
+    rows_per_barrier more rows (it parks at its rate limit); the last one
+    is the Stop barrier, so no row follows it. Returns the wall seconds
+    of the rounds."""
+    coord, gen = pipe["coord"], pipe["gen"]
+    tasks = [a.spawn() for a in pipe["actors"]]
+
+    def check():
+        for t in tasks:
+            if t.done():
+                t.result()
+
     b = await coord.inject_barrier(kind=BarrierKind.INITIAL)
     await coord.wait_collected(b)
     t0 = time.perf_counter()
     for r in range(1, rounds + 1):
         while gen.offset < r * rows_per_barrier:
-            if task.done():
-                task.result()
+            check()
             await asyncio.sleep(0)
         if r < rounds:
             b = await coord.inject_barrier()
             await coord.wait_collected(b)
         else:
-            await coord.stop_all({1})
+            await coord.stop_all({a.actor_id for a in pipe["actors"]})
     wall = time.perf_counter() - t0
-    await task
+    await asyncio.gather(*tasks)
     return wall
 
 
@@ -209,6 +246,205 @@ def live_groups(agg: HashAggExecutor) -> dict:
 
 def mv_groups(mv: StateTable) -> dict:
     return {(row[0], row[1]): row[2] for _, row in mv.iter_all()}
+
+
+# ------------------------------------------------------------ q7 wiring
+
+Q7_W = 10_000_000           # TUMBLE window, microseconds
+Q7_LAG_US = 20_000_000      # source watermark lag (bench.py's 2 * W)
+Q7_JOIN_CAPACITY = 1 << 19
+Q7_AGG_CAPACITY = 1 << 13
+# What the JAX planner builds for bench.py's _q7_ddl() (read from its
+# stream graph): the join's band cleaning specs, sides' append-only flags
+# and match factors; the agg cleans on window_end in transfer-free mode.
+Q7_CLEAN_SPECS = (("band", 3, 1, -Q7_W, None), ("band", 1, 3, 0, 1))
+
+
+class DeviceCollectSinkExecutor(Executor):
+    """Sink that appends every visible row, with its sign, to buffers on
+    the device (no host sync per chunk); `rows()` copies them out once.
+    Rows past `capacity` are counted in `dropped`, never written."""
+
+    def __init__(self, input: Executor, capacity: int, device):
+        self.input = input
+        self.schema = input.schema
+        self.pk_indices = getattr(input, "pk_indices", ())
+        self.identity = "DeviceCollectSink"
+        self.capacity = capacity
+        dev = torch.device(device)
+        self.count = torch.zeros((), dtype=torch.int64, device=dev)
+        self.sign = torch.zeros(capacity + 1, dtype=torch.int8, device=dev)
+        self.data = [torch.zeros(capacity + 1, dtype=f.data_type.torch_dtype,
+                                 device=dev) for f in self.schema]
+        self.valid = [torch.zeros(capacity + 1, dtype=torch.bool, device=dev)
+                      for _ in self.schema]
+
+    def _append(self, chunk: StreamChunk) -> None:
+        vis = chunk.vis
+        rank = self.count + torch.cumsum(vis.to(torch.int64), 0) - 1
+        # the trash row `capacity` takes invisible and overflowing rows
+        tgt = torch.where(vis & (rank < self.capacity), rank, self.capacity)
+        self.sign[tgt] = op_sign(chunk.ops).to(torch.int8)
+        for buf, vb, c in zip(self.data, self.valid, chunk.columns):
+            buf[tgt] = c.data
+            vb[tgt] = c.valid_mask()
+        self.count += vis.sum()
+
+    async def execute(self):
+        async for msg in self.input.execute():
+            if isinstance(msg, StreamChunk):
+                self._append(msg)
+            yield msg
+
+    def rows(self) -> tuple[Counter, int]:
+        """(net multiset of rows, rows that did not fit)."""
+        n = int(self.count)
+        k = min(n, self.capacity)
+        sign = self.sign[:k].cpu().numpy()
+        cols = [d[:k].cpu().numpy() for d in self.data]
+        valid = [v[:k].cpu().numpy() for v in self.valid]
+        net: Counter = Counter()
+        for r in range(k):
+            row = tuple(int(c[r]) if v[r] else None
+                        for c, v in zip(cols, valid))
+            net[row] += int(sign[r])
+        return Counter({r: c for r, c in net.items() if c}), n - k
+
+
+def build_q7(device, chunk_size: int, inter_event_us: int,
+             rows_per_barrier: int, join_capacity: int = Q7_JOIN_CAPACITY,
+             agg_capacity: int = Q7_AGG_CAPACITY, lag_us: int = Q7_LAG_US,
+             collect: int = 0):
+    """Nexmark q7 as the JAX planner deploys bench.py's _q7_ddl(): five
+    fragments, one actor each.
+      1 source (watermarks, lag), broadcast to 2 and 3;
+      2 NoOp -> Project[$0,$1,$2,$5] -> RowIdGen   (join left, append-only)
+      3 Project(+tumble_start, tumble_end of $5) -> Project[$8,$2];
+      4 HashAgg(max(price) group by window_end, cleaning on it)
+        -> Project[$1,$0]                           (join right, retracting)
+      5 SortedJoin(price = maxprice, band condition) -> Project -> sink.
+    The sink is the device blackhole, or with collect > 0 a device sink
+    that keeps up to `collect` output rows."""
+    store = MemoryStateStore()
+    coord = BarrierCoordinator(store)
+    barrier_q: asyncio.Queue = asyncio.Queue()
+    coord.register_source(barrier_q)
+    gen = NexmarkGenerator("bid", chunk_size=chunk_size,
+                           cfg=NexmarkConfig(inter_event_us=inter_event_us),
+                           device=device)
+    src = SourceExecutor(1, gen, barrier_q, emit_watermarks=True,
+                         watermark_lag_us=lag_us,
+                         rate_limit_rows_per_barrier=rows_per_barrier)
+    bid = src.schema
+    TS, I64 = DataType.TIMESTAMP, DataType.INT64
+    ch2, ch3, ch4, ch5l, ch5r = (Channel() for _ in range(5))
+
+    def refs(sch, idx):
+        return [col(i, sch[i].data_type) for i in idx]
+
+    left = RowIdGenExecutor(ProjectExecutor(
+        NoOpExecutor(ChannelInput(ch2, bid)), refs(bid, (0, 1, 2, 5)),
+        names=["auction", "bidder", "price", "date_time"]), instance=2)
+    tumble = ProjectExecutor(
+        ChannelInput(ch3, bid),
+        refs(bid, range(7)) + [
+            call("tumble_start", col(5, TS), lit(Q7_W)),
+            call("tumble_end", col(5, TS), lit(Q7_W))],
+        names=list(bid.names) + ["window_start", "window_end"],
+        watermark_transforms={5: [(7, TumbleStartTransform(Q7_W)),
+                                  (8, TumbleEndTransform(Q7_W))]})
+    windows = ProjectExecutor(tumble, refs(tumble.schema, (8, 2)),
+                              names=["window_end", "a2"])
+    agg = HashAggExecutor(
+        ChannelInput(ch4, windows.schema), group_key_indices=[0],
+        agg_calls=[agg_max(1, I64, append_only=True)],
+        capacity=agg_capacity, cleaning_watermark_col=0,
+        watchdog_interval=None, device=device)
+    right = ProjectExecutor(agg, refs(agg.schema, (1, 0)),
+                            names=["maxprice", "window_end"])
+    cond = call("and",
+                call("greater_than", col(3, TS),
+                     call("subtract", col(6, TS), lit(Q7_W))),
+                call("less_than_or_equal", col(3, TS), col(6, TS)))
+    join = SortedJoinExecutor(
+        ChannelInput(ch5l, left.schema), ChannelInput(ch5r, right.schema),
+        left_key_indices=[2], right_key_indices=[0], left_pk_indices=[4],
+        right_pk_indices=[1], capacity=join_capacity, match_factor=2,
+        match_factors=(2, 2), condition=cond, append_only=(True, False),
+        clean_specs=Q7_CLEAN_SPECS, watchdog_interval=None, device=device)
+    out = ProjectExecutor(join, refs(join.schema, (0, 2, 1, 3, 4, 6)),
+                          names=["auction", "price", "bidder", "date_time",
+                                 "_sk4", "_sk6"])
+    head = (DeviceCollectSinkExecutor(out, collect, device) if collect
+            else DeviceBlackholeSinkExecutor(out))
+    actors = [Actor(1, src, BroadcastDispatcher([ch2, ch3]), coord),
+              Actor(2, left, SimpleDispatcher(ch5l), coord),
+              Actor(3, windows, SimpleDispatcher(ch4), coord),
+              Actor(4, right, SimpleDispatcher(ch5r), coord),
+              Actor(5, head, None, coord)]
+    for a in actors:
+        coord.register_actor(a.actor_id)
+    return dict(gen=gen, src=src, agg=agg, join=join, head=head,
+                coord=coord, actors=actors)
+
+
+def _bid_prefix(n_bids: int, cfg: NexmarkConfig, device, idx,
+                batch: int = 1 << 20) -> list:
+    """Columns `idx` of bids [0, n_bids) from the plain generator, as
+    numpy arrays."""
+    vocabs = {k: torch.tensor(v, dtype=torch.int32, device=device)
+              for k, v in vocab_ids().items()}
+    parts = []
+    for off in range(0, n_bids, batch):
+        cols = gen_bid_columns_plain(off, min(batch, n_bids - off), cfg,
+                                     vocabs, device)
+        parts.append([cols[i].cpu().numpy() for i in idx])
+    return [np.concatenate(x) for x in zip(*parts)]
+
+
+def q7_delete_misses(n_bids: int, per_barrier: int, cfg: NexmarkConfig,
+                     device) -> int:
+    """The delete misses q7 must count when a barrier spans more event
+    time than the watermark lag (bench.py's geometry): a window whose
+    bids straddle a barrier is flushed by the agg at the first barrier,
+    and its max row is evicted from the join's right side during the
+    next epoch, before the agg's U-/U+ for it arrives at the second
+    barrier. So each straddling window whose max rises after the
+    barrier is one miss. (At one such barrier a chunk this is what the
+    JAX executor counts; tests/test_torch_q7_pipeline.py holds both.)"""
+    price, ts = _bid_prefix(n_bids, cfg, device, (2, 5))
+    end = ts - ts % Q7_W + Q7_W               # monotone in the bid index
+    misses = 0
+    for k in range(per_barrier, n_bids, per_barrier):
+        if end[k - 1] != end[k]:
+            continue
+        lo = int(np.searchsorted(end, end[k], side="left"))
+        hi = int(np.searchsorted(end, end[k], side="right"))
+        misses += int(price[k:hi].max() > price[lo:k].max())
+    return misses
+
+
+def q7_recount(n_bids: int, cfg: NexmarkConfig, device,
+               batch: int = 1 << 20) -> Counter:
+    """q7's result over bids [0, n_bids), recounted with numpy like
+    bench.py's _numpy_q7: each bid joins the window whose (end - W, end]
+    holds its time, and is output when its price is that window's max
+    (the max over the bids whose tumble window ends there). Rows are
+    (auction, price, bidder, date_time, window_end)."""
+    auction, bidder, price, ts = _bid_prefix(n_bids, cfg, device,
+                                             (0, 1, 2, 5), batch)
+    own_end = ts - ts % Q7_W + Q7_W
+    ends, inv = np.unique(own_end, return_inverse=True)
+    mx = np.full(ends.shape[0], np.iinfo(np.int64).min)
+    np.maximum.at(mx, inv, price)
+    join_end = np.where(ts % Q7_W == 0, ts, own_end)
+    pos = np.searchsorted(ends, join_end)
+    ok = (pos < ends.shape[0])
+    ok[ok] &= ends[pos[ok]] == join_end[ok]
+    ok[ok] &= mx[pos[ok]] == price[ok]
+    return Counter(zip(auction[ok].tolist(), price[ok].tolist(),
+                       bidder[ok].tolist(), ts[ok].tolist(),
+                       join_end[ok].tolist()))
 
 
 # ------------------------------------------------------------- K3 checks
@@ -562,6 +798,515 @@ def k4_all_kinds_err(dev) -> int:
     return err
 
 
+# ---------------------------------------------------------- q7 kernels
+
+def exact_err(xs, ys) -> int:
+    """0 when every paired tensor is bit-identical (floats compared as
+    their bits), else the largest absolute difference, at least 1."""
+    err = 0
+    for x, y in zip(xs, ys):
+        if x is None and y is None:
+            continue
+        if x is None or y is None or x.shape != y.shape \
+                or x.dtype != y.dtype:
+            return max(err, 1)
+        if x.dtype == torch.float64:
+            x, y = x.view(torch.int64), y.view(torch.int64)
+        ne = x != y
+        if bool(ne.any()):
+            d = (x.double() - y.double()).abs().max()
+            err = max(err, 1, int(d))
+    return err
+
+
+def columns_err(xs, ys) -> int:
+    return exact_err([c.data for c in xs] + [c.valid for c in xs],
+                     [c.data for c in ys] + [c.valid for c in ys])
+
+
+def store_err(a: SortedSideState, b: SortedSideState) -> int:
+    return exact_err([a.khash, a.degree, a.n, *a.cols, *a.valids],
+                     [b.khash, b.degree, b.n, *b.cols, *b.valids])
+
+
+def _store_row_bytes(st: SortedSideState) -> int:
+    return 8 + 4 + sum(c.element_size() + 1 for c in st.cols)
+
+
+def k5_mixed_err(dev, n: int) -> int:
+    """K5 against the tree walk over every ported function: NULLs,
+    negative timestamps, int32 wrap, int/float promotion, Kleene logic."""
+    g = torch.Generator().manual_seed(11)
+    TS, I64, I32, F64, B = (DataType.TIMESTAMP, DataType.INT64,
+                            DataType.INT32, DataType.FLOAT64,
+                            DataType.BOOLEAN)
+    a = torch.randint(-10**6, 10**6, (n,), generator=g)
+    c = torch.randint(-2**31, 2**31, (n,), generator=g).to(torch.int32)
+    f = torch.randint(-4000, 4000, (n,), generator=g) / 8.0
+    p = torch.rand(n, generator=g) < 0.5
+    ts = torch.randint(-50_000_000, 50_000_000, (n,), generator=g)
+
+    def null():
+        return (torch.rand(n, generator=g) < 0.8).to(dev)
+
+    cols = [Column(a.to(dev), null()), Column(c.to(dev), null()),
+            Column(f.to(dev).double(), null()), Column(p.to(dev), null()),
+            Column(ts.to(dev), null())]
+    ca, cc, cf, cp, cts = (col(0, I64), col(1, I32), col(2, F64),
+                           col(3, B), col(4, TS))
+    exprs = [call("add", ca, cf), call("multiply", cc, cc),
+             call("subtract", ca, lit(7)), call("less_than", ca, cf),
+             call("and", cp, call("greater_than", ca, lit(0))),
+             call("or", cp, lit(None, B)), call("not", cp),
+             call("is_null", cf), call("tumble_start", cts, lit(Q7_W)),
+             call("tumble_end", cts, lit(7_000_000)),
+             FuncCall("cast", (cf,), I64), FuncCall("cast", (ca,), F64),
+             FuncCall("cast", (ca,), I32), FuncCall("cast", (ca,), B)]
+    err = 0
+    for at in (0, 7):                  # two launches within K5's limits
+        prog = ExprProgram(exprs[at:at + 7])
+        err = max(err, columns_err(prog.eval(cols), prog.eval_plain(cols)))
+    return err
+
+
+def phase_kernels_q7(dev, n: int = 131072, join_cap: int = Q7_JOIN_CAPACITY,
+                     agg_cap: int = Q7_AGG_CAPACITY) -> dict:
+    """K5-K8 against their plain versions at q7's shapes (bids per chunk
+    n, join capacity join_cap, agg capacity agg_cap), plus K3/K4 at the
+    agg's shape and the two plain-torch sorts (B6) of the join."""
+    cfg = NexmarkConfig(inter_event_us=250)
+    gen = NexmarkGenerator("bid", chunk_size=n, cfg=cfg, device=dev)
+    gen.seek(40 * n)
+    prev_chunk = gen.next_chunk()
+    chunk = gen.next_chunk()
+    res = {}
+    TS = DataType.TIMESTAMP
+    M = 2 * n
+    on_card = torch.device(dev).type == "cuda"
+
+    # ---- K8: row ids of a chunk
+    base = (2 << 55) | (1_000_000_000 << 15)
+    err = exact_err([row_ids(base, n, dev)], [row_ids_plain(base, n, dev)])
+    if err:
+        raise AssertionError(f"K8 differs from plain by {err}")
+    res["row_id"] = dict(
+        max_abs_err=err,
+        **timings(lambda: row_ids(base, n, dev),
+                  lambda: row_ids_plain(base, n, dev),
+                  library_fn=lambda: torch.arange(
+                      base, base + n, dtype=torch.int64, device=dev)),
+        bound_ms=bytes_bound_ms(n * 8), bound_by="bytes")
+    emit({"phase": "kernel", "name": "row_id", **res["row_id"]})
+
+    # ---- K5: q7's TUMBLE projection, every function with NULLs, and
+    # the band condition in mask mode over a [2n] match buffer
+    tumble = ExprProgram([call("tumble_start", col(5, TS), lit(Q7_W)),
+                          call("tumble_end", col(5, TS), lit(Q7_W))])
+    err = columns_err(tumble.eval(chunk.columns)[0:2],
+                      tumble.eval_plain(chunk.columns)[0:2])
+    err = max(err, k5_mixed_err(dev, n))
+    g = torch.Generator().manual_seed(13)
+    t3 = torch.randint(0, 40_000_000, (M,), generator=g).to(dev)
+    t6 = (t3.cpu() + torch.randint(-15_000_000, 15_000_000, (M,),
+                                   generator=g)).to(dev)
+    band_cols = [Column(torch.zeros(M, dtype=torch.int64, device=dev))] * 3
+    band_cols += [Column(t3, (torch.rand(M, generator=g) < 0.9).to(dev)),
+                  Column(torch.zeros(M, dtype=torch.int64, device=dev)),
+                  Column(torch.zeros(M, dtype=torch.int64, device=dev)),
+                  Column(t6, (torch.rand(M, generator=g) < 0.9).to(dev))]
+    band = ExprProgram([call("and",
+                             call("greater_than", col(3, TS),
+                                  call("subtract", col(6, TS), lit(Q7_W))),
+                             call("less_than_or_equal", col(3, TS),
+                                  col(6, TS)))])
+    start = (torch.rand(M, generator=g) < 0.7).to(dev)
+    mk, mp = start.clone(), start.clone()
+    band.and_into(band_cols, mk)
+    band.and_into_plain(band_cols, mp)
+    err = max(err, exact_err([mk], [mp]))
+    if err:
+        raise AssertionError(f"K5 differs from plain by {err}")
+    res["expr_eval"] = dict(
+        max_abs_err=err,
+        **timings(lambda: tumble.eval(chunk.columns),
+                  lambda: tumble.eval_plain(chunk.columns)),
+        bound_ms=bytes_bound_ms(n * 8 + 2 * n * 8), bound_by="bytes")
+    emit({"phase": "kernel", "name": "expr_eval", **res["expr_eval"]})
+
+    # ---- the join's two sides as the pipeline holds them: a left store
+    # of the previous chunk's bids, a right store of (max price, window)
+    # rows whose prices are the chunk's
+    def left_cols(ch, first_id):
+        c = ch.columns
+        return [c[0].data, c[1].data, c[2].data, c[5].data,
+                row_ids_plain(first_id, ch.capacity, dev)]
+
+    lcols = left_cols(chunk, 1 << 40)
+    left_store = store_from_rows(left_cols(prev_chunk, 0), join_cap)
+    n_right = max(16, n // 512)
+    pick = torch.randint(0, n, (n_right,), generator=g).to(dev)
+    right_store = store_from_rows(
+        [lcols[2][pick], (torch.arange(n_right, device=dev) + 1) * Q7_W],
+        join_cap)
+
+    # ---- K6: left chunk probing the right store; a right flush chunk
+    # probing the left store; a hot key past the match buffer
+    def probe_case(key_cols, active, is_ins, ops, other, other_key_idx,
+                   own, m):
+        ek = torch.zeros(3, dtype=torch.int32, device=dev)
+        ep = torch.zeros(3, dtype=torch.int32, device=dev)
+        a = probe(key_cols, active, is_ins, ops, other, other_key_idx, own,
+                  m, ek, _Buffers(torch.device(dev)))
+        b = probe_plain(key_cols, active, is_ins, ops, other, other_key_idx,
+                        own, m, ep)
+        e = exact_err([*a[:2], a[4], a[5], ek], [*b[:2], b[4], b[5], ep])
+        e = max(e, columns_err(a[2] + a[3], b[2] + b[3]))
+        return e, int(b[5].sum()), int(ep[0])
+
+    own_l = [Column(x) for x in lcols]
+    vis = chunk.vis
+    err, matches, _ = probe_case([lcols[2]], vis, vis, chunk.ops,
+                                 right_store, (0,), own_l, M)
+    nr = 2 * agg_cap
+    rk = lcols[2][:nr].clone()
+    rops = torch.tensor([2, 3], dtype=torch.int8).repeat(nr // 2).to(dev)
+    ract = (torch.rand(nr, generator=g) < 0.9).to(dev)
+    own_r = [Column(rk), Column(lcols[3][:nr].clone())]
+    e2, _, _ = probe_case([rk], ract, ract, rops, left_store, (2,), own_r,
+                          2 * nr)
+    hot_store = store_from_rows(
+        [torch.full((3000,), 7, dtype=torch.int64, device=dev),
+         torch.arange(3000, dtype=torch.int64, device=dev)], 4096)
+    hk = torch.full((100,), 7, dtype=torch.int64, device=dev)
+    hv = torch.ones(100, dtype=torch.bool, device=dev)
+    e3, _, hot_over = probe_case(
+        [hk], hv, hv, torch.zeros(100, dtype=torch.int8, device=dev),
+        hot_store, (0,), [Column(hk)], 200 * 1000)
+    err = max(err, e2, e3)
+    if err or hot_over != 100 * 3000 - 200 * 1000:
+        raise AssertionError(f"K6 differs from plain by {err} "
+                             f"(hot-key overflow {hot_over})")
+    errs = torch.zeros(3, dtype=torch.int32, device=dev)
+    bufs = _Buffers(torch.device(dev))
+    pargs = ([lcols[2]], vis, vis, chunk.ops, right_store, (0,), own_l, M)
+    # what K6 must move on this data: per chunk row its key, active,
+    # is_ins and op in and h/ins_h/lo/offs out; the chunk rows that match
+    # (plus row N-1, which the unused slots gather) and the other side's
+    # rows they match, each read once; the [M] buffer written once. The
+    # binary searches touch a few KB of the other side's khash: not
+    # counted.
+    live_r = right_store.cols[0][: int(right_store.n)]
+    own_rows = int((vis & torch.isin(lcols[2], live_r)).sum()) + 1
+    oth_rows = int(torch.isin(live_r, lcols[2][vis]).sum())
+    own_row_b = sum(c.element_size() for c in lcols)
+    oth_row_b = sum(c.element_size() + 1 for c in right_store.cols)
+    k6_bytes = (n * (8 + 1 + 1 + 1) + n * 4 * 8 + own_rows * own_row_b
+                + oth_rows * oth_row_b + M * (own_row_b + oth_row_b + 2))
+    res["sorted_join_probe"] = dict(
+        max_abs_err=err,
+        **timings(lambda: probe(*pargs, errs, bufs),
+                  lambda: probe_plain(*pargs, errs)),
+        bound_ms=bytes_bound_ms(k6_bytes), bound_by="bytes",
+        matches=matches, matched_rows=(own_rows - 1, oth_rows),
+        hot_key_overflow=hot_over)
+    emit({"phase": "kernel", "name": "sorted_join_probe",
+          **res["sorted_join_probe"]})
+
+    # ---- K7: the chunk merged into the left store with inline eviction;
+    # a retracting right side (update pairs, deletes of absent rows);
+    # row overflow; eviction alone
+    def merge_case(own, nh, iorder, n_new, cols, is_del, h, m, match,
+                   clean, wm):
+        ek = torch.zeros(3, dtype=torch.int32, device=dev)
+        ep = torch.zeros(3, dtype=torch.int32, device=dev)
+        spare = empty_sorted_side(own.capacity,
+                                  [c.dtype for c in own.cols], dev)
+        # a used second store: its stale rows must be cleared
+        spare.khash.fill_(5)
+        spare.degree.fill_(9)
+        for c, v in zip(spare.cols, spare.valids):
+            c.fill_(3)
+            v.fill_(True)
+        spare.n.fill_(own.capacity)
+        a = merge(own, nh, iorder, n_new, cols, is_del, h, m, match, clean,
+                  wm, ek, spare if on_card else None,
+                  _Buffers(torch.device(dev)))
+        b = merge_plain(own, nh, iorder, n_new, cols, is_del, h, m, match,
+                        clean, wm, ep)
+        return max(store_err(a, b), exact_err([ek], [ep])), ep
+
+    lkh = key_hash([lcols[2]])
+    nh, iorder = torch.sort(lkh, stable=True)
+    n_new = torch.tensor(n, dtype=torch.int32, device=dev)
+    chunk_cols = [Column(x) for x in lcols]
+    wm = int(left_store.cols[3][: int(left_store.n)].median())
+    err, _ = merge_case(left_store, nh, iorder, n_new, chunk_cols, None,
+                        None, M, (2, 4), 3, wm)
+    # right side: update pairs on stored windows, deletes of absent ones
+    rs = right_store
+    nrs = int(rs.n)
+    pk = torch.cat([rs.cols[1][:nrs], rs.cols[1][:nrs],
+                    rs.cols[1][:nrs] + 1])
+    price = torch.cat([rs.cols[0][:nrs], rs.cols[0][:nrs] + 1,
+                       rs.cols[0][:nrs]])
+    uops = torch.cat([torch.full((nrs,), 2, dtype=torch.int8),
+                      torch.full((nrs,), 3, dtype=torch.int8),
+                      torch.full((nrs,), 1, dtype=torch.int8)]).to(dev)
+    order = torch.arange(3 * nrs, device=dev).view(3, nrs).t().reshape(-1)
+    rchunk = StreamChunk((Column(price[order]), Column(pk[order])),
+                         uops[order],
+                         torch.ones(3 * nrs, dtype=torch.bool, device=dev),
+                         None)
+    is_ins, is_del = net_pk_runs(rchunk, rchunk.vis, (1,))
+    rh = key_hash([rchunk.columns[0].data])
+    rnh, rio = torch.sort(torch.where(is_ins, rh, HSENTINEL), stable=True)
+    e2, rerrs = merge_case(rs, rnh, rio, is_ins.sum(dtype=torch.int32),
+                           list(rchunk.columns), is_del, rh, 6 * nrs,
+                           (0, 1), 1, 2 * Q7_W)
+    small = store_from_rows([lcols[2][:40], lcols[3][:40]], 64)
+    e3, oerrs = merge_case(small, nh[:32], torch.arange(32, device=dev),
+                           torch.tensor(32, dtype=torch.int32, device=dev),
+                           [Column(lcols[2][:32]), Column(lcols[3][:32])],
+                           None, None, 64, (0,), None, NO_WATERMARK)
+    empty = torch.empty(0, dtype=torch.int64, device=dev)
+    e4, _ = merge_case(left_store, empty, empty,
+                       torch.zeros((), dtype=torch.int32, device=dev), (),
+                       None, None, 1, (), 3, wm)
+    err = max(err, e2, e3, e4)
+    merrs = [int(x) for x in (rerrs + oerrs).cpu()]
+    # misses: the deletes of absent windows and the update pairs of the
+    # windows that the inline eviction removed first
+    want_miss = nrs + int((rs.cols[1][:nrs] < 2 * Q7_W).sum())
+    if err or merrs[1] != want_miss or merrs[2] != 8:
+        raise AssertionError(f"K7 differs from plain by {err} "
+                             f"(errs {merrs})")
+    spare = empty_sorted_side(join_cap, [c.dtype for c in lcols], dev)
+    errs = torch.zeros(3, dtype=torch.int32, device=dev)
+    margs = (left_store, nh, iorder, n_new, chunk_cols, None, None, M,
+             (2, 4), 3, wm)
+    out = merge_plain(*margs, errs.clone())
+    n_live, n_after = int(left_store.n), int(out.n)
+    k7_bytes = (n_live * _store_row_bytes(left_store)
+                + n * (8 + 8 + sum(c.element_size() for c in lcols))
+                + n_after * _store_row_bytes(left_store))
+    res["sorted_join_merge"] = dict(
+        max_abs_err=err,
+        **timings(lambda: merge(*margs, errs, spare if on_card else None,
+                                bufs),
+                  lambda: merge_plain(*margs, errs)),
+        bound_ms=bytes_bound_ms(k7_bytes), bound_by="bytes",
+        rows_before=n_live, rows_after=n_after, errs=merrs)
+    emit({"phase": "kernel", "name": "sorted_join_merge",
+          **res["sorted_join_merge"]})
+
+    # ---- B6: the join's two plain-torch sorts at q7's shapes
+    ins_h = torch.where(vis, lkh, HSENTINEL)
+    sort_ms, _ = time_ms(lambda: torch.sort(ins_h, stable=True))
+    flush = StreamChunk(tuple(own_r), rops, ract, None)
+    net_ms, _ = time_ms(lambda: net_pk_runs(flush, ract, (1,)))
+    res["b6_sorts"] = dict(sort_ms=sort_ms, sort_rows=n, net_ms=net_ms,
+                           net_rows=nr)
+    emit({"phase": "b6_sorts", **res["b6_sorts"]})
+
+    # ---- K3/K4 at the agg's shape: window_end keys of one chunk (a few
+    # windows, one hot) into an 8192-slot table, MAX(price)
+    wend = tumble.eval(chunk.columns)[1].data.contiguous()
+    base_t = ht.HashTable.empty(agg_cap, [torch.int64], dev)
+    work = ht.HashTable(tuple(k.clone() for k in base_t.keys),
+                        base_t.occupied.clone())
+    tk, tp = (ht.HashTable(tuple(k.clone() for k in base_t.keys),
+                           base_t.occupied.clone()) for _ in range(2))
+    _, sk, nk = ht.lookup_or_insert(tk, [wend], vis)
+    _, sp, np_ = ht.lookup_or_insert_plain(tp, [wend], vis)
+    inv = k3_invariants(base_t, [wend], vis, sk, nk, tk, sp, np_, tp)
+
+    def restore():
+        work.keys[0].copy_(base_t.keys[0])
+        work.occupied.copy_(base_t.occupied)
+
+    spec = agg_max(1, DataType.INT64, append_only=True).spec()
+
+    def fresh():
+        return AggState(
+            table=tk, agg_states=(spec.init_state(agg_cap, dev),),
+            row_count=torch.zeros(agg_cap, dtype=torch.int64, device=dev),
+            dirty=torch.zeros(agg_cap, dtype=torch.bool, device=dev),
+            prev_exists=torch.zeros(agg_cap, dtype=torch.bool, device=dev),
+            prev_emit=(torch.zeros(agg_cap, dtype=torch.int64,
+                                   device=dev),))
+
+    inputs = [(chunk.columns[2].data, None)]
+    sa, sb = fresh(), fresh()
+    ova = torch.zeros((), dtype=torch.int32, device=dev)
+    ovb = torch.zeros((), dtype=torch.int32, device=dev)
+    agg_apply(sa, [spec], sk, chunk.ops, inputs, nk, ova)
+    agg_apply_plain(sb, [spec], sk, chunk.ops, inputs, nk, ovb)
+    k4_err = exact_err([sa.row_count, sa.agg_states[0], sa.dirty, ova],
+                       [sb.row_count, sb.agg_states[0], sb.dirty, ovb])
+    if k4_err or inv["fill_diff"]:
+        raise AssertionError(f"K3/K4 at q7's shape differ: {k4_err}, {inv}")
+    st = fresh()
+    ov = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def zero():
+        st.row_count.zero_()
+        st.agg_states[0].fill_(spec.init)
+        st.dirty.zero_()
+
+    n_groups = int(torch.unique(wend).shape[0])
+    res["agg_at_q7"] = dict(
+        groups=n_groups, k3_checks=inv, k4_max_abs_err=k4_err,
+        hash_table=timings(lambda: ht.lookup_or_insert(work, [wend], vis),
+                           lambda: ht.lookup_or_insert_plain(work, [wend],
+                                                             vis),
+                           setup=restore),
+        hash_agg=timings(lambda: agg_apply(st, [spec], sk, chunk.ops, inputs,
+                                           nk, ov),
+                         lambda: agg_apply_plain(st, [spec], sk, chunk.ops,
+                                                 inputs, nk, ov),
+                         setup=zero),
+        hash_table_bound_ms=bytes_bound_ms(
+            n * (8 + 1 + 4) + n_groups * 2 * 16 * (8 + 1)),
+        hash_agg_bound_ms=bytes_bound_ms(n * (4 + 1 + 8)
+                                         + n_groups * (16 + 8 + 1)))
+    emit({"phase": "agg_at_q7", **res["agg_at_q7"]})
+    return res
+
+
+# -------------------------------------------------------------- q7 runs
+
+def q7_full_run(dev, chunk: int, per_barrier: int, rounds: int,
+                want_misses: int) -> dict:
+    """One full-width q7 run from fresh state: counts set to 0 just
+    before the drive and read just after. The join must count exactly
+    `want_misses` delete misses (q7_delete_misses) and nothing else."""
+    q7 = build_q7(dev, chunk, 250, per_barrier)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    wall = asyncio.run(drive_paced(q7, per_barrier, rounds))
+    launches = {k.name: k.launches for k in kernels.KERNELS.values()}
+    torch.cuda.synchronize()
+    errs = q7["join"].errs()
+    overflow = q7["agg"].overflow()
+    if errs != [0, want_misses, 0] or overflow:
+        raise AssertionError(f"q7: join errs {errs} (want [0, "
+                             f"{want_misses}, 0]), agg overflow {overflow}")
+    missing = [k for k in Q7_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on q7: {missing}")
+    coord = q7["coord"]
+    return dict(
+        bids=q7["gen"].offset, wall_s=wall,
+        bids_per_s=q7["gen"].offset / wall,
+        barrier_p50_s=coord.barrier_latency_percentile(0.5),
+        barrier_max_s=coord.barrier_latency_percentile(1.0),
+        join_errs=errs, agg_overflow=overflow,
+        left_rows=int(q7["join"].sides[0].n),
+        right_rows=int(q7["join"].sides[1].n),
+        sink_chunks=q7["head"].chunks,
+        mem_peak_bytes=torch.cuda.max_memory_allocated(dev),
+        launches=launches)
+
+
+Q7_KERNELS = ("nexmark_bid", "expr_eval", "row_id", "hash_table",
+              "hash_agg", "sorted_join_probe", "sorted_join_merge")
+
+
+def phase_q7_full(dev, repeats: int = 5) -> dict:
+    """q7 at bench.py's width into the device blackhole sink, `repeats`
+    times: the first run's launches feed the kernels line."""
+    chunk = 131072
+    per_barrier, rounds = 8 * chunk, 14
+    want_misses = q7_delete_misses(per_barrier * rounds, per_barrier,
+                                   NexmarkConfig(inter_event_us=250), dev)
+    runs = [q7_full_run(dev, chunk, per_barrier, rounds, want_misses)
+            for _ in range(repeats)]
+    first = runs[0]
+    rates = [r["bids_per_s"] for r in runs]
+    return dict(
+        bids=first["bids"], barriers=rounds, chunks=first["bids"] // chunk,
+        repeats=repeats, wall_s=statistics.median(r["wall_s"] for r in runs),
+        bids_per_s=statistics.median(rates), bids_per_s_min=min(rates),
+        bids_per_s_max=max(rates), want_delete_misses=want_misses,
+        barrier_p50_s=statistics.median(r["barrier_p50_s"] for r in runs),
+        barrier_max_s=statistics.median(r["barrier_max_s"] for r in runs),
+        runs=[{k: r[k] for k in ("wall_s", "bids_per_s", "barrier_p50_s",
+                                 "barrier_max_s", "join_errs",
+                                 "mem_peak_bytes")} for r in runs],
+        **{k: first[k] for k in ("join_errs", "agg_overflow", "left_rows",
+                                 "right_rows", "sink_chunks",
+                                 "mem_peak_bytes", "launches")})
+
+
+def phase_q7_profile(dev, full: dict, rounds: int = 3) -> dict:
+    """Where q7's time goes: a fresh full-width run of a few barriers
+    under torch.profiler; the idle share against phase q7_full's
+    unprofiled median wall per chunk."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    chunk = 131072
+    per_barrier = 8 * chunk
+    q7 = build_q7(dev, chunk, 250, per_barrier)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall = asyncio.run(drive_paced(q7, per_barrier, rounds))
+        torch.cuda.synchronize()
+    kev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name: dict = {}
+    for e in kev:
+        name = e.name[:60]
+        t, c = by_name.get(name, (0.0, 0))
+        by_name[name] = (t + e.time_range.elapsed_us(), c + 1)
+    busy_s = sum(t for t, _ in by_name.values()) / 1e6
+    chunks = q7["gen"].offset // chunk
+    busy_per_chunk = busy_s / chunks
+    wall_per_chunk = full["wall_s"] / full["chunks"]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:16]
+    return dict(
+        rounds=rounds, chunks=chunks, wall_s=wall, device_busy_s=busy_s,
+        device_busy_per_chunk_s=busy_per_chunk,
+        unprofiled_wall_per_chunk_s=wall_per_chunk,
+        device_idle_share=(1 - busy_per_chunk / wall_per_chunk)
+        if kev else None,
+        device_idle_share_profiled=(1 - busy_s / wall) if kev else None,
+        device_events=len(kev),
+        top_kernels=[{"name": nm, "ms": t / 1e3, "count": c}
+                     for nm, (t, c) in top])
+
+
+def phase_q7_check(dev, chunk: int = 32768, rounds: int = 40) -> dict:
+    """The correctness gate: q7 with the planner's wiring, full
+    capacities and inter_event_us=250, one barrier per chunk of `chunk`
+    bids (8.2 s of event time, under the lag minus the window, so the
+    band cleaning never evicts a bid before its window's max arrives).
+    The device sink's net output must equal the recount; every error
+    counter must be 0."""
+    q7 = build_q7(dev, chunk, 250, chunk, collect=1 << 16)
+    asyncio.run(drive_paced(q7, chunk, rounds))
+    torch.cuda.synchronize()
+    got, dropped = q7["head"].rows()
+    got = Counter({(r[0], r[1], r[2], r[3], r[5]): c for r, c in got.items()})
+    want = q7_recount(q7["gen"].offset, NexmarkConfig(inter_event_us=250),
+                      dev)
+    errs = q7["join"].errs()
+    overflow = q7["agg"].overflow()
+    if dropped or errs != [0, 0, 0] or overflow:
+        raise AssertionError(f"q7 check: dropped {dropped}, join errs "
+                             f"{errs}, agg overflow {overflow}")
+    if got != want:
+        raise AssertionError(
+            f"q7 output differs from the recount: {sum(got.values())} vs "
+            f"{sum(want.values())} rows, {len(got - want)} extra, "
+            f"{len(want - got)} missing")
+    if len(want) < 10:
+        raise AssertionError("q7 check: too few output rows to mean much")
+    return dict(bids=q7["gen"].offset, barriers=rounds, rows=len(want),
+                output_changes=int(q7["head"].count), join_errs=errs,
+                agg_overflow=overflow)
+
+
 def q5_full_run(dev, cfg: NexmarkConfig, chunk: int, cap: int,
                 per_barrier: int, rounds: int) -> dict:
     """One full-width q5 run from fresh state, checked: counts set to 0
@@ -578,7 +1323,7 @@ def q5_full_run(dev, cfg: NexmarkConfig, chunk: int, cap: int,
     overflow = agg.overflow()
     if overflow:
         raise AssertionError(f"q5 device overflow {overflow}")
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in Q5_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on q5: {missing}")
     t0 = time.perf_counter()
@@ -600,6 +1345,9 @@ def q5_full_run(dev, cfg: NexmarkConfig, chunk: int, cap: int,
         mem_allocated_bytes=torch.cuda.memory_allocated(dev),
         mem_peak_bytes=torch.cuda.max_memory_allocated(dev),
         launches=launches)
+
+
+Q5_KERNELS = ("nexmark_bid", "hop_window", "hash_table", "hash_agg")
 
 
 def phase_q5_full(dev, repeats: int = 5) -> dict:
@@ -737,20 +1485,27 @@ def main(argv) -> int:
           "python": sys.version.split()[0], "build_s": build_s,
           "ptxas": logs})
     res = phase_kernels(dev)
+    res.update(phase_kernels_q7(dev))
     q5 = phase_q5_full(dev)
     emit({"phase": "q5_full", "nvidia_smi": smi, **q5})
     emit({"phase": "q5_profile",
           **phase_q5_profile(dev, q5, host="--host-profile" in argv)})
     mv = phase_q5_mv(dev)
     emit({"phase": "q5_mv", **mv})
+    q7 = phase_q7_full(dev)
+    emit({"phase": "q7_full", "nvidia_smi": smi, **q7})
+    emit({"phase": "q7_profile", **phase_q7_profile(dev, q7)})
+    emit({"phase": "q7_check", **phase_q7_check(dev)})
     rows = []
     for name, k in kernels.KERNELS.items():
         r = res[name]
+        # each kernel's launches come from the run of its own slice's path
+        path = q5 if name in Q5_KERNELS else q7
         rows.append({
             "name": name, "route": "cuda",
             "source": str(k.source.relative_to(
                 os.path.dirname(os.path.abspath(__file__)))),
-            "replaces": k.replaces, "launches": q5["launches"][name],
+            "replaces": k.replaces, "launches": path["launches"][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

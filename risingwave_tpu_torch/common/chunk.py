@@ -45,6 +45,12 @@ class Column:
     def capacity(self) -> int:
         return self.data.shape[0]
 
+    def valid_mask(self) -> torch.Tensor:
+        if self.valid is None:
+            return torch.ones(self.capacity, dtype=torch.bool,
+                              device=self.data.device)
+        return self.valid
+
     def take(self, idx: torch.Tensor) -> "Column":
         return Column(self.data[idx],
                       None if self.valid is None else self.valid[idx])

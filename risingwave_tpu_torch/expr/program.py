@@ -1,0 +1,346 @@
+"""Kernel K5: an expression list compiled to one postfix program and run
+in one launch (csrc/expr_eval.cu).
+
+`ExprProgram(exprs)` is what executors hold. On a CPU tensor it walks
+each tree with PyTorch ops (`Expr.eval`, the plain version); on a CUDA
+tensor it launches K5 once per list, or raises (also for a list past
+K5's limits on program length, inputs and outputs). Expressions
+that are a bare `InputRef` are a column reselection: they return the
+input column itself and cost no launch; when every expression is one,
+nothing launches at all.
+
+The compiler reproduces the reference's dtype rules exactly: integers of
+every width are widened to int64 in a register and narrowed back where
+jnp would have wrapped (WRAP), an int operand meeting a float one is
+converted first (I2F), and each result is cast to the node's return
+type. A program is compiled once per input signature (each referenced
+column's dtype and whether it has a validity mask) and cached with its
+ctypes argument arrays.
+
+Not compiled (NotImplementedError): float32 operands, arithmetic on
+booleans, and functions outside the ported registry entries.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import struct
+from typing import Optional, Sequence
+
+import torch
+
+from ..common.chunk import Column
+from ..ops import kernels
+from .ir import Expr, FuncCall, InputRef, Literal
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+
+# K5. Replaces expr/ir.py:FuncCall.eval (94) over expr/functions.py.
+K_EXPR = kernels.register(kernels.CudaKernel(
+    "expr_eval",
+    replaces="risingwave_tpu/expr/ir.py:94",
+    functions={"rw_expr_eval": [
+        ctypes.POINTER(_I), ctypes.POINTER(_I), ctypes.POINTER(_L), _I, _I,
+        ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.POINTER(_I), _I,
+        ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.POINTER(_I), _P, _L,
+        _P]}))
+
+MAX_CODE, MAX_IN, MAX_OUT, MAX_STACK = 48, 16, 8, 16   # csrc/expr_eval.cu
+
+# opcodes (csrc/expr_eval.cu keeps the same numbers)
+(LOAD, CONST, NUL, ADD_I, SUB_I, MUL_I, ADD_F, SUB_F, MUL_F, CMP_I, CMP_F,
+ AND, OR, NOT, IS_NULL, IS_NOT_NULL, I2F, F2I, I2B, F2B, WRAP, TSTART, TEND,
+ OUT, MASK) = range(25)
+CMP_CODES = {"equal": 0, "not_equal": 1, "less_than": 2,
+             "less_than_or_equal": 3, "greater_than": 4,
+             "greater_than_or_equal": 5}
+_ARITH = {"add": (ADD_I, ADD_F), "subtract": (SUB_I, SUB_F),
+          "multiply": (MUL_I, MUL_F)}
+_TYPE_CODES = {torch.int64: 0, torch.int32: 1, torch.int16: 2, torch.int8: 3,
+               torch.bool: 4, torch.float64: 5}
+_BITS = {torch.int64: 64, torch.int32: 32, torch.int16: 16, torch.int8: 8,
+         torch.bool: 8}
+
+
+def _kind(dtype: torch.dtype) -> str:
+    """Register kind: 'f' (float64 bits) or 'i' (int64; bools are 0/1)."""
+    if dtype == torch.float64:
+        return "f"
+    if dtype in _BITS:
+        return "i"
+    raise NotImplementedError(f"K5 does not evaluate {dtype} values")
+
+
+class _Compiler:
+    """Postfix code for one expression list under one input signature:
+    `sig[i]` = (dtype, has_valid) of input column i (None if the list
+    never reads it)."""
+
+    def __init__(self, sig):
+        self.sig = sig
+        self.code: list[tuple[int, int, int]] = []
+        self.inputs: list[int] = []     # input column -> program slot
+        self.depth = 0
+        self.max_depth = 0
+
+    def _op(self, op: int, arg: int = 0, imm: int = 0, push: int = 0):
+        self.code.append((op, arg, imm))
+        self.depth += push
+        self.max_depth = max(self.max_depth, self.depth)
+
+    # static facts about a node: (jnp dtype of its value, nullable)
+    def info(self, e: Expr):
+        if isinstance(e, InputRef):
+            dt, has_valid = self.sig[e.index]
+            return dt, has_valid
+        if isinstance(e, Literal):
+            return e.ret_type.torch_dtype, e.value is None
+        if isinstance(e, FuncCall):
+            infos = [self.info(a) for a in e.args]
+            if e.name in ("is_null", "is_not_null"):
+                nullable = False
+            else:
+                nullable = any(n for _, n in infos)
+            return e.ret_type.torch_dtype, nullable
+        raise NotImplementedError(f"K5 cannot compile {e!r}")
+
+    def _to(self, have: str, want: str) -> None:
+        if have == want:
+            return
+        self._op(I2F if want == "f" else F2I)
+
+    def _wrap(self, dtype: torch.dtype) -> None:
+        bits = _BITS[dtype]
+        if bits < 64:
+            self._op(WRAP, bits)
+
+    def emit(self, e: Expr) -> None:
+        """Push e's value; afterwards the top holds it in the register
+        kind of its dtype."""
+        if isinstance(e, InputRef):
+            dt, _ = self.sig[e.index]
+            _kind(dt)
+            if e.index not in self.inputs:
+                self.inputs.append(e.index)
+            self._op(LOAD, self.inputs.index(e.index), push=1)
+            return
+        if isinstance(e, Literal):
+            dt = e.ret_type.torch_dtype
+            if e.value is None:
+                self._op(NUL, push=1)
+                return
+            v = e.encoded()
+            if _kind(dt) == "f":
+                imm = struct.unpack("<q", struct.pack("<d", float(v)))[0]
+            elif dt == torch.bool:
+                imm = int(bool(v))
+            else:
+                imm = int(v)
+            self._op(CONST, imm=imm, push=1)
+            return
+        if not isinstance(e, FuncCall):
+            raise NotImplementedError(f"K5 cannot compile {e!r}")
+        name, args = e.name, e.args
+        out_dt = e.ret_type.torch_dtype
+        kinds = [_kind(self.info(a)[0]) for a in args]
+        if name in _ARITH:
+            dts = [self.info(a)[0] for a in args]
+            if torch.bool in dts:
+                raise NotImplementedError("K5: arithmetic on booleans")
+            k = "f" if "f" in kinds else "i"
+            for a, ka in zip(args, kinds):
+                self.emit(a)
+                self._to(ka, k)
+            self._op(_ARITH[name][k == "f"], push=-1)
+            if k == "i":
+                # jnp computes in the widest operand width, then casts
+                self._wrap(max(dts, key=lambda d: _BITS[d]))
+            self._to(k, _kind(out_dt))
+            if _kind(out_dt) == "i":
+                self._wrap(out_dt)
+            return
+        if name in CMP_CODES:
+            k = "f" if "f" in kinds else "i"
+            for a, ka in zip(args, kinds):
+                self.emit(a)
+                self._to(ka, k)
+            self._op(CMP_F if k == "f" else CMP_I, CMP_CODES[name], push=-1)
+            return
+        if name in ("and", "or", "not"):
+            if any(self.info(a)[0] != torch.bool for a in args):
+                raise NotImplementedError(f"K5: {name} of non-booleans")
+            for a in args:
+                self.emit(a)
+            self._op({"and": AND, "or": OR, "not": NOT}[name],
+                     push=-1 if name != "not" else 0)
+            return
+        if name in ("is_null", "is_not_null"):
+            self.emit(args[0])
+            self._op(IS_NULL if name == "is_null" else IS_NOT_NULL)
+            return
+        if name in ("tumble_start", "tumble_end"):
+            if kinds != ["i", "i"]:
+                raise NotImplementedError(f"K5: {name} of floats")
+            for a in args:
+                self.emit(a)
+            self._op(TSTART if name == "tumble_start" else TEND, push=-1)
+            return
+        if name == "cast":
+            (a,) = args
+            (ka,) = kinds
+            self.emit(a)
+            if out_dt == torch.bool:
+                self._op(I2B if ka == "i" else F2B)
+            else:
+                self._to(ka, _kind(out_dt))
+                if _kind(out_dt) == "i":
+                    self._wrap(out_dt)
+            return
+        raise NotImplementedError(f"K5 has no opcode for {name!r}")
+
+
+class _Compiled:
+    """One program with its ctypes argument arrays."""
+
+    def __init__(self, comp: _Compiler, outs: list, out_dtypes: list,
+                 out_nullable: list, mask: bool):
+        if len(comp.code) > MAX_CODE or len(comp.inputs) > MAX_IN \
+                or len(outs) > MAX_OUT or comp.max_depth > MAX_STACK:
+            raise NotImplementedError(
+                f"K5 program too large ({len(comp.code)} ops, "
+                f"{len(comp.inputs)} inputs, {len(outs)} outputs, stack "
+                f"{comp.max_depth})")
+        n = max(1, len(comp.code))
+        self.n_code = len(comp.code)
+        self.ops = (ctypes.c_int * n)(*[c[0] for c in comp.code])
+        self.args = (ctypes.c_int * n)(*[c[1] for c in comp.code])
+        self.imms = (ctypes.c_longlong * n)(*[c[2] for c in comp.code])
+        self.inputs = list(comp.inputs)
+        self.in_types = kernels.int_array(
+            _TYPE_CODES[comp.sig[i][0]] for i in comp.inputs)
+        self.outs = outs                   # expression index per output
+        self.out_dtypes = out_dtypes
+        self.out_nullable = out_nullable
+        self.out_types = kernels.int_array(_TYPE_CODES[d] for d in out_dtypes)
+        self.mask = mask
+
+
+def _signature(columns: Sequence[Column], refs) -> tuple:
+    return tuple((columns[i].data.dtype, columns[i].valid is not None)
+                 if i in refs else None for i in range(len(columns)))
+
+
+class ExprProgram:
+    """An expression list evaluated by kernel K5 on a CUDA device and by
+    the tree walk on the CPU."""
+
+    def __init__(self, exprs: Sequence[Expr]):
+        from .ir import input_refs
+        self.exprs = tuple(exprs)
+        self.refs = set()
+        for e in self.exprs:
+            self.refs |= input_refs(e)
+        # expressions the kernel computes (bare InputRefs pass through)
+        self.computed = [j for j, e in enumerate(self.exprs)
+                         if not isinstance(e, InputRef)]
+        self._cache: dict = {}
+
+    def _compile(self, sig, mask: bool) -> _Compiled:
+        """The computed expressions as one program (one launch); raises
+        NotImplementedError past K5's limits."""
+        key = (sig, mask)
+        prog = self._cache.get(key)
+        if prog is None:
+            comp = _Compiler(sig)
+            dtypes, nullable = [], []
+            for j in self.computed:
+                e = self.exprs[j]
+                comp.emit(e)
+                dt, null = comp.info(e)
+                if mask:
+                    if dt != torch.bool:
+                        raise NotImplementedError("K5 mask of non-boolean")
+                    comp._op(MASK, push=-1)
+                else:
+                    comp._op(OUT, len(dtypes), push=-1)
+                dtypes.append(e.ret_type.torch_dtype)
+                nullable.append(null)
+            prog = self._cache[key] = _Compiled(comp, list(self.computed),
+                                                dtypes, nullable, mask)
+        return prog
+
+    # ------------------------------------------------------------ plain
+    def eval_plain(self, columns: Sequence[Column]) -> list[Column]:
+        """Plain version of K5: the tree walk, one PyTorch op a node."""
+        return [e.eval(columns) for e in self.exprs]
+
+    def and_into_plain(self, columns: Sequence[Column],
+                       mask: torch.Tensor) -> None:
+        (e,) = self.exprs
+        pred = e.eval(columns)
+        mask &= pred.data.to(torch.bool) & pred.valid_mask()
+
+    # ------------------------------------------------------------ K5
+    def eval(self, columns: Sequence[Column]) -> list[Column]:
+        """One Column per expression (bare InputRefs return the input
+        column itself)."""
+        dev = columns[0].data.device
+        if dev.type == "cpu":
+            return self.eval_plain(columns)
+        if dev.type != "cuda":
+            raise ValueError(f"unsupported device {dev}")
+        out = [columns[e.index] if isinstance(e, InputRef) else None
+               for e in self.exprs]
+        if not self.computed:
+            return out
+        n = columns[0].capacity
+        prog = self._compile(_signature(columns, self.refs), mask=False)
+        datas, valids = [], []
+        for dt, null in zip(prog.out_dtypes, prog.out_nullable):
+            datas.append(torch.empty(n, dtype=dt, device=dev))
+            valids.append(torch.empty(n, dtype=torch.bool, device=dev)
+                          if null else None)
+        self._launch(prog, columns, datas, valids, None, n)
+        for j, d, v in zip(prog.outs, datas, valids):
+            out[j] = Column(d, v)
+        return out
+
+    def and_into(self, columns: Sequence[Column], mask: torch.Tensor) -> None:
+        """mask &= pred.data & pred.valid for the one boolean expression,
+        in place (the join condition on the match buffer)."""
+        dev = mask.device
+        if dev.type == "cpu":
+            return self.and_into_plain(columns, mask)
+        if dev.type != "cuda":
+            raise ValueError(f"unsupported device {dev}")
+        if len(self.exprs) != 1 or mask.dtype != torch.bool \
+                or not mask.is_contiguous():
+            raise ValueError("and_into takes one expression and a "
+                             "contiguous bool mask")
+        prog = self._compile(_signature(columns, self.refs), mask=True)
+        self._launch(prog, columns, [], [], mask, mask.shape[0])
+
+    def _launch(self, prog: _Compiled, columns, datas, valids,
+                mask: Optional[torch.Tensor], n: int) -> None:
+        ins = [columns[i] for i in prog.inputs]
+        dev = columns[0].data.device
+        for c in ins:
+            if c.data.shape[0] != n or not c.data.is_contiguous() \
+                    or c.data.device != dev or (
+                        c.valid is not None and (
+                            not c.valid.is_contiguous()
+                            or c.valid.dtype != torch.bool)):
+                raise ValueError("K5 input columns must be contiguous, on "
+                                 "one device, of one length")
+        K_EXPR.launches += 1
+        K_EXPR.call("rw_expr_eval", prog.ops, prog.args, prog.imms,
+                    prog.n_code, len(ins),
+                    kernels.ptr_array([c.data for c in ins]),
+                    kernels.ptr_array([c.valid for c in ins]),
+                    prog.in_types, len(datas), kernels.ptr_array(datas),
+                    kernels.ptr_array(valids), prog.out_types,
+                    kernels.ptr_or_null(mask), n,
+                    ctypes.c_void_p(
+                        torch.cuda.current_stream(dev).cuda_stream))

@@ -19,6 +19,7 @@ from .common.types import Schema
 from .device import DEFAULT_DEVICE, resolve_device
 from .ops.hash_table import HashTable
 from .stream.hash_agg import AggState
+from .stream.sorted_join import SortedSideState
 
 
 def _t(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -76,3 +77,25 @@ def agg_state_from_numpy(table_keys: Sequence[np.ndarray],
         prev_emit=tuple(_t(np.asarray(a), device) for a in prev_emit),
     )
 
+
+
+def sorted_side_from_numpy(khash: np.ndarray, cols: Sequence[np.ndarray],
+                           valids: Sequence[np.ndarray], degree: np.ndarray,
+                           n: int, device=DEFAULT_DEVICE) -> SortedSideState:
+    """The port's SortedSideState from the arrays of one sorted-join side
+    (the JAX package's `SortedSideState` fields, same layout)."""
+    device = resolve_device(device)
+    return SortedSideState(
+        khash=_t(np.asarray(khash, dtype=np.int64), device),
+        cols=tuple(_t(np.asarray(c), device) for c in cols),
+        valids=tuple(_t(np.asarray(v, dtype=bool), device) for v in valids),
+        degree=_t(np.asarray(degree, dtype=np.int32), device),
+        n=_t(np.asarray(n, dtype=np.int32), device))
+
+
+def sorted_side_to_numpy(st: SortedSideState) -> dict:
+    """The arrays of a side store, for comparison or carrying out."""
+    return dict(khash=st.khash.cpu().numpy(),
+                cols=[c.cpu().numpy() for c in st.cols],
+                valids=[v.cpu().numpy() for v in st.valids],
+                degree=st.degree.cpu().numpy(), n=int(st.n))

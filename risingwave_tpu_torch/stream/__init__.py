@@ -1,13 +1,25 @@
 from .actor import Actor
+from .align import barrier_align
+from .exchange import (
+    BroadcastDispatcher, Channel, ChannelInput, Dispatcher, SimpleDispatcher,
+)
 from .executor import Executor, StatelessUnaryExecutor
 from .hash_agg import HashAggExecutor
 from .hop_window import HopWindowExecutor
 from .materialize import ConflictBehavior, MaterializeExecutor
-from .message import Barrier, BarrierKind, Watermark
+from .message import Barrier, BarrierKind, StopMutation, Watermark
+from .misc import NoOpExecutor
+from .project import ProjectExecutor
+from .row_id import RowIdGenExecutor
 from .sink import DeviceBlackholeSinkExecutor
+from .sorted_join import SortedJoinExecutor
 from .source import SourceExecutor
 
-__all__ = ["Actor", "Executor", "StatelessUnaryExecutor", "HashAggExecutor",
-           "HopWindowExecutor", "ConflictBehavior", "MaterializeExecutor",
-           "Barrier", "BarrierKind", "Watermark",
-           "DeviceBlackholeSinkExecutor", "SourceExecutor"]
+__all__ = ["Actor", "barrier_align", "BroadcastDispatcher", "Channel",
+           "ChannelInput", "Dispatcher", "SimpleDispatcher", "Executor",
+           "StatelessUnaryExecutor", "HashAggExecutor", "HopWindowExecutor",
+           "ConflictBehavior", "MaterializeExecutor", "Barrier",
+           "BarrierKind", "StopMutation", "Watermark", "NoOpExecutor",
+           "ProjectExecutor", "RowIdGenExecutor",
+           "DeviceBlackholeSinkExecutor", "SortedJoinExecutor",
+           "SourceExecutor"]

@@ -1,14 +1,17 @@
 """Actor — the schedulable unit driving one executor chain
-(port of risingwave_tpu/stream/actor.py, single-consumer form).
+(port of risingwave_tpu/stream/actor.py).
 
-An asyncio task pulling the chain's final stream, reporting every barrier
-to the coordinator (`collect`) and exiting on a Stop mutation. Kernel
-launches are asynchronous, so at each barrier the actor waits for the
-device to finish the epoch's work (an epoch fence) before it reports the
-barrier collected.
+An asyncio task pulling the chain's final stream, fanning every message
+out through its dispatcher (None for a terminal chain), reporting every
+barrier to the coordinator (`collect`) and exiting on a Stop mutation.
+Kernel launches are asynchronous, so at each barrier the actor waits for
+the device to finish the epoch's work (an epoch fence) before it reports
+the barrier collected. A barrier is dispatched before the fence, so
+downstream actors start their barrier work while this one waits.
 
-Left out of this slice (ROADMAP Queue A): dispatchers, fault injection
-and the monitor's per-phase timing hooks.
+Left out of this slice (ROADMAP Queue A): fault injection, the hollow
+(fence-exempt) producers of mesh chains and the monitor's per-phase
+timing hooks.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from typing import Optional, Protocol
 import torch
 
 from ..common.chunk import StreamChunk
+from .exchange import Dispatcher
 from .executor import Executor, gather_fence_tokens
 from .message import Barrier
 
@@ -39,12 +43,12 @@ async def fence(tokens) -> None:
 
 
 class Actor:
-    def __init__(self, actor_id: int, consumer: Executor, dispatcher,
+    def __init__(self, actor_id: int, consumer: Executor,
+                 dispatcher: Optional[Dispatcher],
                  collector: Optional[BarrierCollector]):
-        if dispatcher is not None:
-            raise NotImplementedError("dispatchers are not ported yet")
         self.actor_id = actor_id
         self.consumer = consumer
+        self.dispatcher = dispatcher
         self.collector = collector
 
     async def run(self) -> None:
@@ -64,8 +68,12 @@ class Actor:
             if isinstance(msg, StreamChunk):
                 if msg.columns:
                     last_token = msg.columns[0].data
+                if self.dispatcher is not None:
+                    await self.dispatcher.dispatch(msg)
             elif isinstance(msg, Barrier):
                 barrier = msg.with_passed(self.actor_id)
+                if self.dispatcher is not None:
+                    await self.dispatcher.dispatch(barrier)
                 # epoch fence: collected only once every device program of
                 # the epoch ran (per-chunk work via the last chunk, barrier
                 # work via the executors' fence tokens)
@@ -77,6 +85,8 @@ class Actor:
                     self.collector.collect(self.actor_id, barrier)
                 if barrier.is_stop(self.actor_id):
                     return
+            elif self.dispatcher is not None:
+                await self.dispatcher.dispatch(msg)
 
     def spawn(self) -> asyncio.Task:
         return asyncio.create_task(self.run(), name=f"actor-{self.actor_id}")

@@ -1,0 +1,725 @@
+"""Sorted-merge streaming join, inner joins (port of
+risingwave_tpu/stream/sorted_join.py).
+
+Semantics match the reference's two-sided streaming equi-join: a chunk
+from one side probes the OTHER side's stored rows and emits joined
+changelog rows, then updates its OWN store (update pairs degrade to
+Delete/Insert, NULL keys never match).
+
+Each side's state is a dense struct-of-arrays sorted by a 63-bit hash of
+the join key: rows [0, n) ascending, the int64-max sentinel beyond
+(exact key equality is re-checked on every candidate, so a hash
+collision only costs a compare). One chunk's apply is:
+
+  netting   within-chunk pk runs of a retracting side are netted to one
+            delete and one insert per pk (a stable lexsort: plain
+            PyTorch, B6);
+  probe     kernel K6 (`csrc/sorted_join_probe.cu`): key hash, the
+            contiguous hash range of each row in the other side, int64
+            offsets, expansion into a fixed [M] match buffer (M =
+            match_factor x chunk rows), exact key recheck, the gather of
+            both sides' columns;
+  condition kernel K5 AND-s the non-equi condition into the emit mask;
+  sort      the new rows by hash (torch.sort, stable: B6);
+  merge     kernel K7 (`csrc/sorted_join_merge.cu`): retraction victims,
+            inline watermark eviction, and the merge of the kept rows
+            with the new rows into the side's second store, which is then
+            swapped in. Barrier-time eviction of an idle side is the same
+            kernel with no new rows.
+
+Errors accumulate on the device in `errs` [match overflow, delete miss,
+row overflow] and are read only by the watchdog (or by a caller).
+
+On a CUDA device the match buffers, the second stores and the kernels'
+scratch are allocated once per side and reused: an output chunk's
+tensors are valid until this side's next apply, so a consumer that
+keeps rows past that copies them (the device sinks reduce or copy at
+once). On the CPU every apply allocates, as the reference does.
+
+Left out of this slice (ROADMAP Queue A, A7): outer joins and degree
+transitions, temporal joins, durable state (`_diff_impl`, persist,
+recover), the memory manager (spill/reload), capacity growth
+(`_maybe_grow`) and the sharded subclass.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+from typing import Optional, Sequence
+
+import torch
+
+from ..common.chunk import (
+    Column, StreamChunk, OP_DELETE, OP_INSERT, op_sign,
+)
+from ..common.types import Field, Schema
+from ..device import resolve_device
+from ..expr.program import ExprProgram
+from ..ops import kernels
+from ..ops.hash_table import stable_lexsort
+from ..ops.hashing import key_hash as _chain_hash, srl
+from .align import LEFT, RIGHT, barrier_align
+from .executor import Executor
+from .message import Barrier, BarrierKind, Watermark
+
+# khash padding beyond the live prefix: int64 max keeps searchsorted
+# ranges inside [0, n)
+HSENTINEL = (1 << 63) - 1
+# "no watermark yet" eviction threshold, below any real event time
+NO_WATERMARK = -(1 << 62)
+MAX_KEYS, MAX_COLS, MAX_MATCH = 4, 8, 8   # csrc/sorted_join_*.cu
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_PP = ctypes.POINTER(_P)
+_PI = ctypes.POINTER(_I)
+
+# K6. Replaces stream/sorted_join.py:key_hash (102) and _apply_impl's
+# probe and match expansion (409-447).
+K_PROBE = kernels.register(kernels.CudaKernel(
+    "sorted_join_probe",
+    replaces="risingwave_tpu/stream/sorted_join.py:409",
+    functions={"rw_sj_probe": [
+        _I, _PP, _PP, _PI, _P, _P, _P, _L, _P, _P, _L,
+        _I, _PP, _PP, _PP, _PP, _PI, _I, _PP, _PP, _PP, _PP, _PI,
+        _L, _P, _P, _P, _P, _P, _P, _P, _P, _P]}))
+
+# K7. Replaces stream/sorted_join.py:_apply_impl's side update (535-612)
+# and _evict_impl (615).
+K_MERGE = kernels.register(kernels.CudaKernel(
+    "sorted_join_merge",
+    replaces="risingwave_tpu/stream/sorted_join.py:535",
+    functions={"rw_sj_merge": [
+        _P, _I, _PP, _PP, _PI, _P, _P, _L, _P, _PP, _PP, _P, _P, _I, _L,
+        _L, _P, _P, _P, _PP, _PP, _P, _P, _L, _I, _PI,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P]}))
+
+
+def key_hash(key_cols: Sequence[torch.Tensor]) -> torch.Tensor:
+    """63-bit nonnegative hash of the composite key (splitmix64 chain)."""
+    return srl(_chain_hash(key_cols), 1)
+
+
+@dataclass
+class SortedSideState:
+    """One side's store: dense prefix [0, n), ascending by khash."""
+
+    khash: torch.Tensor                 # int64 [C], sentinel beyond n
+    cols: tuple[torch.Tensor, ...]      # per input column [C]
+    valids: tuple[torch.Tensor, ...]    # per input column bool [C]
+    degree: torch.Tensor                # int32 [C]
+    n: torch.Tensor                     # int32 scalar — live rows
+
+    @property
+    def capacity(self) -> int:
+        return self.khash.shape[0]
+
+
+def empty_sorted_side(capacity: int, col_dtypes: Sequence[torch.dtype],
+                      device) -> SortedSideState:
+    return SortedSideState(
+        khash=torch.full((capacity,), HSENTINEL, dtype=torch.int64,
+                         device=device),
+        cols=tuple(torch.zeros(capacity, dtype=dt, device=device)
+                   for dt in col_dtypes),
+        valids=tuple(torch.zeros(capacity, dtype=torch.bool, device=device)
+                     for _ in col_dtypes),
+        degree=torch.zeros(capacity, dtype=torch.int32, device=device),
+        n=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def _count_le(sorted_arr: torch.Tensor, dead_cum: torch.Tensor,
+              vals: torch.Tensor, side: str) -> torch.Tensor:
+    """Count of LIVE entries of `sorted_arr` </<= vals, where `dead_cum`
+    is the inclusive prefix sum of the dead mask over the same array."""
+    idx = torch.searchsorted(sorted_arr, vals, side=side)
+    dead_before = torch.where(idx > 0, dead_cum[(idx - 1).clamp(min=0)], 0)
+    return idx - dead_before
+
+
+def _expand(offs: torch.Tensor, lo: torch.Tensor, M: int, cap: int):
+    """Match slot j -> (source row, position in the searched side) for
+    j < M, from inclusive int64 offsets: the reference's locating
+    searchsorted."""
+    N = offs.shape[0]
+    j = torch.arange(M, dtype=torch.int64, device=offs.device)
+    src = torch.searchsorted(offs, j, side="right")
+    srcc = src.clamp(0, N - 1)
+    prev = torch.where(srcc > 0, offs[(srcc - 1).clamp(min=0)], 0)
+    pos = (lo[srcc] + (j - prev)).clamp(0, cap - 1)
+    return j, srcc, pos
+
+
+class _Buffers:
+    """Tensors a side's kernels reuse from one apply to the next."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._t: dict = {}
+
+    def get(self, name, n: int, dtype: torch.dtype) -> torch.Tensor:
+        t = self._t.get(name)
+        if t is None or t.shape[0] < n or t.dtype != dtype:
+            t = self._t[name] = torch.empty(max(n, 1), dtype=dtype,
+                                            device=self.device)
+        return t if t.shape[0] == n else t[:n]
+
+
+def net_pk_runs(chunk: StreamChunk, active: torch.Tensor,
+                pk_idx: Sequence[int]):
+    """Within-chunk pk-run netting of a retracting side: rows grouped by
+    pk (a stable lexsort, B6); per run the first delete and the last
+    insert survive. Returns (is_ins, is_del)."""
+    N = chunk.capacity
+    dev = active.device
+    signs = op_sign(chunk.ops)
+    sort_keys = [torch.arange(N, device=dev)]
+    sort_keys += [chunk.columns[p].data for p in pk_idx]
+    sort_keys.append((~active).to(torch.uint8))
+    order = stable_lexsort(sort_keys)
+    s_act = active[order]
+    same = s_act[1:] & s_act[:-1]
+    for p in pk_idx:
+        d = chunk.columns[p].data[order]
+        same = same & (d[1:] == d[:-1])
+    one = torch.ones(1, dtype=torch.bool, device=dev)
+    run_start = torch.cat([one, ~same])
+    run_end = torch.cat([~same, one])
+    s_signs = signs[order]
+    is_del = torch.empty(N, dtype=torch.bool, device=dev)
+    is_ins = torch.empty(N, dtype=torch.bool, device=dev)
+    is_del[order] = run_start & (s_signs < 0) & s_act
+    is_ins[order] = run_end & (s_signs > 0) & s_act
+    return is_ins, is_del
+
+
+def store_from_rows(cols: Sequence[torch.Tensor],
+                    capacity: int) -> SortedSideState:
+    """A side store holding the given rows (all valid), keyed on column
+    0 alone — a starting state for kernel checks and measurements."""
+    dev = cols[0].device
+    empty = empty_sorted_side(capacity, [c.dtype for c in cols], dev)
+    n = cols[0].shape[0]
+    nh, iorder = torch.sort(key_hash([cols[0]]), stable=True)
+    errs = torch.zeros(3, dtype=torch.int32, device=dev)
+    return merge_plain(empty, nh, iorder,
+                       torch.tensor(n, dtype=torch.int32, device=dev),
+                       [Column(c) for c in cols], None, None, 1, (),
+                       None, NO_WATERMARK, errs)
+
+
+# ------------------------------------------------------------------ K6
+
+def probe_plain(key_cols, active, is_ins, ops, other: SortedSideState,
+                other_key_idx, own_cols: Sequence[Column], M: int,
+                errs: torch.Tensor, bufs=None):
+    """Plain PyTorch version of kernel K6. Returns (h, ins_h, own match
+    columns, other match columns, ops, emit); adds the match overflow to
+    errs[0] in place."""
+    N = active.shape[0]
+    Co = other.capacity
+    h = key_hash(key_cols)
+    ins_h = torch.where(is_ins, h, HSENTINEL)
+    lo = torch.searchsorted(other.khash, h, side="left")
+    hi = torch.searchsorted(other.khash, h, side="right")
+    # int64 offsets: a hot key can own more than 2^31 matches
+    offs = torch.cumsum(torch.where(active, hi - lo, 0), 0)
+    total = offs[N - 1]
+    j, srcc, pos = _expand(offs, lo, M, Co)
+    emit = (j < torch.clamp(total, max=M)) & (pos < other.n)
+    for kc, oi in zip(key_cols, other_key_idx):
+        oc = other.cols[oi]
+        emit &= oc[pos] == kc[srcc].to(oc.dtype)
+    errs[0] += torch.clamp(total - M, min=0).to(torch.int32)
+    own_m = [Column(c.data[srcc], None if c.valid is None else c.valid[srcc])
+             for c in own_cols]
+    oth_m = [Column(r[pos], v[pos]) for r, v in zip(other.cols, other.valids)]
+    ops_out = torch.where(op_sign(ops)[srcc] > 0, OP_INSERT,
+                          OP_DELETE).to(torch.int8)
+    return h, ins_h, own_m, oth_m, ops_out, emit
+
+
+def probe(key_cols, active, is_ins, ops, other: SortedSideState,
+          other_key_idx, own_cols: Sequence[Column], M: int,
+          errs: torch.Tensor, bufs: Optional[_Buffers] = None):
+    """Kernel K6 on a CUDA device, the plain version on the CPU. Same
+    contract as `probe_plain`. The per-row scratch (h, ins_h, lo, offs)
+    lives in `bufs` and is valid until the side's next apply; the match
+    buffer (own and other columns, ops, emit) is allocated fresh on
+    every call, because it leaves the join as an output chunk and a
+    downstream channel may still hold it when the next apply runs."""
+    dev = active.device
+    if dev.type == "cpu":
+        return probe_plain(key_cols, active, is_ins, ops, other,
+                           other_key_idx, own_cols, M, errs)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    N = active.shape[0]
+    other_keys = [other.cols[oi] for oi in other_key_idx]
+    if not 1 <= len(key_cols) <= MAX_KEYS or len(own_cols) > MAX_COLS \
+            or len(other.cols) > MAX_COLS:
+        raise ValueError(f"K6 takes 1..{MAX_KEYS} keys and at most "
+                         f"{MAX_COLS} columns a side")
+    for kc, oc in zip(key_cols, other_keys):
+        if kc.dtype != oc.dtype or not kc.is_contiguous() \
+                or kc.shape[0] != N:
+            raise ValueError("K6 key columns must be contiguous, of the "
+                             "other side's key dtypes")
+    for t in (active, is_ins, ops):
+        if t.shape[0] != N or not t.is_contiguous() or t.device != dev:
+            raise ValueError("K6 row inputs must be contiguous, of the "
+                             "chunk's length, on its device")
+    for c in own_cols:
+        if not c.data.is_contiguous() or c.data.shape[0] != N:
+            raise ValueError("K6 chunk columns must be contiguous")
+    if bufs is None:
+        bufs = _Buffers(dev)
+    i64 = torch.int64
+    h = bufs.get("h", N, i64)
+    ins_h = bufs.get("ins_h", N, i64)
+    lo = bufs.get("lo", N, i64)
+    offs = bufs.get("offs", N, i64)
+    sums = bufs.get("sums", (N + 255) // 256, i64)
+    ops_out = torch.empty(M, dtype=torch.int8, device=dev)
+    emit = torch.empty(M, dtype=torch.bool, device=dev)
+    own_m = [Column(torch.empty(M, dtype=c.data.dtype, device=dev),
+                    None if c.valid is None
+                    else torch.empty(M, dtype=torch.bool, device=dev))
+             for c in own_cols]
+    oth_m = [Column(torch.empty(M, dtype=c.dtype, device=dev),
+                    torch.empty(M, dtype=torch.bool, device=dev))
+             for c in other.cols]
+    P = kernels.ptr_array
+    K_PROBE.launches += 1
+    K_PROBE.call(
+        "rw_sj_probe", len(key_cols), P(key_cols), P(other_keys),
+        kernels.int_array(k.element_size() for k in key_cols),
+        kernels.ptr(active), kernels.ptr(is_ins), kernels.ptr(ops), N,
+        kernels.ptr(other.khash), kernels.ptr(other.n), other.capacity,
+        len(own_cols), P([c.data for c in own_cols]),
+        P([c.valid for c in own_cols]), P([c.data for c in own_m]),
+        P([c.valid for c in own_m]),
+        kernels.int_array(c.data.element_size() for c in own_cols),
+        len(other.cols), P(other.cols), P(other.valids),
+        P([c.data for c in oth_m]), P([c.valid for c in oth_m]),
+        kernels.int_array(c.element_size() for c in other.cols),
+        M, kernels.ptr(h), kernels.ptr(ins_h), kernels.ptr(lo),
+        kernels.ptr(offs), kernels.ptr(sums), kernels.ptr(ops_out),
+        kernels.ptr(emit), kernels.ptr(errs), kernels.stream_of(active))
+    return h, ins_h, own_m, oth_m, ops_out, emit
+
+
+# ------------------------------------------------------------------ K7
+
+def merge_plain(own: SortedSideState, nh, iorder, n_new,
+                chunk_cols: Sequence[Column], is_del, h, M: int,
+                match_idx: Sequence[int], clean_col: Optional[int], wm: int,
+                errs: torch.Tensor, spare=None, bufs=None) -> SortedSideState:
+    """Plain PyTorch version of kernel K7: the side's store after
+    inline eviction below `wm` on `clean_col`, the retractions `is_del`
+    (None: append-only) and the insert of the new rows, sorted by hash
+    (`nh` = their hashes, `iorder` = their chunk rows, `n_new` = how
+    many). Adds delete misses to errs[1] and dropped rows to errs[2] in
+    place. With no chunk (nh of length 0) it is `_evict_impl`."""
+    C = own.capacity
+    N = nh.shape[0]
+    dev = own.khash.device
+    live = torch.arange(C, device=dev) < own.n
+    keep = live
+    if clean_col is not None:
+        keep = keep & ~(own.cols[clean_col] < wm)
+    if is_del is not None and N > 0:
+        dlo = torch.searchsorted(own.khash, h, side="left")
+        dhi = torch.searchsorted(own.khash, h, side="right")
+        doffs = torch.cumsum(torch.where(is_del, dhi - dlo, 0), 0)
+        dtot = doffs[N - 1]
+        j, dsrcc, dpos = _expand(doffs, dlo, M, C)
+        cand = (j < torch.clamp(dtot, max=M)) & keep[dpos]
+        for c in match_idx:
+            sc = own.cols[c]
+            cand &= sc[dpos] == chunk_cols[c].data[dsrcc].to(sc.dtype)
+        # one victim per retraction: the lowest matching state position
+        # (row N is the trash row of the reference's dropped scatter)
+        victim = torch.full((N + 1,), C, dtype=torch.int64, device=dev)
+        victim.scatter_reduce_(0, torch.where(cand, dsrcc, N), dpos, "amin")
+        victim = victim[:N]
+        found = victim < C
+        keep = torch.cat([keep, keep[:1]])
+        keep[torch.where(found, victim, C)] = False
+        keep = keep[:C]
+        errs[1] += (is_del & ~found).sum(dtype=torch.int32)
+    dead_cum = torch.cumsum((~keep).to(torch.int64), 0)
+    kept_rank = torch.cumsum(keep.to(torch.int64), 0) - 1
+    n_kept = kept_rank[C - 1] + 1
+    # state row t -> kept_rank + (# new rows with hash < khash[t])
+    pos_t = kept_rank + torch.searchsorted(nh, own.khash, side="left")
+    # new row r -> r + (# kept state rows with hash <= nh[r])
+    rr = torch.arange(N, device=dev)
+    pos_r = rr + _count_le(own.khash, dead_cum, nh, side="right")
+    new_ok = rr < n_new
+    n_after = n_kept + n_new
+    errs[2] += torch.clamp(n_after - C, min=0).to(torch.int32)
+    n_after = torch.clamp(n_after, max=C)
+    # the trash row C takes the dropped writes
+    tgt_t = torch.where(keep & (pos_t < C), pos_t, C)
+    tgt_r = torch.where(new_ok & (pos_r < C), pos_r, C)
+
+    def merged(fill, dtype, old, new):
+        out = torch.full((C + 1,), fill, dtype=dtype, device=dev)
+        out[tgt_t] = old
+        if N > 0:
+            out[tgt_r] = new
+        return out[:C]
+
+    cols, valids = [], []
+    for ci, (sc, sv) in enumerate(zip(own.cols, own.valids)):
+        cc = chunk_cols[ci] if N > 0 else None
+        cols.append(merged(0, sc.dtype, sc,
+                           cc.data[iorder].to(sc.dtype) if N > 0 else None))
+        valids.append(merged(False, torch.bool, sv,
+                             cc.valid_mask()[iorder] if N > 0 else None))
+    return SortedSideState(
+        khash=merged(HSENTINEL, torch.int64, own.khash, nh),
+        cols=tuple(cols), valids=tuple(valids),
+        degree=merged(0, torch.int32, own.degree, 0),
+        n=n_after.to(torch.int32))
+
+
+def merge(own: SortedSideState, nh, iorder, n_new,
+          chunk_cols: Sequence[Column], is_del, h, M: int,
+          match_idx: Sequence[int], clean_col: Optional[int], wm: int,
+          errs: torch.Tensor, spare: Optional[SortedSideState] = None,
+          bufs: Optional[_Buffers] = None) -> SortedSideState:
+    """Kernel K7 on a CUDA device, the plain version on the CPU. Same
+    contract as `merge_plain`; on the card the result is written into
+    `spare` (a store of the same capacity and dtypes, which this
+    overwrites) and `spare` is returned."""
+    dev = own.khash.device
+    if dev.type == "cpu":
+        return merge_plain(own, nh, iorder, n_new, chunk_cols, is_del, h,
+                           M, match_idx, clean_col, wm, errs)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    C = own.capacity
+    N = nh.shape[0]
+    if spare is None or spare.capacity != C or spare is own \
+            or len(spare.cols) != len(own.cols):
+        raise ValueError("K7 writes into a second store of the same shape")
+    if not 1 <= len(own.cols) <= MAX_COLS or len(match_idx) > MAX_MATCH:
+        raise ValueError(f"K7 takes 1..{MAX_COLS} columns and at most "
+                         f"{MAX_MATCH} match columns")
+    if N > 0:
+        for cc, sc in zip(chunk_cols, own.cols):
+            if cc.data.dtype != sc.dtype or not cc.data.is_contiguous() \
+                    or cc.data.shape[0] != N:
+                raise ValueError("K7 chunk columns must be contiguous, of "
+                                 "the store's dtypes")
+        if nh.dtype != torch.int64 or iorder.dtype != torch.int64 \
+                or n_new.dtype != torch.int32:
+            raise ValueError("K7 takes int64 nh/iorder and int32 n_new")
+    if bufs is None:
+        bufs = _Buffers(dev)
+    i32, i64 = torch.int32, torch.int64
+    retract = is_del is not None and N > 0
+    nn = max(N, 1)
+    P = kernels.ptr_array
+    K_MERGE.launches += 1
+    K_MERGE.call(
+        "rw_sj_merge", kernels.ptr(own.khash), len(own.cols), P(own.cols),
+        P(own.valids), kernels.int_array(c.element_size() for c in own.cols),
+        kernels.ptr(own.degree), kernels.ptr(own.n), C,
+        kernels.ptr(spare.khash), P(spare.cols), P(spare.valids),
+        kernels.ptr(spare.degree), kernels.ptr(spare.n),
+        -1 if clean_col is None else clean_col, wm, N,
+        kernels.ptr_or_null(nh if N > 0 else None),
+        kernels.ptr_or_null(iorder if N > 0 else None),
+        kernels.ptr_or_null(n_new if N > 0 else None),
+        P([c.data for c in chunk_cols] if N > 0 else []),
+        P([c.valid for c in chunk_cols] if N > 0 else []),
+        kernels.ptr_or_null(is_del if retract else None),
+        kernels.ptr_or_null(h if retract else None), M, len(match_idx),
+        kernels.int_array(match_idx),
+        kernels.ptr(bufs.get("dlo", nn, i64)),
+        kernels.ptr(bufs.get("doffs", nn, i64)),
+        kernels.ptr(bufs.get("dsums", (nn + 255) // 256, i64)),
+        kernels.ptr(bufs.get("victim", nn, i32)),
+        kernels.ptr(bufs.get("removed", C, torch.uint8)),
+        kernels.ptr(bufs.get("kept_incl", C, i32)),
+        kernels.ptr(bufs.get("ksums", (C + 255) // 256, i32)),
+        kernels.ptr(bufs.get("hw", 1, i32)), kernels.ptr(errs),
+        kernels.stream_of(own.khash))
+    return spare
+
+
+# ------------------------------------------------------------- executor
+
+class SortedJoinExecutor(Executor):
+    """Inner equi-join over sorted dense state (integer keys)."""
+
+    def __init__(self, left: Executor, right: Executor,
+                 left_key_indices: Sequence[int],
+                 right_key_indices: Sequence[int],
+                 left_pk_indices: Sequence[int],
+                 right_pk_indices: Sequence[int],
+                 capacity: int = 1 << 17,
+                 match_factor: int = 2,
+                 match_factors: Optional[tuple] = None,
+                 condition=None,
+                 join_type: str = "inner",
+                 output_indices: Optional[Sequence[int]] = None,
+                 append_only: tuple[bool, bool] = (False, False),
+                 clean_watermark_cols: tuple = (None, None),
+                 clean_specs: Optional[tuple] = None,
+                 watchdog_interval: Optional[int] = 1,
+                 device="cuda"):
+        if join_type != "inner":
+            raise NotImplementedError(
+                "outer sorted joins are not ported yet (ROADMAP A7)")
+        self.device = resolve_device(device)
+        self.inputs = (left, right)
+        self.key_indices = (tuple(left_key_indices), tuple(right_key_indices))
+        self.pk_indices_side = (tuple(left_pk_indices),
+                                tuple(right_pk_indices))
+        lt, rt = left.schema, right.schema
+        if len(self.key_indices[0]) != len(self.key_indices[1]):
+            raise ValueError("join key arity differs between the sides")
+        for li, ri in zip(*self.key_indices):
+            ldt, rdt = lt[li].data_type.torch_dtype, rt[ri].data_type.torch_dtype
+            if ldt != rdt:
+                raise ValueError(f"join key dtype mismatch {lt[li]} vs "
+                                 f"{rt[ri]}")
+            if ldt.is_floating_point or ldt == torch.bool:
+                raise ValueError("sorted join keys must be integer-typed")
+        self._col_dtypes = (tuple(f.data_type.torch_dtype for f in lt),
+                            tuple(f.data_type.torch_dtype for f in rt))
+        lnames, rnames = {f.name for f in lt}, {f.name for f in rt}
+        full_fields = [Field(f"l_{f.name}" if f.name in rnames else f.name,
+                             f.data_type, f.scale) for f in lt]
+        full_fields += [Field(f"r_{f.name}" if f.name in lnames else f.name,
+                              f.data_type, f.scale) for f in rt]
+        self.output_indices = (tuple(output_indices)
+                               if output_indices is not None
+                               else tuple(range(len(full_fields))))
+        self.schema = Schema(tuple(full_fields[i]
+                                   for i in self.output_indices))
+        out_pk_full = (tuple(self.pk_indices_side[0])
+                       + tuple(len(lt) + i for i in self.pk_indices_side[1]))
+        # advertise no stream key unless every key column survives the
+        # projection (a partial key is not unique)
+        if all(i in self.output_indices for i in out_pk_full):
+            self.pk_indices = tuple(self.output_indices.index(i)
+                                    for i in out_pk_full)
+        else:
+            self.pk_indices = ()
+        self.capacity = [capacity, capacity]
+        self.match_factor = match_factor
+        self.match_factors = (tuple(match_factors) if match_factors
+                              else (match_factor, match_factor))
+        self.condition = condition
+        self._cond = None if condition is None else ExprProgram([condition])
+        # cleaning specs, as the reference's planner derives them:
+        #   ("own", col)               evict below this side's watermark
+        #   ("pair", col, kpos)        col is equi-key kpos; evict below
+        #                              the min of both sides' watermarks
+        #   ("band", col, other_col, d[, cap_col])
+        #                              evict below the other side's
+        #                              watermark + d, capped at this side's
+        #                              watermark on cap_col if given
+        if clean_specs is None:
+            clean_specs = tuple(None if c is None else ("own", c)
+                                for c in clean_watermark_cols)
+        self.clean_specs = tuple(clean_specs)
+        self.join_type = join_type
+        self.append_only = tuple(append_only)
+        self.clean_cols = tuple(None if sp is None else sp[1]
+                                for sp in self.clean_specs)
+        self._pending_clean: list[int] = [NO_WATERMARK, NO_WATERMARK]
+        self._wms: list[dict[int, int]] = [{}, {}]
+        self.identity = (f"SortedJoin(l={self.key_indices[0]}, "
+                         f"r={self.key_indices[1]})")
+        self.sides = [self._empty(s) for s in (LEFT, RIGHT)]
+        # second stores K7 writes into (CUDA only; made at first use)
+        self._spare: list[Optional[SortedSideState]] = [None, None]
+        self._bufs = [_Buffers(self.device), _Buffers(self.device)]
+        if watchdog_interval not in (None, 1):
+            raise ValueError("watchdog_interval must be 1 or None")
+        self.watchdog_interval = watchdog_interval
+        # device error accumulator [match_overflow, del_miss, row_overflow]
+        self._errs_dev = torch.zeros(3, dtype=torch.int32, device=self.device)
+        self._dirty = [False, False]
+        self._key_wms: list[dict[int, int]] = [{}, {}]
+        self._emitted_key_wm: dict[int, int] = {}
+        # watermark value a side's state is already clean to
+        self._cleaned_to = [NO_WATERMARK, NO_WATERMARK]
+
+    def fence_tokens(self) -> list:
+        return [s.n for s in self.sides]
+
+    def _empty(self, side: int) -> SortedSideState:
+        return empty_sorted_side(self.capacity[side], self._col_dtypes[side],
+                                 self.device)
+
+    def _spare_for(self, side: int) -> Optional[SortedSideState]:
+        if self.device.type != "cuda":
+            return None
+        if self._spare[side] is None:
+            self._spare[side] = self._empty(side)
+        return self._spare[side]
+
+    def _install(self, side: int, new: SortedSideState) -> None:
+        old = self.sides[side]
+        self.sides[side] = new
+        if self.device.type == "cuda":
+            self._spare[side] = old
+
+    def errs(self) -> list[int]:
+        """[match overflow, delete miss, row overflow] (one fetch)."""
+        return [int(x) for x in self._errs_dev.cpu()]
+
+    # ------------------------------------------------------------- apply
+    def _apply(self, side: int, chunk: StreamChunk, wm: int):
+        """Probe the other side, emit matches, evict+update this side.
+        Returns the match buffer's (columns, ops, emit)."""
+        key_idx = self.key_indices[side]
+        N = chunk.capacity
+        M = self.match_factors[side] * N
+        other = self.sides[1 - side]
+        key_cols = [chunk.columns[i].data for i in key_idx]
+        active = chunk.vis
+        for i in key_idx:      # NULL keys never join
+            if chunk.columns[i].valid is not None:
+                active = active & chunk.columns[i].valid
+        if self.append_only[side]:
+            is_ins, is_del = active, None
+        else:
+            is_ins, is_del = net_pk_runs(chunk, active,
+                                         self.pk_indices_side[side])
+        bufs = self._bufs[side]
+        h, ins_h, own_m, oth_m, ops, emit = probe(
+            key_cols, active, is_ins, chunk.ops, other,
+            self.key_indices[1 - side], chunk.columns, M, self._errs_dev,
+            bufs)
+        cols = own_m + oth_m if side == LEFT else oth_m + own_m
+        if self._cond is not None:
+            self._cond.and_into(cols, emit)
+        # new rows in hash order; non-inserts carry the sentinel, last
+        nh, iorder = torch.sort(ins_h, stable=True)
+        n_new = is_ins.sum(dtype=torch.int32)
+        new = merge(self.sides[side], nh, iorder, n_new, chunk.columns,
+                    is_del, h, M,
+                    self.key_indices[side] + self.pk_indices_side[side],
+                    self.clean_cols[side], wm, self._errs_dev,
+                    self._spare_for(side), bufs)
+        self._install(side, new)
+        return cols, ops, emit
+
+    def _evict(self, side: int, wm: int) -> None:
+        """Barrier-time eviction of an idle side: K7 with no new rows."""
+        empty = torch.empty(0, dtype=torch.int64, device=self.device)
+        new = merge(self.sides[side], empty, empty,
+                    torch.zeros((), dtype=torch.int32, device=self.device),
+                    (), None, None, 1, (), self.clean_cols[side], wm,
+                    self._errs_dev, self._spare_for(side), self._bufs[side])
+        self._install(side, new)
+
+    # ---------------------------------------------------------- cleaning
+    def _recompute_pending(self) -> None:
+        """Re-derive each side's eviction bound from the latest observed
+        watermarks per its clean spec (monotone: watermarks only grow)."""
+        for t in (LEFT, RIGHT):
+            spec = self.clean_specs[t]
+            if spec is None:
+                continue
+            kind = spec[0]
+            if kind == "own":
+                v = self._wms[t].get(spec[1])
+            elif kind == "pair":
+                kpos = spec[2]
+                a = self._wms[t].get(self.key_indices[t][kpos])
+                b = self._wms[1 - t].get(self.key_indices[1 - t][kpos])
+                v = None if a is None or b is None else min(a, b)
+            elif kind == "band":
+                o = self._wms[1 - t].get(spec[2])
+                v = None if o is None else o + spec[3]
+                if len(spec) > 4 and spec[4] is not None:
+                    own = self._wms[t].get(spec[4])
+                    v = None if own is None or v is None else min(v, own)
+            else:
+                raise ValueError(f"unknown clean spec {spec!r}")
+            if v is not None and v > self._pending_clean[t]:
+                self._pending_clean[t] = v
+
+    # --------------------------------------------------------- watchdog
+    def _check_watchdog(self) -> None:
+        vals = torch.cat([self._errs_dev, self.sides[LEFT].n.view(1),
+                          self.sides[RIGHT].n.view(1)]).cpu()
+        n_mo, n_miss, n_ro = (int(x) for x in vals[:3])
+        if n_mo:
+            raise RuntimeError(
+                f"sorted-join match-buffer overflow ({n_mo} matches "
+                f"dropped; raise match_factor)")
+        if n_ro:
+            raise RuntimeError(
+                f"sorted-join state overflow ({n_ro} rows dropped; "
+                f"capacity {self.capacity})")
+        if n_miss:
+            raise RuntimeError(
+                f"sorted-join changelog inconsistency: {n_miss} deletes "
+                f"matched no stored row")
+
+    # ----------------------------------------------------------- stream
+    async def execute(self):
+        first = True
+        async for kind, s, msg in barrier_align(*self.inputs):
+            if kind == "chunk":
+                self._cleaned_to[s] = self._pending_clean[s]
+                cols, ops, vis = self._apply(s, msg, self._pending_clean[s])
+                self._dirty[s] = True
+                yield StreamChunk(tuple(cols[i] for i in self.output_indices),
+                                  ops, vis, self.schema)
+            elif kind == "barrier":
+                barrier: Barrier = msg
+                if first or barrier.kind is BarrierKind.INITIAL:
+                    first = False
+                    yield barrier
+                    continue
+                stopping = (barrier.mutation is not None
+                            and barrier.is_stop_any())
+                dirty_any = any(self._dirty)
+                # idle sides still clean by watermark at barriers
+                for s2 in (LEFT, RIGHT):
+                    if (self.clean_cols[s2] is not None
+                            and self._pending_clean[s2] != NO_WATERMARK
+                            and self._pending_clean[s2]
+                            != self._cleaned_to[s2]
+                            and not self._dirty[s2]):
+                        self._evict(s2, self._pending_clean[s2])
+                        self._cleaned_to[s2] = self._pending_clean[s2]
+                    self._dirty[s2] = False
+                # watchdog before the barrier passes: errors fail-stop
+                # this epoch
+                if self.watchdog_interval and (stopping or dirty_any):
+                    self._check_watchdog()
+                yield barrier
+            else:
+                wm: Watermark = msg
+                self._wms[s][wm.col_idx] = wm.val
+                self._recompute_pending()
+                if wm.col_idx in self.key_indices[s]:
+                    kpos = self.key_indices[s].index(wm.col_idx)
+                    self._key_wms[s][kpos] = wm.val
+                    other_wm = self._key_wms[1 - s].get(kpos)
+                    if other_wm is not None:
+                        val = min(wm.val, other_wm)
+                        if self._emitted_key_wm.get(kpos) != val:
+                            self._emitted_key_wm[kpos] = val
+                            n_left = len(self.inputs[LEFT].schema)
+                            for full_idx in (
+                                    self.key_indices[LEFT][kpos],
+                                    n_left + self.key_indices[RIGHT][kpos]):
+                                if full_idx in self.output_indices:
+                                    yield Watermark(
+                                        self.output_indices.index(full_idx),
+                                        wm.data_type, val)

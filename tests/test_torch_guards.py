@@ -31,6 +31,13 @@ MODULES = [
     "risingwave_tpu_torch.ops.hash_table", "risingwave_tpu_torch.ops.kernels",
     "risingwave_tpu_torch.state", "risingwave_tpu_torch.stream",
     "risingwave_tpu_torch.meta", "risingwave_tpu_torch.interop",
+    "risingwave_tpu_torch.expr.program", "risingwave_tpu_torch.expr.registry",
+    "risingwave_tpu_torch.expr.functions",
+    "risingwave_tpu_torch.expr.transforms",
+    "risingwave_tpu_torch.stream.project", "risingwave_tpu_torch.stream.misc",
+    "risingwave_tpu_torch.stream.row_id", "risingwave_tpu_torch.stream.exchange",
+    "risingwave_tpu_torch.stream.align",
+    "risingwave_tpu_torch.stream.sorted_join",
 ]
 
 
@@ -81,11 +88,14 @@ def _entry_points():
     from risingwave_tpu_torch.connectors.nexmark import NexmarkGenerator
     from risingwave_tpu_torch.device import resolve_device
     from risingwave_tpu_torch.interop import (
-        agg_state_from_numpy, chunk_from_numpy, hash_table_from_numpy)
+        agg_state_from_numpy, chunk_from_numpy, hash_table_from_numpy,
+        sorted_side_from_numpy)
     from risingwave_tpu_torch.stream.hash_agg import HashAggExecutor
+    from risingwave_tpu_torch.stream.sorted_join import SortedJoinExecutor
     return [NexmarkGenerator.__init__, HashAggExecutor.__init__,
-            resolve_device, chunk_from_numpy, hash_table_from_numpy,
-            agg_state_from_numpy]
+            SortedJoinExecutor.__init__, resolve_device, chunk_from_numpy,
+            hash_table_from_numpy, agg_state_from_numpy,
+            sorted_side_from_numpy]
 
 
 def test_entry_points_default_to_cuda():
@@ -99,8 +109,10 @@ def test_cuda_without_a_card_raises():
     from risingwave_tpu_torch.connectors.nexmark import NexmarkGenerator
     from risingwave_tpu_torch.expr.agg import count_star
     from risingwave_tpu_torch.interop import (
-        agg_state_from_numpy, chunk_from_numpy, hash_table_from_numpy)
+        agg_state_from_numpy, chunk_from_numpy, hash_table_from_numpy,
+        sorted_side_from_numpy)
     from risingwave_tpu_torch.stream.hash_agg import HashAggExecutor
+    from risingwave_tpu_torch.stream.sorted_join import SortedJoinExecutor
 
     class _In:
         schema = make_schema(("k", DataType.INT64))
@@ -117,6 +129,10 @@ def test_cuda_without_a_card_raises():
         lambda: agg_state_from_numpy(
             keys, occupied, [np.zeros(4, np.int64)], np.ones(4, np.int64),
             occupied, occupied, [np.zeros(4, np.int64)]).row_count.device,
+        lambda: SortedJoinExecutor(_In(), _In(), [0], [0], [0], [0],
+                                   capacity=64).device,
+        lambda: sorted_side_from_numpy(keys[0], keys, [occupied],
+                                       np.zeros(4, np.int32), 4).n.device,
     ]
     for build in builders:
         if torch.cuda.is_available():
@@ -130,7 +146,9 @@ def test_every_kernel_is_registered_with_its_source():
     import chip_smoke  # noqa: F401  (imports every wrapper module)
     from risingwave_tpu_torch.ops import kernels
     names = sorted(kernels.KERNELS)
-    assert names == ["hash_agg", "hash_table", "hop_window", "nexmark_bid"]
+    assert names == ["expr_eval", "hash_agg", "hash_table", "hop_window",
+                     "nexmark_bid", "row_id", "sorted_join_merge",
+                     "sorted_join_probe"]
     for k in kernels.KERNELS.values():
         assert k.source.exists()
         src = k.source.read_text()
@@ -142,9 +160,31 @@ def test_every_kernel_is_registered_with_its_source():
 
 
 def test_wrappers_refuse_other_devices():
+    from risingwave_tpu_torch.common.chunk import Column
+    from risingwave_tpu_torch.expr import ExprProgram, call, col, lit
     from risingwave_tpu_torch.ops import hash_table as ht
+    from risingwave_tpu_torch.stream import row_id, sorted_join as sj
     t = ht.HashTable.empty(32, [torch.int64], "meta")
     with pytest.raises(ValueError, match="unsupported device"):
         ht.lookup_or_insert(t, [torch.zeros(4, dtype=torch.int64,
                                             device="meta")],
                             torch.ones(4, dtype=torch.bool, device="meta"))
+    meta = dict(device="meta")
+    i64 = torch.zeros(4, dtype=torch.int64, **meta)
+    b = torch.ones(4, dtype=torch.bool, **meta)
+    prog = ExprProgram([call("add", col(0), lit(1))])
+    side = sj.empty_sorted_side(32, [torch.int64], "meta")
+    errs = torch.zeros(3, dtype=torch.int32, **meta)
+    refusals = [
+        lambda: prog.eval([Column(i64)]),
+        lambda: ExprProgram([call("equal", col(0), lit(1))]).and_into(
+            [Column(i64)], b.clone()),
+        lambda: row_id.row_ids(0, 4, "meta"),
+        lambda: sj.probe([i64], b, b, i64.to(torch.int8), side, (0,),
+                         [Column(i64)], 8, errs),
+        lambda: sj.merge(side, i64, i64, errs[0], [Column(i64)], None,
+                         None, 8, (0,), None, 0, errs, side),
+    ]
+    for refuse in refusals:
+        with pytest.raises(ValueError, match="unsupported device"):
+            refuse()
