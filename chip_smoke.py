@@ -4,25 +4,29 @@
     python3 chip_smoke.py [--host-profile]
 
 Drives the port (`risingwave_tpu_torch`, never the JAX package) through
-two Nexmark paths and holds every hand-written kernel against its plain
-PyTorch version on the card:
+three Nexmark paths and holds every hand-written kernel against its
+plain PyTorch version on the card:
   q5 — bid source -> HOP(2 s, 10 s) -> count(*) GROUP BY (auction,
        window_start) with watermark state cleaning;
   q7 — one bid source broadcast to a TUMBLE(10 s) projection -> MAX(price)
        GROUP BY window_end and to the bids, joined back on price = max
        with a band condition (sorted join), five actors as the JAX
-       planner deploys bench.py's _q7_ddl().
+       planner deploys bench.py's _q7_ddl();
+  q8 — bench.py's bench_q8 statements, verbatim, through the port's own
+       SQL Session: persons and auctions, each TUMBLE(10 s)-projected,
+       joined on (id = seller, window_start) with pair cleaning.
 Phases, one JSON line each:
 
   1. device: the card, torch/CUDA versions, the kernels' build time;
   2. each kernel vs its plain version at its path's shapes (K1-K4 at
-     q5's, K5-K8 at q7's, and K3/K4 again at q7's agg shape), with
-     CUDA-event timings, the plain and library times and the least time
-     the card could take (bound); the join's plain-torch sorts are timed;
+     q5's, K5-K8 at q7's, K3/K4 and K11 again at q7's agg and join
+     shapes), with CUDA-event timings, the plain and library times and
+     the least time the card could take (bound);
   3. q5 end to end at full width (131072-row chunks, a 2^20-slot agg,
      barriers paced by row count) into the device blackhole sink, five
      times from fresh state to show the spread: every q5 kernel launched
-     in each run, no overflow, the live groups equal a host recount;
+     in each run (K12 in the agg's barrier flush), no overflow, the live
+     groups equal a host recount;
   4. a short full-width q5 run under torch.profiler: device busy time by
      kernel, and the device's idle share against phase 3's unprofiled
      median wall; then q5 into a materialized view at a small size: the
@@ -30,16 +34,34 @@ Phases, one JSON line each:
   5. q7 at bench.py's width (131072-bid chunks, inter_event_us=250, 20 s
      watermark lag, a 2^19-row join and an 8192-slot agg, 14 barriers of
      8 chunks) into the device blackhole sink, five times: every q7
-     kernel launched, no match or row overflow, and exactly the delete
-     misses that this geometry's band cleaning causes (q7_delete_misses,
-     which the CPU tests hold against the JAX executor); bids/s,
-     barrier latency, peak memory; then a short profiled q7 run for the
-     idle share;
+     kernel launched (K11 sorts the join's rows), no match or row
+     overflow, and exactly the delete misses that this geometry's band
+     cleaning causes (q7_delete_misses, which the CPU tests hold against
+     the JAX executor); bids/s, barrier latency, peak memory; then a
+     short profiled q7 run for the idle share;
   6. q7_check: the same wiring and capacities at one barrier per
      32768-bid chunk into a device sink that keeps the output rows; its
      net output must equal a numpy recount and every error counter 0;
-  7. the kernels line: launches on the first run of each kernel's path
-     (q5 for K1-K4, q7 for K5-K8), error, times, bounds.
+  7. kernels_q8: K9-K12 against their plain versions at q8's shapes
+     (98304-row person and 294912-row auction chunks; the join's hash
+     sorts; a 16384-row netting lexsort; K12 over q5's 2^20 slots);
+  8. q8_full: bench_q8's statements through Session(device="cuda"), a
+     2^19-row join a side, match factor 2, 28 barriers each after one
+     person chunk and one auction chunk (11.0 M events), five runs from
+     fresh state: K5-K7 and K9-K11 launched, errs[1] == errs[2] == 0
+     (errs[0], the person side's match-buffer overflow, is reported:
+     bench's geometry drops matches in both engines when a person chunk
+     reaches the join after its auctions); then q8_profile, the idle
+     share of a short profiled run;
+  9. q8_check: the same statements into a device sink that keeps the
+     rows, 8 barriers: at match factor 2 every output key at most its
+     numpy recount and the shortfall equal to errs[0]; at match factor 4
+     the output equal to the recount with errs [0, 0, 0]; then 2
+     barriers with auction chunks twice bench's, where the person side's
+     buffer must overflow (errs[0] > 0) and the identity still hold;
+ 10. the kernels line: launches on the first run of each kernel's own
+     slice's path (q5 for K1-K4 and K12, q7 for K5-K8, q8 for K9-K11),
+     error, times, bounds.
 With --host-profile, phase 4 also runs q5 under cProfile and lists the
 host functions with the most own time.
 The last line is {"ok": true, "device": {...}}. Any failed phase exits
@@ -64,17 +86,22 @@ import torch
 from risingwave_tpu_torch.common.chunk import Column, StreamChunk, op_sign
 from risingwave_tpu_torch.common.types import DataType
 from risingwave_tpu_torch.connectors.nexmark import (
-    NexmarkConfig, NexmarkGenerator, gen_bid_columns, gen_bid_columns_plain,
-    vocab_ids,
+    NexmarkConfig, NexmarkGenerator, gen_auction_columns,
+    gen_auction_columns_plain, gen_bid_columns, gen_bid_columns_plain,
+    gen_person_columns, gen_person_columns_plain, vocab_ids,
 )
 from risingwave_tpu_torch.expr import ExprProgram, FuncCall, call, col, lit
 from risingwave_tpu_torch.expr.agg import agg_max, count_star
 from risingwave_tpu_torch.expr.transforms import (
     TumbleEndTransform, TumbleStartTransform,
 )
+from risingwave_tpu_torch.frontend import Session
 from risingwave_tpu_torch.meta import BarrierCoordinator
 from risingwave_tpu_torch.ops import hash_table as ht
 from risingwave_tpu_torch.ops import kernels
+from risingwave_tpu_torch.ops.sort import (
+    stable_lexsort, stable_sort, stable_sort_plain,
+)
 from risingwave_tpu_torch.state import MemoryStateStore, StateTable
 from risingwave_tpu_torch.stream import (
     Actor, BroadcastDispatcher, Channel, ChannelInput,
@@ -296,19 +323,24 @@ class DeviceCollectSinkExecutor(Executor):
                 self._append(msg)
             yield msg
 
-    def rows(self) -> tuple[Counter, int]:
-        """(net multiset of rows, rows that did not fit)."""
+    def arrays(self) -> tuple[list, np.ndarray, int]:
+        """(kept columns as numpy arrays, their signs, rows that did not
+        fit); NULL lanes hold 0."""
         n = int(self.count)
         k = min(n, self.capacity)
-        sign = self.sign[:k].cpu().numpy()
-        cols = [d[:k].cpu().numpy() for d in self.data]
-        valid = [v[:k].cpu().numpy() for v in self.valid]
+        return ([d[:k].cpu().numpy() for d in self.data],
+                self.sign[:k].cpu().numpy(), n - k)
+
+    def rows(self) -> tuple[Counter, int]:
+        """(net multiset of rows, rows that did not fit)."""
+        cols, sign, dropped = self.arrays()
+        valid = [v[:sign.size].cpu().numpy() for v in self.valid]
         net: Counter = Counter()
-        for r in range(k):
+        for r in range(sign.size):
             row = tuple(int(c[r]) if v[r] else None
                         for c, v in zip(cols, valid))
             net[row] += int(sign[r])
-        return Counter({r: c for r, c in net.items() if c}), n - k
+        return Counter({r: c for r, c in net.items() if c}), dropped
 
 
 def build_q7(device, chunk_size: int, inter_event_us: int,
@@ -1099,14 +1131,28 @@ def phase_kernels_q7(dev, n: int = 131072, join_cap: int = Q7_JOIN_CAPACITY,
     emit({"phase": "kernel", "name": "sorted_join_merge",
           **res["sorted_join_merge"]})
 
-    # ---- B6: the join's two plain-torch sorts at q7's shapes
+    # ---- K11 at q7's shapes: the join's sort of a bid chunk's hashes
+    # and the right side's pk-run netting of an agg flush chunk, against
+    # torch.sort
     ins_h = torch.where(vis, lkh, HSENTINEL)
-    sort_ms, _ = time_ms(lambda: torch.sort(ins_h, stable=True))
     flush = StreamChunk(tuple(own_r), rops, ract, None)
-    net_ms, _ = time_ms(lambda: net_pk_runs(flush, ract, (1,)))
-    res["b6_sorts"] = dict(sort_ms=sort_ms, sort_rows=n, net_ms=net_ms,
-                           net_rows=nr)
-    emit({"phase": "b6_sorts", **res["b6_sorts"]})
+    pk = flush.columns[1].data
+    net_keys = [pk, (~ract).to(torch.uint8)]
+    err = exact_err(list(stable_sort(ins_h, 63)),
+                    list(stable_sort_plain(ins_h)))
+    err = max(err, exact_err([stable_lexsort(net_keys, [64, 1])],
+                             [stable_lexsort([k.cpu() for k in net_keys])
+                              .to(dev)]))
+    if err:
+        raise AssertionError(f"K11 at q7's shapes differs by {err}")
+    res["k11_at_q7"] = dict(
+        max_abs_err=err, sort_rows=n, net_rows=nr,
+        sort=timings(lambda: stable_sort(ins_h, 63),
+                     lambda: stable_sort_plain(ins_h)),
+        net=timings(lambda: net_pk_runs(flush, ract, (1,)),
+                    lambda: [torch.argsort(k, stable=True)
+                             for k in net_keys]))
+    emit({"phase": "k11_at_q7", **res["k11_at_q7"]})
 
     # ---- K3/K4 at the agg's shape: window_end keys of one chunk (a few
     # windows, one hot) into an 8192-slot table, MAX(price)
@@ -1210,7 +1256,8 @@ def q7_full_run(dev, chunk: int, per_barrier: int, rounds: int,
 
 
 Q7_KERNELS = ("nexmark_bid", "expr_eval", "row_id", "hash_table",
-              "hash_agg", "sorted_join_probe", "sorted_join_merge")
+              "hash_agg", "sorted_join_probe", "sorted_join_merge",
+              "radix_sort", "compact")
 
 
 def phase_q7_full(dev, repeats: int = 5) -> dict:
@@ -1307,6 +1354,414 @@ def phase_q7_check(dev, chunk: int = 32768, rounds: int = 40) -> dict:
                 agg_overflow=overflow)
 
 
+# ------------------------------------------------------------ q8 (SQL)
+
+W = 10_000_000              # bench.py's TUMBLE window, microseconds
+# bench.py's bench_q8 statements, verbatim (tests/test_torch_frontend.py
+# holds them against bench.py's source)
+Q8_DDL = [
+    "SET streaming_durability = 0",
+    "SET streaming_watchdog = 0",
+    f"SET streaming_join_capacity = {1 << 19}",
+    "SET streaming_join_match_factor = 2",
+    ("CREATE SOURCE person WITH (connector='nexmark', table='person', primary_key='id', "
+     "chunk_size=98304, inter_event_us=100, emit_watermarks=1)"),
+    ("CREATE SOURCE auction WITH (connector='nexmark', primary_key='id', "
+     "table='auction', chunk_size=294912, inter_event_us=100, "
+     "emit_watermarks=1)"),
+    ("CREATE SINK q8 AS "
+     "SELECT P.id, P.window_start "
+     f"FROM TUMBLE(person, date_time, {W}) P "
+     f"JOIN TUMBLE(auction, date_time, {W}) A "
+     "ON P.id = A.seller AND P.window_start = A.window_start "
+     "WITH (connector='blackhole_device')"),
+]
+Q8_PERSON_CHUNK, Q8_AUCTION_CHUNK, Q8_INTER_US = 98304, 294912, 100
+Q8_KERNELS = ("nexmark_person", "nexmark_auction", "expr_eval",
+              "sorted_join_probe", "sorted_join_merge", "radix_sort")
+
+
+def q8_ddl(person_chunk: int = Q8_PERSON_CHUNK,
+           auction_chunk: int = Q8_AUCTION_CHUNK) -> list:
+    """Q8_DDL, with other chunk sizes when asked (the CPU rehearsals)."""
+    return [st.replace(f"chunk_size={Q8_PERSON_CHUNK},",
+                       f"chunk_size={person_chunk},")
+            .replace(f"chunk_size={Q8_AUCTION_CHUNK},",
+                     f"chunk_size={auction_chunk},") for st in Q8_DDL]
+
+
+def q8_run(dev, rounds: int, person_chunk: int = Q8_PERSON_CHUNK,
+           auction_chunk: int = Q8_AUCTION_CHUNK, sets=(),
+           collect: int = 0) -> dict:
+    """bench_q8's statements through the port's Session on `dev` (chunk
+    sizes swapped in when they are not bench's), then `sets`. Barriers
+    are paced by rows: each of `rounds` barriers follows one person
+    chunk and one auction chunk (equal event-time spans), the last is
+    the Stop barrier. The sources are throttled to one chunk a barrier
+    before the sink is created. Counts are set to 0 just before CREATE
+    SINK (which starts the flow) and read just after the Stop. With
+    collect > 0 a device sink keeping up to `collect` rows is attached
+    to the sink fragment by a session build hook."""
+    on_card = torch.device(dev).type == "cuda"
+
+    async def go():
+        s = Session(device=dev)
+        ddl = q8_ddl(person_chunk, auction_chunk)
+        for stmt in ddl[:-1]:
+            await s.execute(stmt)
+        for stmt in sets:
+            await s.execute(stmt)
+        s.throttle_source("person", person_chunk)
+        s.throttle_source("auction", auction_chunk)
+        held = {}
+        if collect:
+            def attach(name, dep, fid):
+                root = dep.roots[fid][0]
+                actor = next(a for a in dep.actors if a.consumer is root)
+                actor.consumer = held["sink"] = DeviceCollectSinkExecutor(
+                    root, collect, dev)
+            s.build_hooks.append(attach)
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launch_counts()
+        await s.execute(ddl[-1])
+        dep = s.catalog.sinks["q8"].deployment
+        gens = {x.connector.table: x.connector
+                for x in dep.executors(SourceExecutor)}
+        join = dep.executors(SortedJoinExecutor)[0]
+        coord = s.coord
+
+        def check():
+            for t in dep.tasks:
+                if t.done():
+                    t.result()
+
+        t0 = time.perf_counter()
+        for r in range(1, rounds + 1):
+            while (gens["person"].offset < r * person_chunk
+                   or gens["auction"].offset < r * auction_chunk):
+                check()
+                await asyncio.sleep(0)
+            if r < rounds:
+                b = await coord.inject_barrier()
+                await coord.wait_collected(b)
+            else:
+                await coord.stop_all({a.actor_id for a in dep.actors})
+        wall = time.perf_counter() - t0
+        await asyncio.gather(*dep.tasks)
+        launches = {k.name: k.launches for k in kernels.KERNELS.values()}
+        if on_card:
+            torch.cuda.synchronize()
+        s.catalog.sinks.pop("q8")
+        return dict(persons=gens["person"].offset,
+                    auctions=gens["auction"].offset, wall_s=wall,
+                    join=join, sink=held.get("sink"), coord=coord,
+                    launches=launches,
+                    mem_peak_bytes=(torch.cuda.max_memory_allocated(dev)
+                                    if on_card else None))
+
+    return asyncio.run(go())
+
+
+def q8_keys(pid: np.ndarray, ws: np.ndarray, cfg: NexmarkConfig):
+    """One int64 key per (person id, window_start): id << 24 | window
+    index counted from the window of the generator's time origin."""
+    ws0 = cfg.base_time_us - cfg.base_time_us % W
+    widx = (ws - ws0) // W
+    if widx.size and (int(widx.min()) < 0 or int(widx.max()) >= 1 << 24
+                      or int(pid.min()) < 0 or int(pid.max()) >= 1 << 38):
+        raise ValueError("q8 key out of range")
+    return (pid.astype(np.int64) << 24) | widx
+
+
+def q8_recount(n_person: int, n_auction: int, cfg: NexmarkConfig, device,
+               batch: int = 1 << 20) -> tuple[np.ndarray, np.ndarray]:
+    """q8's result over persons [0, n_person) and auctions [0,
+    n_auction), recounted with numpy from the plain generators: per
+    (P.id, P.window_start) key (q8_keys), the number of auctions whose
+    seller is P.id in the same TUMBLE window — one output row each.
+    Returns (sorted keys, counts), keys with a count of 0 left out."""
+    vocabs = {k: torch.tensor(v, dtype=torch.int32, device=device)
+              for k, v in vocab_ids().items()}
+
+    def cols(gen, n, idx):
+        parts = []
+        for off in range(0, n, batch):
+            c = gen(off, min(batch, n - off), cfg, vocabs, device)
+            parts.append([c[i].cpu().numpy() for i in idx])
+        if not parts:
+            return [np.empty(0, np.int64) for _ in idx]
+        return [np.concatenate(x) for x in zip(*parts)]
+
+    pid, pdt = cols(gen_person_columns_plain, n_person, (0, 6))
+    seller, adt = cols(gen_auction_columns_plain, n_auction, (7, 5))
+    pk = q8_keys(pid, pdt - pdt % W, cfg)
+    ak, ac = np.unique(q8_keys(seller, adt - adt % W, cfg),
+                       return_counts=True)
+    pos = np.searchsorted(ak, pk).clip(max=max(ak.size - 1, 0))
+    hit = ak[pos] == pk if ak.size else np.zeros(pk.size, bool)
+    order = np.argsort(pk[hit])
+    return pk[hit][order], ac[pos[hit]][order]
+
+
+def q8_sink_counts(sink: "DeviceCollectSinkExecutor", cfg: NexmarkConfig):
+    """(sorted keys, counts) of the rows a q8 device sink kept (the
+    output is append-only: every row is an insert)."""
+    cols, sign, dropped = sink.arrays()
+    if dropped:
+        raise AssertionError(f"q8 sink dropped {dropped} rows")
+    if sign.size and int(sign.min()) != 1:
+        raise AssertionError("q8 output holds retractions")
+    return np.unique(q8_keys(cols[0], cols[1], cfg), return_counts=True)
+
+
+def q8_shortfall(got, want) -> tuple[int, int]:
+    """(rows the output lacks against the recount, keys where it has
+    more than the recount or a key the recount lacks)."""
+    gk, gc = got
+    wk, wc = want
+    pos = np.searchsorted(wk, gk).clip(max=max(wk.size - 1, 0))
+    known = (wk[pos] == gk) if wk.size else np.zeros(gk.size, bool)
+    over = int((~known).sum()) + int((gc[known] > wc[pos[known]]).sum())
+    return int(wc.sum()) - int(gc.sum()), over
+
+
+def phase_kernels_q8(dev) -> dict:
+    """K9-K12 against their plain versions at q8's shapes (and K12 at
+    q5's agg capacity), with the library yardsticks."""
+    cfg = NexmarkConfig(inter_event_us=Q8_INTER_US)
+    vocabs = {k: torch.tensor(v, dtype=torch.int32, device=dev)
+              for k, v in vocab_ids().items()}
+    res = {}
+    odd = NexmarkConfig(inter_event_us=50_000, num_active_people=1009,
+                        base_time_us=1_234_567)
+    for name, gen, plain, n, row_b in (
+            ("nexmark_person", gen_person_columns, gen_person_columns_plain,
+             Q8_PERSON_CHUNK, 2 * 8 + 6 * 4),
+            ("nexmark_auction", gen_auction_columns,
+             gen_auction_columns_plain, Q8_AUCTION_CHUNK, 7 * 8 + 3 * 4)):
+        err = 0
+        for off, c in ((0, cfg), (10**12 + 7, cfg), (987_654_321, odd)):
+            err = max(err, exact_err(gen(off, n, c, vocabs, dev),
+                                     plain(off, n, c, vocabs, dev)))
+        if err:
+            raise AssertionError(f"{name} differs from plain by {err}")
+        off = 28 * n
+        res[name] = dict(
+            max_abs_err=err,
+            **timings(lambda g=gen, n=n: g(off, n, cfg, vocabs, dev),
+                      lambda g=plain, n=n: g(off, n, cfg, vocabs, dev)),
+            bound_ms=bytes_bound_ms(n * row_b), bound_by="bytes", rows=n)
+        emit({"phase": "kernel", "name": name, **res[name]})
+
+    # ---- K11: the join's sorts at q8's shapes (the 63-bit hashes of the
+    # auction chunk's (seller, window_start) and the person chunk's
+    # (id, window_start)), keys with many ties and negatives, extreme
+    # int64, tiny and empty inputs; then a 16384-row netting lexsort
+    a = gen_auction_columns_plain(0, Q8_AUCTION_CHUNK, cfg, vocabs, dev)
+    p = gen_person_columns_plain(0, Q8_PERSON_CHUNK, cfg, vocabs, dev)
+    a_h = key_hash([a[7], a[5] - a[5] % W])
+    p_h = key_hash([p[0], p[6] - p[6] % W])
+    g = torch.Generator().manual_seed(17)
+    ext = torch.tensor([-(1 << 63), (1 << 63) - 1, 0, -1, 1],
+                       dtype=torch.int64)
+    cases = [(a_h, 63), (p_h, 63),
+             (torch.randint(-1000, 1000, (294912,), generator=g).to(dev), 64),
+             (ext[torch.randint(0, 5, (70000,), generator=g)].to(dev), 64),
+             (torch.randint(0, 2, (5000,), generator=g).to(dev), 1),
+             (torch.randint(0, 1 << 20, (100000,), generator=g).to(dev), 20),
+             (torch.randint(-5, 5, (3,), generator=g).to(dev), 64),
+             (torch.empty(0, dtype=torch.int64, device=dev), 64)]
+    err = 0
+    for keys, bits in cases:
+        ks, kp = stable_sort(keys, bits)
+        ps, pp = stable_sort_plain(keys)
+        err = max(err, exact_err([ks, kp], [ps, pp]))
+    # netting lexsort: a retracting side's 16384-row chunk grouped by a
+    # pk with runs, NULL-key rows last
+    nr = 16384
+    pk_col = torch.randint(0, nr // 4, (nr,), generator=g).to(dev)
+    act = (torch.rand(nr, generator=g) < 0.9).to(dev)
+    lex_keys = [pk_col, (~act).to(torch.uint8)]
+    lex_bits = [64, 1]
+    err = max(err, exact_err(
+        [stable_lexsort(lex_keys, lex_bits)],
+        [stable_lexsort([k.cpu() for k in lex_keys]).to(dev)]))
+    if err:
+        raise AssertionError(f"K11 differs from plain by {err}")
+    n = Q8_AUCTION_CHUNK
+    res["radix_sort"] = dict(
+        max_abs_err=err,
+        **timings(lambda: stable_sort(a_h, 63),
+                  lambda: stable_sort_plain(a_h),
+                  library_fn=lambda: torch.sort(a_h, stable=True)),
+        bound_ms=bytes_bound_ms(n * 24), bound_by="bytes", rows=n,
+        person_side=dict(
+            rows=Q8_PERSON_CHUNK,
+            **timings(lambda: stable_sort(p_h, 63),
+                      lambda: stable_sort_plain(p_h)),
+            bound_ms=bytes_bound_ms(Q8_PERSON_CHUNK * 24)),
+        netting_lexsort=dict(
+            rows=nr,
+            **timings(lambda: stable_lexsort(lex_keys, lex_bits),
+                      lambda: [torch.argsort(k, stable=True)
+                               for k in lex_keys]),
+            bound_ms=bytes_bound_ms(nr * (8 + 1 + 8))))
+    emit({"phase": "kernel", "name": "radix_sort", **res["radix_sort"]})
+
+    # ---- K12: masks of q5's agg capacity at several densities, all
+    # false, all true, a length that is not a multiple of a block
+    C = 1 << 20
+    masks = [(torch.rand(C, generator=g) < d).to(dev)
+             for d in (0.3, 0.0, 1.0, 0.01)]
+    masks.append((torch.rand(1000003, generator=g) < 0.5).to(dev))
+    err = 0
+    for m in masks:
+        sk, nk = ht.compact_mask(m)
+        sp, np_ = ht.compact_mask_plain(m)
+        err = max(err, exact_err([sk, nk], [sp, np_]))
+    if err:
+        raise AssertionError(f"K12 differs from plain by {err}")
+    m = masks[0]
+    res["compact"] = dict(
+        max_abs_err=err,
+        **timings(lambda: ht.compact_mask(m),
+                  lambda: ht.compact_mask_plain(m),
+                  library_fn=lambda: torch.nonzero(m)),
+        bound_ms=bytes_bound_ms(C * 9), bound_by="bytes", slots=C,
+        set_share=float(m.float().mean()))
+    emit({"phase": "kernel", "name": "compact", **res["compact"]})
+    return res
+
+
+def q8_check_gates(r: dict, want, got, exact: bool) -> dict:
+    errs = r["join"].errs()
+    short, over = q8_shortfall(got, want)
+    if errs[1] or errs[2] or over:
+        raise AssertionError(f"q8: join errs {errs}, {over} keys above "
+                             f"the recount")
+    if short != errs[0]:
+        raise AssertionError(f"q8: output lacks {short} rows against the "
+                             f"recount, the join dropped {errs[0]}")
+    if exact and (short or errs != [0, 0, 0]):
+        raise AssertionError(f"q8 differs from the recount: {short} rows "
+                             f"short, errs {errs}")
+    return dict(join_errs=errs, shortfall=short, rows=int(want[1].sum()),
+                keys=int(want[0].size))
+
+
+def phase_q8_full(dev, repeats: int = 5, rounds: int = 28) -> dict:
+    """bench_q8's statements through the port's Session at bench's
+    width, `repeats` runs from fresh state: every q8 kernel launched,
+    errs[1] == errs[2] == 0 (errs[0], the match-buffer overflow, is
+    reported: it is bench geometry's semantics in both engines)."""
+    runs = []
+    for _ in range(repeats):
+        r = q8_run(dev, rounds)
+        errs = r["join"].errs()
+        if errs[1] or errs[2]:
+            raise AssertionError(f"q8: join errs {errs}")
+        missing = [k for k in Q8_KERNELS if r["launches"][k] == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on q8: {missing}")
+        events = r["persons"] + r["auctions"]
+        runs.append(dict(
+            events=events, wall_s=r["wall_s"],
+            events_per_s=events / r["wall_s"],
+            barrier_p50_s=r["coord"].barrier_latency_percentile(0.5),
+            barrier_max_s=r["coord"].barrier_latency_percentile(1.0),
+            join_errs=errs, left_rows=int(r["join"].sides[0].n),
+            right_rows=int(r["join"].sides[1].n),
+            mem_peak_bytes=r["mem_peak_bytes"], launches=r["launches"]))
+    first = runs[0]
+    rates = [x["events_per_s"] for x in runs]
+    return dict(
+        persons=rounds * Q8_PERSON_CHUNK, auctions=rounds * Q8_AUCTION_CHUNK,
+        events=first["events"], barriers=rounds, repeats=repeats,
+        wall_s=statistics.median(x["wall_s"] for x in runs),
+        events_per_s=statistics.median(rates), events_per_s_min=min(rates),
+        events_per_s_max=max(rates),
+        barrier_p50_s=statistics.median(x["barrier_p50_s"] for x in runs),
+        barrier_max_s=statistics.median(x["barrier_max_s"] for x in runs),
+        runs=[{k: x[k] for k in ("wall_s", "events_per_s", "barrier_p50_s",
+                                 "barrier_max_s", "join_errs", "left_rows",
+                                 "right_rows", "mem_peak_bytes")}
+              for x in runs],
+        launches=first["launches"])
+
+
+def phase_q8_profile(dev, full: dict, rounds: int = 6) -> dict:
+    """Where q8's time goes: a fresh run of a few barriers under
+    torch.profiler; the idle share against phase q8_full's unprofiled
+    median wall per chunk pair."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        r = q8_run(dev, rounds)
+        torch.cuda.synchronize()
+    kev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name: dict = {}
+    for e in kev:
+        name = e.name[:60]
+        t, c = by_name.get(name, (0.0, 0))
+        by_name[name] = (t + e.time_range.elapsed_us(), c + 1)
+    busy_s = sum(t for t, _ in by_name.values()) / 1e6
+    busy_per_pair = busy_s / rounds
+    wall_per_pair = full["wall_s"] / full["barriers"]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:16]
+    return dict(
+        rounds=rounds, wall_s=r["wall_s"], device_busy_s=busy_s,
+        device_busy_per_chunk_pair_s=busy_per_pair,
+        unprofiled_wall_per_chunk_pair_s=wall_per_pair,
+        device_idle_share=(1 - busy_per_pair / wall_per_pair)
+        if kev else None,
+        device_idle_share_profiled=(1 - busy_s / r["wall_s"])
+        if kev else None,
+        device_events=len(kev),
+        top_kernels=[{"name": nm, "ms": t / 1e3, "count": c}
+                     for nm, (t, c) in top])
+
+
+def phase_q8_check(dev, rounds: int = 8, ahead_rounds: int = 2) -> dict:
+    """The correctness gate: bench_q8's statements again, a device sink
+    that keeps the rows attached to the session's deployment. At match
+    factor 2 (bench's) the output must be a sub-multiset of the numpy
+    recount short by exactly the matches the join counted as dropped;
+    at match factor 4 (M = 393216 >= the matches a chunk pair holds) it
+    must equal the recount with errs [0, 0, 0]. A third run makes the
+    overflow certain: auction chunks twice bench's (twice the person
+    chunk's event time, a 2^20-row join so the auctions held ahead fit),
+    so every person chunk after the first finds its ~277 k auctions
+    already stored, past its 196608-slot buffer; errs[0] must be > 0
+    and the identity must hold."""
+    cfg = NexmarkConfig(inter_event_us=Q8_INTER_US)
+    out = {}
+    for mf in (2, 4):
+        sets = (f"SET streaming_join_match_factor = {mf}",) if mf != 2 \
+            else ()
+        r = q8_run(dev, rounds, sets=sets,
+                   collect=rounds * Q8_AUCTION_CHUNK)
+        want = q8_recount(r["persons"], r["auctions"], cfg, dev)
+        got = q8_sink_counts(r["sink"], cfg)
+        out[f"match_factor_{mf}"] = dict(
+            persons=r["persons"], auctions=r["auctions"],
+            **q8_check_gates(r, want, got, exact=mf == 4))
+    ahead = 2 * Q8_AUCTION_CHUNK
+    r = q8_run(dev, ahead_rounds, auction_chunk=ahead,
+               sets=(f"SET streaming_join_capacity = {1 << 20}",),
+               collect=ahead_rounds * ahead)
+    want = q8_recount(r["persons"], r["auctions"], cfg, dev)
+    got = q8_sink_counts(r["sink"], cfg)
+    gate = q8_check_gates(r, want, got, exact=False)
+    if gate["join_errs"][0] == 0:
+        raise AssertionError("q8 auctions-ahead run dropped no match")
+    out["auctions_ahead"] = dict(persons=r["persons"],
+                                 auctions=r["auctions"], **gate)
+    return dict(barriers=rounds, **out)
+
+
 def q5_full_run(dev, cfg: NexmarkConfig, chunk: int, cap: int,
                 per_barrier: int, rounds: int) -> dict:
     """One full-width q5 run from fresh state, checked: counts set to 0
@@ -1347,7 +1802,15 @@ def q5_full_run(dev, cfg: NexmarkConfig, chunk: int, cap: int,
         launches=launches)
 
 
-Q5_KERNELS = ("nexmark_bid", "hop_window", "hash_table", "hash_agg")
+Q5_KERNELS = ("nexmark_bid", "hop_window", "hash_table", "hash_agg",
+              "compact")
+# the path whose run gives each kernel's launches in the kernels line:
+# the slice that ported it (K12 closes q5's flush compaction)
+KERNEL_PATH = {"nexmark_bid": "q5", "hop_window": "q5", "hash_table": "q5",
+               "hash_agg": "q5", "compact": "q5", "expr_eval": "q7",
+               "row_id": "q7", "sorted_join_probe": "q7",
+               "sorted_join_merge": "q7", "nexmark_person": "q8",
+               "nexmark_auction": "q8", "radix_sort": "q8"}
 
 
 def phase_q5_full(dev, repeats: int = 5) -> dict:
@@ -1496,11 +1959,17 @@ def main(argv) -> int:
     emit({"phase": "q7_full", "nvidia_smi": smi, **q7})
     emit({"phase": "q7_profile", **phase_q7_profile(dev, q7)})
     emit({"phase": "q7_check", **phase_q7_check(dev)})
+    res.update(phase_kernels_q8(dev))
+    q8 = phase_q8_full(dev)
+    emit({"phase": "q8_full", "nvidia_smi": smi, **q8})
+    emit({"phase": "q8_profile", **phase_q8_profile(dev, q8)})
+    emit({"phase": "q8_check", **phase_q8_check(dev)})
+    paths = {"q5": q5, "q7": q7, "q8": q8}
     rows = []
     for name, k in kernels.KERNELS.items():
         r = res[name]
         # each kernel's launches come from the run of its own slice's path
-        path = q5 if name in Q5_KERNELS else q7
+        path = paths[KERNEL_PATH[name]]
         rows.append({
             "name": name, "route": "cuda",
             "source": str(k.source.relative_to(

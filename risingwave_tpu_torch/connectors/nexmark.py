@@ -7,8 +7,9 @@ The public Nexmark generator model (person/auction/bid interleaving
 chunk is generated on the device, seekable by offset, and bit-identical
 to the JAX package for the same start index.
 
-The bid table is kernel K1 (`csrc/nexmark_bid.cu`); person and auction
-run as plain PyTorch on either device.
+The bid, person and auction tables are kernels K1, K9 and K10
+(`csrc/nexmark_bid.cu`, `nexmark_person.cu`, `nexmark_auction.cu`) on a
+CUDA device; each keeps its plain PyTorch version for the CPU.
 """
 
 from __future__ import annotations
@@ -215,8 +216,10 @@ def gen_bid_columns(start_index: int, n: int, cfg: NexmarkConfig,
     return (auction, bidder, price, channel, url, date_time, extra)
 
 
-def gen_person_columns(start_index: int, n: int, cfg: NexmarkConfig,
-                       vocabs: dict[str, torch.Tensor], device):
+def gen_person_columns_plain(start_index: int, n: int, cfg: NexmarkConfig,
+                             vocabs: dict[str, torch.Tensor], device):
+    """Plain PyTorch version of kernel K9: person events
+    k = start_index .. start_index+n-1 (person-local indices)."""
     k = start_index + torch.arange(n, dtype=torch.int64, device=device)
     global_id = k * TOTAL_PROPORTION  # persons sit at offset 0 of a group
     pid = FIRST_PERSON_ID + k
@@ -231,8 +234,10 @@ def gen_person_columns(start_index: int, n: int, cfg: NexmarkConfig,
     return (pid, name, email, card, city, state, date_time, extra)
 
 
-def gen_auction_columns(start_index: int, n: int, cfg: NexmarkConfig,
-                        vocabs: dict[str, torch.Tensor], device):
+def gen_auction_columns_plain(start_index: int, n: int, cfg: NexmarkConfig,
+                              vocabs: dict[str, torch.Tensor], device):
+    """Plain PyTorch version of kernel K10: auction events
+    k = start_index .. start_index+n-1 (auction-local indices)."""
     k = start_index + torch.arange(n, dtype=torch.int64, device=device)
     group = k // AUCTION_PROPORTION
     off = k % AUCTION_PROPORTION
@@ -253,6 +258,76 @@ def gen_auction_columns(start_index: int, n: int, cfg: NexmarkConfig,
     category = FIRST_CATEGORY_ID + _rand(global_id, 28, 5)
     return (aid, item, desc, initial_bid, reserve, date_time, expires,
             seller, category, _vocab_pick(vocabs["extra"], global_id, 29))
+
+
+# K9. Replaces connectors/nexmark.py:gen_person_columns (190).
+K_PERSON = kernels.register(kernels.CudaKernel(
+    "nexmark_person",
+    replaces="risingwave_tpu/connectors/nexmark.py:190",
+    functions={"rw_nexmark_person": [
+        _L, _I, _L, _L, *([_P, _I] * 6), *([_P] * 8), _P]}))
+
+# K10. Replaces connectors/nexmark.py:gen_auction_columns (208).
+K_AUCTION = kernels.register(kernels.CudaKernel(
+    "nexmark_auction",
+    replaces="risingwave_tpu/connectors/nexmark.py:208",
+    functions={"rw_nexmark_auction": [
+        _L, _I, _L, _L, _L, *([_P, _I] * 3), *([_P] * 10), _P]}))
+
+
+def _vocab_args(vocabs: dict[str, torch.Tensor], names, device) -> list:
+    args = []
+    for name in names:
+        v = vocabs[name]
+        if v.device != device or v.dtype != torch.int32:
+            raise ValueError("vocab id tables must be int32 on the device")
+        args += [kernels.ptr(v), v.shape[0]]
+    return args
+
+
+def gen_person_columns(start_index: int, n: int, cfg: NexmarkConfig,
+                       vocabs: dict[str, torch.Tensor],
+                       device) -> tuple[torch.Tensor, ...]:
+    """The person columns on `device`: kernel K9 on a CUDA device, the
+    plain version on the CPU."""
+    device = resolve_device(device)
+    if device.type == "cpu":
+        return gen_person_columns_plain(start_index, n, cfg, vocabs, device)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    pid, date_time = (torch.empty(n, dtype=torch.int64, device=device)
+                      for _ in range(2))
+    name, email, card, city, state, extra = (
+        torch.empty(n, dtype=torch.int32, device=device) for _ in range(6))
+    vargs = _vocab_args(vocabs, ("name", "email", "card", "city", "state",
+                                 "extra"), device)
+    K_PERSON.launches += 1
+    K_PERSON.call("rw_nexmark_person", start_index, n, cfg.base_time_us,
+                  cfg.inter_event_us, *vargs,
+                  *(kernels.ptr(t) for t in (pid, name, email, card, city,
+                                             state, date_time, extra)),
+                  kernels.stream_of(pid))
+    return (pid, name, email, card, city, state, date_time, extra)
+
+
+def gen_auction_columns(start_index: int, n: int, cfg: NexmarkConfig,
+                        vocabs: dict[str, torch.Tensor],
+                        device) -> tuple[torch.Tensor, ...]:
+    """The auction columns on `device`: kernel K10 on a CUDA device, the
+    plain version on the CPU."""
+    device = resolve_device(device)
+    if device.type == "cpu":
+        return gen_auction_columns_plain(start_index, n, cfg, vocabs, device)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    cols = [torch.empty(n, dtype=torch.int32 if j in (1, 2, 9)
+                        else torch.int64, device=device) for j in range(10)]
+    vargs = _vocab_args(vocabs, ("item", "desc", "extra"), device)
+    K_AUCTION.launches += 1
+    K_AUCTION.call("rw_nexmark_auction", start_index, n, cfg.base_time_us,
+                   cfg.inter_event_us, cfg.num_active_people, *vargs,
+                   *(kernels.ptr(t) for t in cols), kernels.stream_of(cols[0]))
+    return tuple(cols)
 
 
 _TABLES = {

@@ -18,31 +18,12 @@
 // output is bit-identical to the reference without the int64 tricks of
 // the plain version.
 
-#include "common.cuh"
+#include "nexmark.cuh"
 
 namespace {
 
-constexpr i64 kPersonProportion = 1;
-constexpr i64 kAuctionProportion = 3;
-constexpr i64 kBidProportion = 46;
-constexpr i64 kTotalProportion = 50;
 constexpr i64 kHotAuctionRatio = 100;
 constexpr i64 kHotBidderRatio = 100;
-constexpr i64 kFirstPersonId = 1000;
-constexpr i64 kFirstAuctionId = 1000;
-
-__device__ __forceinline__ u64 rw_hash(i64 eid, u64 salt) {
-  return rw_splitmix64(static_cast<u64>(eid) * 2654435761ULL + salt);
-}
-
-template <u64 MOD>
-__device__ __forceinline__ i64 rand_c(i64 eid, u64 salt) {
-  return static_cast<i64>(rw_hash(eid, salt) % MOD);
-}
-
-__device__ __forceinline__ i64 rand_r(i64 eid, u64 salt, u64 mod) {
-  return static_cast<i64>(rw_hash(eid, salt) % mod);
-}
 
 __global__ void nexmark_bid_kernel(
     i64 start, int n, i64 base_time_us, i64 inter_event_us,
@@ -61,41 +42,35 @@ __global__ void nexmark_bid_kernel(
   const i64 off = k % kBidProportion;
   const i64 gid = group * kTotalProportion + kPersonProportion +
                   kAuctionProportion + off;
-  // _ids_so_far: counts of persons/auctions emitted before gid
-  const i64 g = gid / kTotalProportion;
-  const i64 o = gid % kTotalProportion;
-  const i64 n_persons =
-      g * kPersonProportion + (o < kPersonProportion ? o : kPersonProportion);
-  i64 ao = o - kPersonProportion;
-  ao = ao < 0 ? 0 : (ao > kAuctionProportion ? kAuctionProportion : ao);
-  const i64 n_auctions = g * kAuctionProportion + ao;
+  i64 n_persons, n_auctions;
+  rw_ids_so_far(gid, &n_persons, &n_auctions);
 
-  const bool hot = rand_c<kHotAuctionRatio>(gid, 1) > 0;
+  const bool hot = rw_rand_c<kHotAuctionRatio>(gid, 1) > 0;
   const i64 hot_auction =
       ((n_auctions - 1) / kHotAuctionRatio) * kHotAuctionRatio;
   i64 cold_auction =
-      n_auctions - 1 - rand_r(gid, 2, static_cast<u64>(in_flight_auctions));
+      n_auctions - 1 - rw_rand_r(gid, 2, static_cast<u64>(in_flight_auctions));
   cold_auction = cold_auction < 0 ? 0 : cold_auction;
   auction[i] = kFirstAuctionId + (hot ? hot_auction : cold_auction);
 
-  const bool hot_b = rand_c<kHotBidderRatio>(gid, 3) > 0;
+  const bool hot_b = rw_rand_c<kHotBidderRatio>(gid, 3) > 0;
   const i64 hot_bidder =
       ((n_persons - 1) / kHotBidderRatio) * kHotBidderRatio + 1;
   i64 cold_bidder =
-      n_persons - 1 - rand_r(gid, 4, static_cast<u64>(num_active_people));
+      n_persons - 1 - rw_rand_r(gid, 4, static_cast<u64>(num_active_people));
   cold_bidder = cold_bidder < 0 ? 0 : cold_bidder;
   bidder[i] = kFirstPersonId + (hot_b ? hot_bidder : cold_bidder);
 
-  const i64 lg = rand_c<5>(gid, 5);
-  const i64 mant = rand_c<900>(gid, 6) + 100;
+  const i64 lg = rw_rand_c<5>(gid, 5);
+  const i64 mant = rw_rand_c<900>(gid, 6) + 100;
   i64 p10 = 1;
   for (i64 d = 0; d < lg; ++d) p10 *= 10;
   price[i] = mant * p10;
 
-  channel[i] = channel_ids[rand_r(gid, 7, static_cast<u64>(n_channel))];
-  url[i] = url_ids[rand_r(gid, 8, static_cast<u64>(n_url))];
+  channel[i] = channel_ids[rw_rand_r(gid, 7, static_cast<u64>(n_channel))];
+  url[i] = url_ids[rw_rand_r(gid, 8, static_cast<u64>(n_url))];
   date_time[i] = base_time_us + gid * inter_event_us;
-  extra[i] = extra_ids[rand_r(gid, 9, static_cast<u64>(n_extra))];
+  extra[i] = extra_ids[rw_rand_r(gid, 9, static_cast<u64>(n_extra))];
 }
 
 }  // namespace

@@ -134,3 +134,13 @@ def input_refs(e: Expr) -> set:
             out |= input_refs(a)
         return out
     return set()
+
+
+def remap_inputs(e: Expr, mapping: dict) -> Expr:
+    """Rewrite InputRef indices through `mapping` (projection pruning)."""
+    if isinstance(e, InputRef):
+        return InputRef(mapping[e.index], e.ret_type)
+    if isinstance(e, FuncCall):
+        return FuncCall(e.name, tuple(remap_inputs(a, mapping)
+                                      for a in e.args), e.ret_type)
+    return e

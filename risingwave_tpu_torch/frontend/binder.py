@@ -1,0 +1,720 @@
+"""Binder + streaming planner: SQL AST -> fragment-graph IR (port of
+risingwave_tpu/frontend/binder.py, trimmed to the plans the port runs).
+
+Binds names against the session catalog, lowers expressions onto the
+port's Expr IR and emits a `StreamGraph`, with the JAX planner's rules
+and in its order, so the same SQL gives the same fragments, node kinds
+and executor arguments:
+
+  FROM source            -> shared source fragment + no_op fragment
+  TUMBLE(...)            -> project fragment appending window_start and
+                            window_end, with their watermark transforms
+  JOIN ... ON            -> sorted_join fragment (equi conjunctions are
+                            key columns, the rest the non-equi
+                            condition), watermark-derived state cleaning
+                            ("pair" for windowed equi-joins, "band" for
+                            interval joins), join-input pruning pushed
+                            into the upstream fragments
+  plain SELECT           -> project (+ row_id for a keyless MV pk)
+  CREATE SINK            -> the plan ends in a sink node
+
+What the JAX planner also plans raises `BindError("... not ported yet
+(ROADMAP A9)")` here, never a different plan: WHERE (filters and their
+pushdown, NOW() dynamic filters), GROUP BY and aggregates, HOP, sub-
+queries, MV-on-MV scans, ORDER BY/LIMIT (top-N), window functions,
+outer and temporal joins, non-integer join keys (hash join), the
+snapshot join-agg fusion and remote fragment placement.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Optional
+
+import numpy as np
+
+from ..common.types import DataType, Field, Schema
+from ..expr.ir import Expr, InputRef, call, col, input_refs, lit, \
+    remap_inputs
+from ..expr.transforms import TumbleEndTransform, TumbleStartTransform
+from ..plan.graph import Exchange, Fragment, Node, StreamGraph
+from . import sql as ast
+
+AGG_FUNCS = {"count", "sum", "min", "max", "avg", "bool_and", "bool_or",
+             "approx_count_distinct"}
+
+
+class BindError(Exception):
+    pass
+
+
+def not_ported(what: str) -> BindError:
+    return BindError(f"{what} not ported yet (ROADMAP A9)")
+
+
+@dataclass
+class Scope:
+    """Visible columns: (qualifier, name) -> (index, dtype)."""
+
+    schema: Schema
+    names: dict = field(default_factory=dict)
+
+    @classmethod
+    def of(cls, schema: Schema, qualifier: Optional[str]) -> "Scope":
+        s = cls(schema)
+        for i, f in enumerate(schema):
+            s.names.setdefault((None, f.name), (i, f.data_type))
+            if qualifier:
+                s.names[(qualifier, f.name)] = (i, f.data_type)
+        return s
+
+    @classmethod
+    def join(cls, left: "Scope", right: "Scope") -> "Scope":
+        fields = tuple(left.schema) + tuple(right.schema)
+        s = cls(Schema(fields))
+        off = len(left.schema)
+        for (q, n), (i, t) in left.names.items():
+            s.names.setdefault((q, n), (i, t))
+        for (q, n), (i, t) in right.names.items():
+            if (q, n) in s.names and q is None:
+                # ambiguous unqualified name: drop it
+                del s.names[(q, n)]
+                continue
+            s.names[(q, n)] = (i + off, t)
+        return s
+
+    def resolve(self, ref: ast.ColRef) -> tuple[int, DataType]:
+        # a qualified name must match its qualifier exactly
+        key = (ref.qualifier, ref.name)
+        if key in self.names:
+            return self.names[key]
+        raise BindError(f"unknown column {ref.qualifier or ''}.{ref.name}")
+
+
+def bind_scalar(e, scope: Scope) -> Expr:
+    """SQL expression AST -> Expr IR (no aggregates allowed)."""
+    if isinstance(e, ast.Lit):
+        return lit(e.value)
+    if isinstance(e, ast.ColRef):
+        i, t = scope.resolve(e)
+        return col(i, t)
+    if isinstance(e, ast.UnOp):
+        return call(e.op, bind_scalar(e.arg, scope))
+    if isinstance(e, ast.BinOp):
+        return call(e.op, bind_scalar(e.left, scope),
+                    bind_scalar(e.right, scope))
+    if isinstance(e, ast.Func):
+        if e.name in AGG_FUNCS:
+            raise BindError(f"aggregate {e.name} not allowed here")
+        return call(e.name, *[bind_scalar(a, scope) for a in e.args])
+    raise BindError(f"cannot bind {e!r}")
+
+
+def contains_agg(e) -> bool:
+    if isinstance(e, ast.Func):
+        return e.name in AGG_FUNCS or any(contains_agg(a) for a in e.args)
+    if isinstance(e, ast.BinOp):
+        return contains_agg(e.left) or contains_agg(e.right)
+    if isinstance(e, ast.UnOp):
+        return contains_agg(e.arg)
+    return False
+
+
+@dataclass
+class RelInfo:
+    """Stream properties of a planned relation: its stream key
+    (positions that identify a changelog row), append-only-ness, and the
+    columns a watermark flows on (drives join state cleaning)."""
+
+    stream_key: Optional[tuple] = None      # None = keyless (needs row_id)
+    append_only: bool = True
+    wm_cols: frozenset = frozenset()
+
+
+# date_time column index per nexmark table (the connector's declared
+# watermark column, connectors/nexmark.py watermark_col)
+_NEXMARK_WM_COL = {"bid": 5, "person": 6, "auction": 5}
+
+
+@dataclass
+class BoundPlan:
+    graph: StreamGraph
+    mv_fragment: int            # the fragment whose root materializes/sinks
+    schema: Schema
+    pk_indices: tuple
+    append_only: bool = True
+
+
+class StreamPlanner:
+    def __init__(self, catalog, parallelism: int = 1, config=None):
+        if parallelism != 1:
+            raise not_ported("streaming_parallelism > 1 (hash dispatch)")
+        self.catalog = catalog
+        self.parallelism = parallelism
+        self.config = config or {}
+        self.graph = StreamGraph()
+        self._next_fid = 1
+        self._source_frags: dict[str, int] = {}
+        self._join_frags: dict[int, dict] = {}
+
+    def cfg(self, name: str, default):
+        return self.config.get(name, default)
+
+    def durable(self) -> bool:
+        """Stateful executors flush to state tables at barriers unless the
+        session selected the in-memory state backend."""
+        return bool(self.cfg("streaming_durability", 1))
+
+    def fid(self) -> int:
+        f = self._next_fid
+        self._next_fid = f + 1
+        return f
+
+    def source_fragment(self, name: str) -> int:
+        """Source fragments are shared within one plan: a query reading a
+        source twice runs one generator. The cached fragment stays bare;
+        consumers attach through Exchange."""
+        if name not in self._source_frags:
+            src = self.catalog.source(name)
+            node = Node("nexmark_source", dict(src.options, durable=True,
+                                               source_name=name))
+            f = self.graph.add(Fragment(self.fid(), node,
+                                        dispatch="broadcast", parallelism=1))
+            self._source_frags[name] = f.fid
+        return self._source_frags[name]
+
+    # ----------------------------------------------------------- relations
+    def plan_rel(self, rel) -> tuple[int, Scope, RelInfo]:
+        """Returns (fragment id, scope over its output, stream info)."""
+        if isinstance(rel, ast.TableRel):
+            if rel.name in getattr(self.catalog, "mvs", {}):
+                raise not_ported("MV-on-MV stream scan")
+            src = self.catalog.source(rel.name)
+            sfid = self.source_fragment(rel.name)
+            # indirection fragment: grafts land here, the shared source
+            # root stays untouched
+            f = self.graph.add(Fragment(self.fid(), Node(
+                "no_op", {}, inputs=(Exchange(sfid),)),
+                dispatch="broadcast"))
+            wm = frozenset()
+            wmcol = _NEXMARK_WM_COL.get(src.options.get("table"))
+            if src.options.get("emit_watermarks") and wmcol is not None:
+                wm = frozenset({wmcol})
+            pk_opt = src.options.get("primary_key")
+            ao = bool(src.options.get("append_only", True))
+            return (f.fid, Scope.of(src.schema, rel.alias or rel.name),
+                    RelInfo(None if pk_opt is None else (pk_opt,), ao,
+                            wm))
+        if isinstance(rel, ast.WindowRel):
+            if rel.kind != "tumble":
+                raise not_ported("HOP windows through SQL")
+            src = self.catalog.source(rel.inner.name)
+            scope = Scope.of(src.schema, None)
+            i, t = scope.resolve(ast.ColRef(rel.time_col))
+            src_node = Exchange(self.source_fragment(rel.inner.name))
+            exprs = [col(j, f.data_type) for j, f in enumerate(src.schema)]
+            exprs.append(call("tumble_start", col(i, t), lit(rel.size)))
+            exprs.append(call("tumble_end", col(i, t), lit(rel.size)))
+            names = list(src.schema.names) + ["window_start", "window_end"]
+            W = rel.size
+            node = Node("project", dict(
+                exprs=exprs, names=names,
+                watermark_transforms={
+                    i: [(len(names) - 2, TumbleStartTransform(W)),
+                        (len(names) - 1, TumbleEndTransform(W))]}),
+                inputs=(src_node,))
+            f = self.graph.add(Fragment(self.fid(), node,
+                                        dispatch="broadcast"))
+            out_schema = Schema(tuple(
+                list(src.schema) + [Field("window_start", t),
+                                    Field("window_end", t)]))
+            wm = frozenset()
+            if src.options.get("emit_watermarks"):
+                # tumble carries the event-time watermark onto both
+                # window columns
+                wm = frozenset({len(src.schema), len(src.schema) + 1})
+            # tumble is 1:1, so a declared source pk stays a stream key
+            pk_opt = src.options.get("primary_key")
+            sk = None if pk_opt is None else (pk_opt,)
+            return (f.fid, Scope.of(out_schema, rel.alias or rel.inner.name),
+                    RelInfo(sk, True, wm))
+        if isinstance(rel, ast.JoinRel):
+            return self._plan_join(rel)
+        if isinstance(rel, ast.SubqueryRel):
+            raise not_ported("FROM (subquery)")
+        raise BindError(f"cannot plan relation {rel!r}")
+
+    def _plan_join(self, rel: ast.JoinRel) -> tuple[int, Scope, RelInfo]:
+        jt = getattr(rel, "join_type", "inner")
+        if jt != "inner":
+            raise not_ported(f"{jt.upper()} joins")
+        if getattr(rel, "temporal", False):
+            raise not_ported("temporal joins")
+        lf, ls, li = self.plan_rel(rel.left)
+        rf, rs, ri = self.plan_rel(rel.right)
+
+        # join-state pk must be a real stream key: a keyless append-only
+        # side gets a row_id column; a keyed side keeps its key
+        def side_key(fid_, scope_, info_):
+            if info_.stream_key is not None:
+                return scope_, tuple(info_.stream_key)
+            if not info_.append_only:
+                raise BindError("keyless retracting join input")
+            frag_ = self.graph.fragments[fid_]
+            frag_.root = Node("row_id_gen", {}, inputs=(frag_.root,))
+            sch = Schema(tuple(scope_.schema)
+                         + (Field("_row_id", DataType.SERIAL),))
+            return Scope(sch, dict(scope_.names)), (len(sch) - 1,)
+
+        ls, lpk = side_key(lf, ls, li)
+        rs, rpk = side_key(rf, rs, ri)
+        jscope = Scope.join(ls, rs)
+        lkeys, rkeys, residue = [], [], []
+        for conj in split_conjuncts(rel.on):
+            pair = equi_pair(conj, ls, rs)
+            if pair is not None:
+                lkeys.append(pair[0])
+                rkeys.append(pair[1])
+            else:
+                residue.append(conj)
+        if not lkeys:
+            raise BindError("join needs at least one equi condition")
+        cond = None
+        if residue:
+            e = residue[0]
+            for r in residue[1:]:
+                e = ast.BinOp("and", e, r)
+            cond = bind_scalar(e, jscope)
+        # watermark-driven state cleaning (inner joins): a side evicts
+        # rows below its watermark on column c when future matches are
+        # impossible — (1) c is an equi-key whose partner column is also
+        # watermarked ("pair": windowed joins), or (2) a residual
+        # conjunct bands c against a watermarked column of the other
+        # side ("band": interval joins)
+        clean_l = clean_r = None
+        for kpos, (lk, rk) in enumerate(zip(lkeys, rkeys)):
+            if lk in li.wm_cols and rk in ri.wm_cols:
+                clean_l = ("pair", lk, kpos)
+                clean_r = ("pair", rk, kpos)
+                break
+        if clean_l is None and clean_r is None:
+            for conj in residue:
+                b = band_bound(conj, ls, rs, li.wm_cols, ri.wm_cols)
+                if b is None:
+                    continue
+                bside, own_col, other_col, delta = b
+                info_side = li if bside == "l" else ri
+                own_wm = own_col in info_side.wm_cols
+                # a retracting side may still emit deletes for rows the
+                # band already evicted: safe only when append-only, or
+                # when its own column is watermarked (bound capped)
+                if not (info_side.append_only or own_wm):
+                    continue
+                cap = (own_col if own_wm
+                       and not info_side.append_only else None)
+                spec = ("band", own_col, other_col, delta, cap)
+                if bside == "l" and clean_l is None:
+                    clean_l = spec
+                elif bside == "r" and clean_r is None:
+                    clean_r = spec
+                if clean_l is not None and clean_r is not None:
+                    break
+        # the sorted-merge join needs integer-comparable keys; the JAX
+        # planner sends the rest to the chained hash join
+        key_int = all(
+            np.issubdtype(sc.schema[i].data_type.np_dtype, np.integer)
+            for sc, keys in ((ls, lkeys), (rs, rkeys)) for i in keys)
+        if not key_int:
+            raise not_ported("hash join (non-integer join keys)")
+        wd = 1 if self.cfg("streaming_watchdog", 1) else None
+        # per-side match buffers: probing a side whose rows are unique
+        # per join key yields at most one match per probe row
+        mf = self.cfg("streaming_join_match_factor", 64)
+        mf_l = min(2, mf) if set(rpk) <= set(rkeys) else mf
+        mf_r = min(2, mf) if set(lpk) <= set(lkeys) else mf
+        node = Node("sorted_join", dict(
+            left_key_indices=lkeys, right_key_indices=rkeys,
+            left_pk_indices=list(lpk), right_pk_indices=list(rpk),
+            condition=cond, join_type=jt, temporal=False,
+            capacity=self.cfg("streaming_join_capacity", 1 << 17),
+            match_factor=mf, match_factors=(mf_l, mf_r),
+            append_only=(li.append_only, ri.append_only),
+            clean_specs=(clean_l, clean_r),
+            watchdog_interval=wd, durable=self.durable()),
+            inputs=(Exchange(lf), Exchange(rf)))
+        f = self.graph.add(Fragment(self.fid(), node, dispatch="broadcast"))
+        # stash for _optimize_join, which runs once the SELECT is known
+        self._join_frags[f.fid] = dict(
+            node=node, nl=len(ls.schema), lsch=ls.schema, rsch=rs.schema,
+            jt=jt)
+        off = len(ls.schema)
+        jkey = tuple(lpk) + tuple(off + i for i in rpk)
+        # min-of-sides watermarks flow on equi-key columns watermarked on
+        # both sides
+        out_wm = set()
+        for lk, rk in zip(lkeys, rkeys):
+            if lk in li.wm_cols and rk in ri.wm_cols:
+                out_wm |= {lk, off + rk}
+        ao_out = li.append_only and ri.append_only
+        return (f.fid, jscope,
+                RelInfo(stream_key=jkey, append_only=ao_out,
+                        wm_cols=frozenset(out_wm)))
+
+    # -------------------------------------------------------------- select
+    def plan_sink(self, sel: ast.Select, options: dict) -> BoundPlan:
+        """CREATE SINK: the plan ends in a sink node instead of a
+        materialize."""
+        fid, names, types, pk_hint, append_only, _wm = self._plan_query(sel)
+        frag = self.graph.fragments[fid]
+        frag.root = Node("sink", dict(options), inputs=(frag.root,))
+        out = Schema(tuple(Field(n, t) for n, t in zip(names, types)))
+        return BoundPlan(self.graph, fid, out, tuple(pk_hint or ()),
+                         append_only)
+
+    def plan_select(self, sel: ast.Select) -> BoundPlan:
+        fid, names, types, pk_hint, append_only, _wm = self._plan_query(sel)
+        frag = self.graph.fragments[fid]
+        if pk_hint is None:
+            frag.root = Node("row_id_gen", {}, inputs=(frag.root,))
+            mv = self.graph.add(Fragment(self.fid(), Node(
+                "materialize", dict(pk_indices=[len(names)]),
+                inputs=(Exchange(fid),))))
+            out = Schema(tuple(
+                [Field(n, t) for n, t in zip(names, types)]
+                + [Field("_row_id", DataType.SERIAL)]))
+            return BoundPlan(self.graph, mv.fid, out, (len(names),),
+                             append_only)
+        mv = self.graph.add(Fragment(self.fid(), Node(
+            "materialize", dict(pk_indices=list(pk_hint)),
+            inputs=(Exchange(fid),))))
+        out = Schema(tuple(Field(n, t) for n, t in zip(names, types)))
+        return BoundPlan(self.graph, mv.fid, out, tuple(pk_hint),
+                         append_only)
+
+    def _plan_query(self, sel: ast.Select):
+        """Plan one SELECT (no materialization). Returns (fragment id,
+        out names, out DataTypes, pk_hint, append_only, watermark
+        columns); pk_hint is None for a keyless append-only stream (the
+        caller adds a row_id)."""
+        if sel.limit is not None or sel.order_by or sel.offset:
+            raise not_ported("streaming ORDER BY / LIMIT (top-N)")
+        if getattr(sel, "emit_on_close", False):
+            raise not_ported("EMIT ON WINDOW CLOSE")
+        # comma join: FROM a, b WHERE ... — the join condition lives in
+        # WHERE; hoist it into ON (one 2-way comma join)
+        rel, where = sel.rel, sel.where
+        if isinstance(rel, ast.JoinRel) and rel.on is None:
+            if isinstance(rel.left, ast.JoinRel) and rel.left.on is None:
+                raise BindError("only one comma join is supported")
+            if where is None:
+                raise BindError("comma join needs join conditions in WHERE")
+            rel = ast.JoinRel(rel.left, rel.right, where)
+            where = None
+        if where is not None:
+            raise not_ported("WHERE (filters)")
+        if sel.group_by or any(contains_agg(it.expr) for it in sel.items):
+            raise not_ported("GROUP BY / aggregates through SQL")
+        if any(isinstance(it.expr, ast.WindowFunc) for it in sel.items):
+            raise not_ported("window functions (over-window)")
+
+        fid, scope, info = self.plan_rel(rel)
+        frag = self.graph.fragments[fid]
+        sel = ast.Select(expand_star(sel.items, scope.schema), rel,
+                         None, sel.group_by, list(sel.order_by),
+                         sel.limit, sel.offset)
+        jinfo = self._join_frags.get(fid)
+        if jinfo is not None and frag.root is jinfo["node"]:
+            scope, info, sel = self._optimize_join(jinfo, scope, info, sel)
+
+        def project_wm(exprs):
+            """Watermarks survive a projection on InputRef columns."""
+            return frozenset(
+                j for j, e in enumerate(exprs)
+                if isinstance(e, InputRef) and e.index in info.wm_cols)
+
+        exprs, names = [], []
+        for j, it in enumerate(sel.items):
+            exprs.append(bind_scalar(it.expr, scope))
+            names.append(it.alias or auto_name(it.expr, j))
+        if info.append_only:
+            frag.root = Node("project", dict(exprs=exprs, names=names),
+                             inputs=(frag.root,))
+            return (fid, names, [e.ret_type for e in exprs], None, True,
+                    project_wm(exprs))
+        # retracting input: its stream key must survive the projection so
+        # deletes keep addressing the same rows
+        assert info.stream_key is not None
+        key_pos = []
+        for ki in info.stream_key:
+            found = None
+            for j, e in enumerate(exprs):
+                if isinstance(e, InputRef) and e.index == ki:
+                    found = j
+                    break
+            if found is None:
+                exprs.append(col(ki, scope.schema[ki].data_type))
+                names.append(f"_sk{ki}")
+                found = len(exprs) - 1
+            key_pos.append(found)
+        frag.root = Node("project", dict(exprs=exprs, names=names),
+                         inputs=(frag.root,))
+        return (fid, names, [e.ret_type for e in exprs], tuple(key_pos),
+                False, project_wm(exprs))
+
+    # ----------------------------------------------------- optimizer passes
+    def _optimize_join(self, jinfo, scope: Scope, info: RelInfo,
+                       sel: ast.Select):
+        """Join-input pruning on a SELECT directly over a join: each side
+        narrows to the columns the join or the SELECT uses, absorbed into
+        the upstream fragment where it has one consumer. (The JAX
+        planner's filter pushdown, the pass before it, needs a WHERE,
+        which `_plan_query` refuses.)"""
+        node, nl = jinfo["node"], jinfo["nl"]
+        lsch, rsch = jinfo["lsch"], jinfo["rsch"]
+        args = node.args
+
+        def refs(e) -> set:
+            if isinstance(e, ast.ColRef):
+                return {scope.resolve(e)[0]}
+            if isinstance(e, ast.BinOp):
+                return refs(e.left) | refs(e.right)
+            if isinstance(e, ast.UnOp):
+                return refs(e.arg)
+            if isinstance(e, ast.Func):
+                out = set()
+                for a in e.args:
+                    out |= refs(a)
+                return out
+            return set()
+
+        used = set(info.stream_key or ())
+        for it in sel.items:
+            used |= refs(it.expr)
+        need_l = {i for i in used if i < nl}
+        need_r = {i - nl for i in used if i >= nl}
+        for side, need in (("left", need_l), ("right", need_r)):
+            need |= set(args[f"{side}_key_indices"])
+            need |= set(args[f"{side}_pk_indices"])
+        cond = args.get("condition")
+        if cond is not None:
+            for i in input_refs(cond):
+                (need_l if i < nl else need_r).add(i if i < nl else i - nl)
+        specs = args.get("clean_specs") or (None, None)
+        for s, spec in enumerate(specs):
+            if spec is None:
+                continue
+            own, other = (need_l, need_r) if s == 0 else (need_r, need_l)
+            own.add(spec[1])
+            if spec[0] == "band":
+                other.add(spec[2])
+                if len(spec) > 4 and spec[4] is not None:
+                    own.add(spec[4])
+        if len(need_l) == nl and len(need_r) == len(rsch):
+            return scope, info, sel     # nothing to prune
+
+        keep_l, keep_r = sorted(need_l), sorted(need_r)
+        lmap = {o: n for n, o in enumerate(keep_l)}
+        rmap = {o: n for n, o in enumerate(keep_r)}
+        jmap = {**{o: lmap[o] for o in keep_l},
+                **{o + nl: len(keep_l) + rmap[o] for o in keep_r}}
+        new_inputs = []
+        for keep, sch, inp in ((keep_l, lsch, node.inputs[0]),
+                               (keep_r, rsch, node.inputs[1])):
+            if (isinstance(inp, Exchange)
+                    and self._push_prune_upstream(inp.upstream, keep, sch)):
+                new_inputs.append(inp)
+            else:
+                new_inputs.append(Node("project", dict(
+                    exprs=[col(i, sch[i].data_type) for i in keep],
+                    names=[sch[i].name for i in keep]),
+                    inputs=(inp,)))
+        node.inputs = tuple(new_inputs)
+        for side, m in (("left", lmap), ("right", rmap)):
+            for k in (f"{side}_key_indices", f"{side}_pk_indices"):
+                args[k] = [m[i] for i in args[k]]
+        if cond is not None:
+            args["condition"] = remap_inputs(cond, jmap)
+        if any(specs):
+            def remap_spec(spec, s):
+                if spec is None:
+                    return None
+                m, om = (lmap, rmap) if s == 0 else (rmap, lmap)
+                if spec[0] == "band":
+                    cap = (m[spec[4]] if len(spec) > 4
+                           and spec[4] is not None else None)
+                    return ("band", m[spec[1]], om[spec[2]], spec[3], cap)
+                return (spec[0], m[spec[1]]) + tuple(spec[2:])
+            args["clean_specs"] = (remap_spec(specs[0], 0),
+                                   remap_spec(specs[1], 1))
+        # scope and stream info over the pruned joined schema
+        new_fields = tuple(scope.schema[o]
+                           for o in sorted(jmap, key=lambda o: jmap[o]))
+        new_scope = Scope(Schema(new_fields),
+                          {k: (jmap[i], t) for k, (i, t) in
+                           scope.names.items() if i in jmap})
+        new_info = RelInfo(
+            stream_key=(None if info.stream_key is None
+                        else tuple(jmap[i] for i in info.stream_key)),
+            append_only=info.append_only,
+            wm_cols=frozenset(jmap[i] for i in info.wm_cols if i in jmap))
+        return new_scope, new_info, sel
+
+    def _push_prune_upstream(self, up_fid: int, keep: list,
+                             sch: Schema) -> bool:
+        """Absorb an input pruning into the upstream fragment when this
+        join is its only consumer: a `project` root narrows to the kept
+        expressions, `row_id_gen` composes through (its serial column is
+        the last kept index), any other root gets a narrowing project
+        grafted on top. False when the upstream is shared."""
+        if len(self.graph.consumers(up_fid)) != 1:
+            return False
+        frag = self.graph.fragments[up_fid]
+
+        def prune_project(p: Node, keep_idx: list) -> Node:
+            exprs = p.args["exprs"]
+            names = p.args.get("names") or [f"e{i}"
+                                            for i in range(len(exprs))]
+            args = dict(exprs=[exprs[i] for i in keep_idx],
+                        names=[names[i] for i in keep_idx])
+            tf = p.args.get("watermark_transforms")
+            if tf:
+                pos = {o: n for n, o in enumerate(keep_idx)}
+                new_tf = {}
+                for in_col, spec in tf.items():
+                    specs = spec if isinstance(spec, list) else [spec]
+                    kept = [(pos[o], fn) for o, fn in specs if o in pos]
+                    if kept:
+                        new_tf[in_col] = kept
+                if new_tf:
+                    args["watermark_transforms"] = new_tf
+            return Node("project", args, inputs=p.inputs)
+
+        def graft(inner: Node, keep_idx: list) -> Node:
+            return Node("project", dict(
+                exprs=[col(i, sch[i].data_type) for i in keep_idx],
+                names=[sch[i].name for i in keep_idx]),
+                inputs=(inner,))
+
+        root = frag.root
+        if root.kind == "project":
+            frag.root = prune_project(root, keep)
+        elif root.kind == "row_id_gen":
+            rid = len(sch) - 1
+            if rid not in keep:
+                return False
+            inner_keep = [i for i in keep if i < rid]
+            inner = root.inputs[0]
+            root.inputs = ((prune_project(inner, inner_keep)
+                            if inner.kind == "project"
+                            else graft(inner, inner_keep)),)
+        else:
+            frag.root = graft(root, keep)
+        return True
+
+
+def split_conjuncts(e) -> list:
+    if isinstance(e, ast.BinOp) and e.op == "and":
+        return split_conjuncts(e.left) + split_conjuncts(e.right)
+    return [e]
+
+
+def band_bound(conj, ls: Scope, rs: Scope, lwm: frozenset, rwm: frozenset):
+    """Interval-join cleaning derivation: a comparison conjunct
+    normalizing to `X.a > Y.o + d` lets side X evict rows with a below
+    wm(Y.o) + d. Requires Y.o to carry a watermark. Returns (side_of_X,
+    a_index, o_index, d) or None."""
+    if not isinstance(conj, ast.BinOp):
+        return None
+    if conj.op in ("greater_than", "greater_than_or_equal"):
+        big, small = conj.left, conj.right
+    elif conj.op in ("less_than", "less_than_or_equal"):
+        big, small = conj.right, conj.left
+    else:
+        return None
+
+    def affine(e):
+        if isinstance(e, ast.ColRef):
+            return e, 0
+        if isinstance(e, ast.BinOp) and e.op in ("add", "subtract"):
+            if (isinstance(e.left, ast.ColRef) and isinstance(e.right, ast.Lit)
+                    and isinstance(e.right.value, int)):
+                return e.left, (e.right.value if e.op == "add"
+                                else -e.right.value)
+            if (e.op == "add" and isinstance(e.right, ast.ColRef)
+                    and isinstance(e.left, ast.Lit)
+                    and isinstance(e.left.value, int)):
+                return e.right, e.left.value
+        return None
+
+    bg = affine(big)
+    sm = affine(small)
+    if bg is None or sm is None:
+        return None
+    big, bd = bg
+    other_ref, sd = sm
+    delta = sd - bd
+
+    def side_of(ref):
+        try:
+            return ("l", ls.resolve(ref)[0])
+        except BindError:
+            pass
+        try:
+            return ("r", rs.resolve(ref)[0])
+        except BindError:
+            return None
+
+    sb, so = side_of(big), side_of(other_ref)
+    if sb is None or so is None or sb[0] == so[0]:
+        return None
+    if (so[1] not in lwm) if so[0] == "l" else (so[1] not in rwm):
+        return None
+    return sb[0], sb[1], so[1], delta
+
+
+def equi_pair(e, ls: Scope, rs: Scope) -> Optional[tuple[int, int]]:
+    """col_of_left = col_of_right -> (left_idx, right_idx)."""
+    if not (isinstance(e, ast.BinOp) and e.op == "equal"):
+        return None
+    a, b = e.left, e.right
+    if not (isinstance(a, ast.ColRef) and isinstance(b, ast.ColRef)):
+        return None
+
+    def side(ref):
+        try:
+            return ("l", ls.resolve(ref)[0])
+        except BindError:
+            pass
+        try:
+            return ("r", rs.resolve(ref)[0])
+        except BindError:
+            return None
+
+    sa, sb = side(a), side(b)
+    if sa is None or sb is None or sa[0] == sb[0]:
+        return None
+    if sa[0] == "l":
+        return (sa[1], sb[1])
+    return (sb[1], sa[1])
+
+
+def expand_star(items, schema) -> list:
+    """SELECT * -> one item per schema column (aliases = column names),
+    skipping internal columns like _row_id."""
+    out = []
+    for it in items:
+        if isinstance(it.expr, ast.ColRef) and it.expr.name == "*":
+            for f in schema:
+                if not f.name.startswith("_"):
+                    out.append(ast.SelectItem(ast.ColRef(f.name), f.name))
+        else:
+            out.append(it)
+    return out
+
+
+def auto_name(e, j: int) -> str:
+    if isinstance(e, ast.ColRef):
+        return e.name
+    if isinstance(e, ast.Func):
+        return e.name
+    return f"expr{j}"

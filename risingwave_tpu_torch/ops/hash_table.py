@@ -14,6 +14,10 @@ same slots as the JAX package. The kernel claims slots with atomics: it
 fills each bucket with the same number of new keys as the reference but
 may order them differently inside the bucket (see ROADMAP Queue C).
 
+`compact_mask` (the agg's flush, evict and rehash compaction) is kernel
+K12 (`csrc/compact.cu`) on a CUDA device; `stable_lexsort` lives in
+ops/sort.py (kernel K11 on the card).
+
 Left out of this slice: `stable_lexsort_rows`, `pack_rows`, `lru_stamp`
 (memory manager and sorted-join helpers).
 """
@@ -28,17 +32,29 @@ import torch
 
 from . import kernels
 from .hashing import LOW32, key_hash, srl
+from .sort import stable_lexsort  # noqa: F401  (K11 on the card)
 
 # Slots per bucket: keeps two-choice overflow negligible below the 0.7
 # rebuild threshold while a probe reads only two 16-slot buckets.
 BUCKET_SLOTS = 16
 MAX_KEY_COLUMNS = 4   # key columns one K3 launch takes
 
+_VP = ctypes.c_void_p
 
-def compact_mask(mask: torch.Tensor):
-    """Cumsum-scatter compaction: for bool [C] `mask`, returns (sel, n)
-    where sel int64 [C] holds the indices of the set bits in its first n
-    entries (zeros past n) and n is the device count."""
+# K12. Replaces ops/hash_table.py:compact_mask (47).
+K_COMPACT = kernels.register(kernels.CudaKernel(
+    "compact",
+    replaces="risingwave_tpu/ops/hash_table.py:47",
+    functions={"rw_compact_mask": [_VP, ctypes.c_longlong, _VP, _VP, _VP,
+                                   _VP],
+               "rw_compact_blocks": [ctypes.c_longlong]}))
+
+
+def compact_mask_plain(mask: torch.Tensor):
+    """Plain PyTorch version of kernel K12, a cumsum-scatter compaction:
+    for bool [C] `mask`, returns (sel, n) where sel int64 [C] holds the
+    indices of the set bits in its first n entries (zeros past n) and n
+    is the device count."""
     C = mask.shape[0]
     rank = torch.cumsum(mask.to(torch.int64), 0) - 1
     # the trash row C takes the unselected writes (the reference's
@@ -48,13 +64,26 @@ def compact_mask(mask: torch.Tensor):
     return sel[:C], mask.sum(dtype=torch.int64)
 
 
-def stable_lexsort(keys) -> torch.Tensor:
-    """np.lexsort semantics (last key primary) as iterated single-key
-    stable argsorts."""
-    order = torch.argsort(keys[0], stable=True)
-    for k in keys[1:]:
-        order = order[torch.argsort(k[order], stable=True)]
-    return order
+def compact_mask(mask: torch.Tensor):
+    """Kernel K12 on a CUDA device, the plain version on the CPU. Same
+    contract as `compact_mask_plain`; n stays on the device."""
+    dev = mask.device
+    if dev.type == "cpu":
+        return compact_mask_plain(mask)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if mask.dtype != torch.bool or mask.dim() != 1 \
+            or not mask.is_contiguous():
+        raise ValueError("K12 compacts a contiguous 1-D bool mask")
+    C = mask.shape[0]
+    sel = torch.empty(C, dtype=torch.int64, device=dev)
+    n = torch.empty((), dtype=torch.int64, device=dev)
+    sums = torch.empty(K_COMPACT.lib().rw_compact_blocks(C) + 1,
+                       dtype=torch.int32, device=dev)
+    K_COMPACT.launches += 1
+    K_COMPACT.call("rw_compact_mask", kernels.ptr(mask), C, kernels.ptr(sel),
+                   kernels.ptr(n), kernels.ptr(sums), kernels.stream_of(mask))
+    return sel, n
 
 
 @dataclass

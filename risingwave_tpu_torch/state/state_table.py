@@ -162,6 +162,14 @@ class StateTable:
         for vn in np.flatnonzero(self.vnode_bitmap):
             yield from self.iter_vnode(int(vn))
 
+    def iter_committed(self) -> Iterator[tuple]:
+        """Rows as the store holds them after the last commit (the
+        mem-table's writes since then left out), pk order per vnode."""
+        for vn in np.flatnonzero(self.vnode_bitmap):
+            start, end = self.vnode_key_range(int(vn))
+            for _, v in self.store.iter_range(start, end):
+                yield self._serde.decode(v)
+
     # ----------------------------------------------------------- barrier
     def commit(self, new_epoch: int) -> int:
         """Flush the mem-table to the store and advance the epoch.

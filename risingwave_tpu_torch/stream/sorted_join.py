@@ -12,15 +12,16 @@ the join key: rows [0, n) ascending, the int64-max sentinel beyond
 collision only costs a compare). One chunk's apply is:
 
   netting   within-chunk pk runs of a retracting side are netted to one
-            delete and one insert per pk (a stable lexsort: plain
-            PyTorch, B6);
+            delete and one insert per pk (a stable lexsort: passes of
+            kernel K11, ops/sort.py);
   probe     kernel K6 (`csrc/sorted_join_probe.cu`): key hash, the
             contiguous hash range of each row in the other side, int64
             offsets, expansion into a fixed [M] match buffer (M =
             match_factor x chunk rows), exact key recheck, the gather of
             both sides' columns;
   condition kernel K5 AND-s the non-equi condition into the emit mask;
-  sort      the new rows by hash (torch.sort, stable: B6);
+  sort      the new rows by hash (kernel K11, `csrc/radix_sort.cu`, a
+            stable radix sort over the hash's 63 bits);
   merge     kernel K7 (`csrc/sorted_join_merge.cu`): retraction victims,
             inline watermark eviction, and the merge of the kept rows
             with the new rows into the side's second store, which is then
@@ -57,7 +58,7 @@ from ..common.types import Field, Schema
 from ..device import resolve_device
 from ..expr.program import ExprProgram
 from ..ops import kernels
-from ..ops.hash_table import stable_lexsort
+from ..ops.sort import stable_lexsort, stable_sort
 from ..ops.hashing import key_hash as _chain_hash, srl
 from .align import LEFT, RIGHT, barrier_align
 from .executor import Executor
@@ -66,6 +67,8 @@ from .message import Barrier, BarrierKind, Watermark
 # khash padding beyond the live prefix: int64 max keeps searchsorted
 # ranges inside [0, n)
 HSENTINEL = (1 << 63) - 1
+# key hashes and the sentinel lie in [0, 2^63): the sort's key bits
+HASH_BITS = 63
 # "no watermark yet" eviction threshold, below any real event time
 NO_WATERMARK = -(1 << 62)
 MAX_KEYS, MAX_COLS, MAX_MATCH = 4, 8, 8   # csrc/sorted_join_*.cu
@@ -170,15 +173,16 @@ class _Buffers:
 def net_pk_runs(chunk: StreamChunk, active: torch.Tensor,
                 pk_idx: Sequence[int]):
     """Within-chunk pk-run netting of a retracting side: rows grouped by
-    pk (a stable lexsort, B6); per run the first delete and the last
-    insert survive. Returns (is_ins, is_del)."""
+    pk (a stable lexsort, K11 on the card); per run the first delete and
+    the last insert survive. Returns (is_ins, is_del). The reference's
+    first lexsort key, the row index, is the order every stable pass
+    keeps anyway, so it is left out."""
     N = chunk.capacity
     dev = active.device
     signs = op_sign(chunk.ops)
-    sort_keys = [torch.arange(N, device=dev)]
-    sort_keys += [chunk.columns[p].data for p in pk_idx]
+    sort_keys = [chunk.columns[p].data for p in pk_idx]
     sort_keys.append((~active).to(torch.uint8))
-    order = stable_lexsort(sort_keys)
+    order = stable_lexsort(sort_keys, [64] * len(pk_idx) + [1])
     s_act = active[order]
     same = s_act[1:] & s_act[:-1]
     for p in pk_idx:
@@ -202,7 +206,7 @@ def store_from_rows(cols: Sequence[torch.Tensor],
     dev = cols[0].device
     empty = empty_sorted_side(capacity, [c.dtype for c in cols], dev)
     n = cols[0].shape[0]
-    nh, iorder = torch.sort(key_hash([cols[0]]), stable=True)
+    nh, iorder = stable_sort(key_hash([cols[0]]), HASH_BITS)
     errs = torch.zeros(3, dtype=torch.int32, device=dev)
     return merge_plain(empty, nh, iorder,
                        torch.tensor(n, dtype=torch.int32, device=dev),
@@ -605,7 +609,7 @@ class SortedJoinExecutor(Executor):
         if self._cond is not None:
             self._cond.and_into(cols, emit)
         # new rows in hash order; non-inserts carry the sentinel, last
-        nh, iorder = torch.sort(ins_h, stable=True)
+        nh, iorder = stable_sort(ins_h, HASH_BITS)
         n_new = is_ins.sum(dtype=torch.int32)
         new = merge(self.sides[side], nh, iorder, n_new, chunk.columns,
                     is_del, h, M,

@@ -38,6 +38,12 @@ MODULES = [
     "risingwave_tpu_torch.stream.row_id", "risingwave_tpu_torch.stream.exchange",
     "risingwave_tpu_torch.stream.align",
     "risingwave_tpu_torch.stream.sorted_join",
+    "risingwave_tpu_torch.ops.sort",
+    "risingwave_tpu_torch.frontend",
+    "risingwave_tpu_torch.frontend.sql",
+    "risingwave_tpu_torch.frontend.binder",
+    "risingwave_tpu_torch.frontend.session", "risingwave_tpu_torch.plan",
+    "risingwave_tpu_torch.plan.graph", "risingwave_tpu_torch.plan.build",
 ]
 
 
@@ -87,6 +93,7 @@ def test_port_sources_name_no_jax_import():
 def _entry_points():
     from risingwave_tpu_torch.connectors.nexmark import NexmarkGenerator
     from risingwave_tpu_torch.device import resolve_device
+    from risingwave_tpu_torch.frontend import Session
     from risingwave_tpu_torch.interop import (
         agg_state_from_numpy, chunk_from_numpy, hash_table_from_numpy,
         sorted_side_from_numpy)
@@ -95,7 +102,7 @@ def _entry_points():
     return [NexmarkGenerator.__init__, HashAggExecutor.__init__,
             SortedJoinExecutor.__init__, resolve_device, chunk_from_numpy,
             hash_table_from_numpy, agg_state_from_numpy,
-            sorted_side_from_numpy]
+            sorted_side_from_numpy, Session.__init__]
 
 
 def test_entry_points_default_to_cuda():
@@ -106,8 +113,10 @@ def test_entry_points_default_to_cuda():
 def test_cuda_without_a_card_raises():
     from risingwave_tpu_torch.common import DataType
     from risingwave_tpu_torch.common import schema as make_schema
+    from risingwave_tpu_torch.connectors import nexmark as nx
     from risingwave_tpu_torch.connectors.nexmark import NexmarkGenerator
     from risingwave_tpu_torch.expr.agg import count_star
+    from risingwave_tpu_torch.frontend import Session
     from risingwave_tpu_torch.interop import (
         agg_state_from_numpy, chunk_from_numpy, hash_table_from_numpy,
         sorted_side_from_numpy)
@@ -117,6 +126,14 @@ def test_cuda_without_a_card_raises():
     class _In:
         schema = make_schema(("k", DataType.INT64))
         pk_indices = ()
+
+    def card_vocabs():
+        """The vocabulary id tables on the card; none without one (the
+        generators refuse the device before they read them)."""
+        if not torch.cuda.is_available():
+            return {}
+        return {k: torch.tensor(v, dtype=torch.int32, device="cuda")
+                for k, v in nx.vocab_ids().items()}
 
     keys, occupied = [np.arange(4, dtype=np.int64)], np.ones(4, bool)
     builders = [
@@ -133,6 +150,11 @@ def test_cuda_without_a_card_raises():
                                    capacity=64).device,
         lambda: sorted_side_from_numpy(keys[0], keys, [occupied],
                                        np.zeros(4, np.int32), 4).n.device,
+        lambda: Session().device,
+        lambda: nx.gen_person_columns(0, 8, nx.NexmarkConfig(),
+                                      card_vocabs(), "cuda")[0].device,
+        lambda: nx.gen_auction_columns(0, 8, nx.NexmarkConfig(),
+                                       card_vocabs(), "cuda")[0].device,
     ]
     for build in builders:
         if torch.cuda.is_available():
@@ -146,9 +168,10 @@ def test_every_kernel_is_registered_with_its_source():
     import chip_smoke  # noqa: F401  (imports every wrapper module)
     from risingwave_tpu_torch.ops import kernels
     names = sorted(kernels.KERNELS)
-    assert names == ["expr_eval", "hash_agg", "hash_table", "hop_window",
-                     "nexmark_bid", "row_id", "sorted_join_merge",
-                     "sorted_join_probe"]
+    assert names == ["compact", "expr_eval", "hash_agg", "hash_table",
+                     "hop_window", "nexmark_auction", "nexmark_bid",
+                     "nexmark_person", "radix_sort", "row_id",
+                     "sorted_join_merge", "sorted_join_probe"]
     for k in kernels.KERNELS.values():
         assert k.source.exists()
         src = k.source.read_text()
