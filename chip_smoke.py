@@ -14,7 +14,11 @@ plain PyTorch version on the card:
        planner deploys bench.py's _q7_ddl();
   q8 — bench.py's bench_q8 statements, verbatim, through the port's own
        SQL Session: persons and auctions, each TUMBLE(10 s)-projected,
-       joined on (id = seller, window_start) with pair cleaning.
+       joined on (id = seller, window_start) with pair cleaning;
+  q17 — bench.py's bench_q17 statements, verbatim, through the Session:
+       TPC-H lineitem x part x (0.2 * avg(l_quantity) per part), a global
+       sum, lowered to the fused snapshot join-agg executor;
+  q1 — bench.py's bench_q1 statements through the Session.
 Phases, one JSON line each:
 
   1. device: the card, torch/CUDA versions, the kernels' build time;
@@ -59,9 +63,25 @@ Phases, one JSON line each:
      the output equal to the recount with errs [0, 0, 0]; then 2
      barriers with auction chunks twice bench's, where the person side's
      buffer must overflow (errs[0] > 0) and the identity still hold;
- 10. the kernels line: launches on the first run of each kernel's own
-     slice's path (q5 for K1-K4 and K12, q7 for K5-K8, q8 for K9-K11),
-     error, times, bounds.
+ 10. kernels_q17: K13-K16 against their plain versions (K13 at 1024-row
+     part and 8192/131072-row lineitem chunks; K14-K16 on the 2^20-slot
+     fact store at bench's end state, with NULL keys and a sub-WHERE
+     plan, every flush step and the whole flush against the CPU's);
+ 11. q17_full: bench_q17's statements through Session(device="cuda"):
+     one warmup barrier, then 64 x 8192 measured lineitem rows, five
+     runs from fresh state: errs [0, 0, 0], K5, K11 and K13-K16
+     launched; q17_profile, the idle share of a profiled run; q17_sf1,
+     the same statements until TPC-H SF1's 6,001,215 lineitem rows (the
+     store grows to 2^23 slots), the last value equal to a numpy
+     recount; q17_check, a 2^17-slot store that grows, every barrier's
+     value equal to the recount, and tests/test_snapshot_join_agg.py's
+     shapes at small size;
+ 12. q1_full: bench_q1's statements through Session(device="cuda"), three
+     runs (K1 and K5 launched), then a small run whose rows equal a
+     numpy recount;
+ 13. the kernels line: launches on the first run of each kernel's own
+     slice's path (q5 for K1-K4 and K12, q7 for K5-K8, q8 for K9-K11,
+     q17 for K13-K16), error, times, bounds.
 With --host-profile, phase 4 also runs q5 under cProfile and lists the
 host functions with the most own time.
 The last line is {"ok": true, "device": {...}}. Any failed phase exits
@@ -85,30 +105,39 @@ import torch
 
 from risingwave_tpu_torch.common.chunk import Column, StreamChunk, op_sign
 from risingwave_tpu_torch.common.types import DataType
+from risingwave_tpu_torch.connectors import tpch
+from risingwave_tpu_torch.connectors.tpch import TpchGenerator
 from risingwave_tpu_torch.connectors.nexmark import (
     NexmarkConfig, NexmarkGenerator, gen_auction_columns,
     gen_auction_columns_plain, gen_bid_columns, gen_bid_columns_plain,
     gen_person_columns, gen_person_columns_plain, vocab_ids,
 )
 from risingwave_tpu_torch.expr import ExprProgram, FuncCall, call, col, lit
-from risingwave_tpu_torch.expr.agg import agg_max, count_star
+from risingwave_tpu_torch.expr.agg import (
+    AggCall, AggKind, agg_max, count_star,
+)
 from risingwave_tpu_torch.expr.transforms import (
     TumbleEndTransform, TumbleStartTransform,
 )
 from risingwave_tpu_torch.frontend import Session
+from risingwave_tpu_torch.frontend.binder import StreamPlanner
+from risingwave_tpu_torch.frontend.sql import parse as sql_parse
 from risingwave_tpu_torch.meta import BarrierCoordinator
 from risingwave_tpu_torch.ops import hash_table as ht
 from risingwave_tpu_torch.ops import kernels
 from risingwave_tpu_torch.ops.sort import (
     stable_lexsort, stable_sort, stable_sort_plain,
 )
+from risingwave_tpu_torch.plan.graph import Exchange
 from risingwave_tpu_torch.state import MemoryStateStore, StateTable
 from risingwave_tpu_torch.stream import (
     Actor, BroadcastDispatcher, Channel, ChannelInput,
     DeviceBlackholeSinkExecutor, Executor, HashAggExecutor,
     HopWindowExecutor, MaterializeExecutor, NoOpExecutor, ProjectExecutor,
-    RowIdGenExecutor, SimpleDispatcher, SortedJoinExecutor, SourceExecutor,
+    RowIdGenExecutor, SimpleDispatcher, SnapshotJoinAggExecutor,
+    SortedJoinExecutor, SourceExecutor,
 )
+from risingwave_tpu_torch.stream import snapshot_join_agg as sja
 from risingwave_tpu_torch.stream.hash_agg import (
     AggState, agg_apply, agg_apply_plain,
 )
@@ -1762,6 +1791,1011 @@ def phase_q8_check(dev, rounds: int = 8, ahead_rounds: int = 2) -> dict:
     return dict(barriers=rounds, **out)
 
 
+# ----------------------------------------------------------- q17 (SQL)
+
+Q17_CS = 8192               # bench.py's lineitem chunk
+Q17_PER_BARRIER = 16 * Q17_CS   # the DDL's rate_limit: 16 chunks a barrier
+Q17_PART_CHUNK = 1024
+Q17_QUOTA_CHUNKS = 64       # bench.py's measured quota
+TPCH_SF1_LINEITEM = 6_001_215
+# bench.py's bench_q17 statements, verbatim (tests/test_torch_frontend.py
+# holds them against bench.py's source). bench_q17 runs one more
+# statement first, SET barrier_stall_threshold_ms = 15000, for the JAX
+# coordinator's stuck-barrier watchdog, which the port has not (ROADMAP
+# A5) and refuses: it is left out here.
+Q17_DDL = [
+    "SET streaming_durability = 0",
+    "SET streaming_watchdog = 0",
+    f"SET streaming_join_capacity = {1 << 20}",
+    f"SET streaming_agg_capacity = {1 << 16}",
+    ("CREATE SOURCE part WITH (connector='tpch', table='part', "
+     "chunk_size=1024, rate_limit=1024, primary_key='p_partkey')"),
+    ("CREATE SOURCE lineitem WITH (connector='tpch', "
+     f"table='lineitem', chunk_size={Q17_CS}, rate_limit={16 * Q17_CS})"),
+    ("CREATE SINK q17 AS "
+     "SELECT sum(L.l_extendedprice) / 7.0 AS avg_yearly "
+     "FROM lineitem L "
+     "JOIN part P ON P.p_partkey = L.l_partkey "
+     "JOIN (SELECT l_partkey AS agg_partkey, "
+     "             0.2 * avg(l_quantity) AS avg_quantity "
+     "      FROM lineitem GROUP BY l_partkey) A "
+     "  ON A.agg_partkey = L.l_partkey "
+     " AND L.l_quantity < A.avg_quantity "
+     "WHERE P.p_brand = 'Brand#23' AND P.p_container = 'MED BOX' "
+     "WITH (connector='blackhole_device')"),
+]
+Q17_KERNELS = ("tpch", "snapshot_append", "segment_agg", "snapshot_final",
+               "expr_eval", "radix_sort")
+
+
+def q17_ddl(li_chunk: int = Q17_CS, part_chunk: int = Q17_PART_CHUNK,
+            capacity: int = 1 << 20) -> list:
+    """Q17_DDL with other chunk sizes or fact capacity when asked (the
+    check phase and the CPU rehearsals); the rate limits stay 16
+    lineitem chunks and one part chunk a barrier."""
+    out = []
+    for st in Q17_DDL:
+        st = st.replace(f"chunk_size={Q17_CS}, rate_limit={16 * Q17_CS}",
+                        f"chunk_size={li_chunk}, rate_limit={16 * li_chunk}")
+        st = st.replace("chunk_size=1024, rate_limit=1024",
+                        f"chunk_size={part_chunk}, rate_limit={part_chunk}")
+        st = st.replace(f"streaming_join_capacity = {1 << 20}",
+                        f"streaming_join_capacity = {capacity}")
+        out.append(st)
+    return out
+
+
+def q17_run(dev, rounds: int, li_chunk: int = Q17_CS,
+            part_chunk: int = Q17_PART_CHUNK, capacity: int = 1 << 20,
+            collect: bool = False, ddl=None) -> dict:
+    """bench_q17's statements through the port's Session on `dev`. Each
+    of `rounds` barriers is injected once the lineitem source has emitted
+    16 more chunks and the part source one more (the DDL's rate limits);
+    the last is the Stop barrier, so barrier r closes exactly r x 16
+    lineitem chunks and r part chunks. Barrier 1 is bench's warmup: the
+    wall and the barrier latencies cover barriers 2..rounds. Counts are
+    set to 0 just before CREATE SINK (which starts the flow) and read
+    just after the Stop. With `collect` a device sink keeping every
+    emitted row replaces the blackhole (a session build hook), and the
+    sink's row count, the executor's fact count and its output chunk
+    are kept at each barrier. `ddl` replaces the statements (other
+    shapes)."""
+    on_card = torch.device(dev).type == "cuda"
+    per_li = 16 * li_chunk
+
+    async def go():
+        s = Session(device=dev)
+        stmts = ddl if ddl is not None else q17_ddl(li_chunk, part_chunk,
+                                                    capacity)
+        for stmt in stmts[:-1]:
+            await s.execute(stmt)
+        held = {}
+        if collect:
+            def attach(name, dep, fid):
+                root = dep.roots[fid][0]
+                actor = next(a for a in dep.actors if a.consumer is root)
+                actor.consumer = held["sink"] = DeviceCollectSinkExecutor(
+                    root, 4 * rounds + 4, dev)
+            s.build_hooks.append(attach)
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launch_counts()
+        await s.execute(stmts[-1])
+        name = next(iter(s.catalog.sinks or s.catalog.mvs))
+        flow = (s.catalog.sinks or s.catalog.mvs)[name]
+        dep = flow.deployment
+        gens = {x.connector.table: x.connector
+                for x in dep.executors(SourceExecutor)}
+        ex = dep.executors(SnapshotJoinAggExecutor)[0]
+        coord = s.coord
+        fns, outs = [], []
+        if collect:
+            flush = ex._flush
+
+            def recording_flush():
+                fns.append(ex._fn.clone())
+                outs.append(flush())
+                return outs[-1]
+            ex._flush = recording_flush
+
+        def check():
+            for t in dep.tasks:
+                if t.done():
+                    t.result()
+
+        marks, lat, t0 = [], [], None
+        for r in range(1, rounds + 1):
+            while (gens["lineitem"].offset < r * per_li
+                   or gens["part"].offset < r * part_chunk):
+                check()
+                await asyncio.sleep(0)
+            tb = time.perf_counter()
+            if r < rounds:
+                b = await coord.inject_barrier()
+                await coord.wait_collected(b)
+            else:
+                await coord.stop_all({a.actor_id for a in dep.actors})
+            if r > 1:
+                lat.append(time.perf_counter() - tb)
+            else:
+                t0 = time.perf_counter()
+            if collect:
+                marks.append(held["sink"].count.clone())
+        wall = time.perf_counter() - (t0 if t0 is not None else 0.0)
+        await asyncio.gather(*dep.tasks)
+        launches = {k.name: k.launches for k in kernels.KERNELS.values()}
+        if on_card:
+            torch.cuda.synchronize()
+        (s.catalog.sinks or s.catalog.mvs).pop(name)
+        return dict(
+            lineitem=gens["lineitem"].offset, parts=gens["part"].offset,
+            measured_rows=(rounds - 1) * per_li, wall_s=wall,
+            barrier_lat_s=lat, ex=ex, sink=held.get("sink"),
+            marks=[int(m) for m in marks], fns=[int(f) for f in fns],
+            outs=outs, launches=launches,
+            mem_peak_bytes=(torch.cuda.max_memory_allocated(dev)
+                            if on_card else None))
+
+    return asyncio.run(go())
+
+
+def tpch_prefix(table: str, n: int, device, batch: int = 1 << 21):
+    """The first n rows of a tpch table as numpy arrays, from the plain
+    generator (on `device`, in batches)."""
+    ids = tpch.vocab_ids()
+    b = torch.tensor(ids["tpch_brand"], dtype=torch.int64, device=device)
+    c = torch.tensor(ids["tpch_container"], dtype=torch.int64,
+                     device=device)
+    parts = []
+    for off in range(0, n, batch):
+        cols = tpch.gen_tpch_columns_plain(table, off, min(batch, n - off),
+                                           b, c, device)
+        parts.append([x.cpu().numpy() for x in cols])
+    if not parts:
+        return [np.empty(0, np.int64) for _ in range(4)]
+    return [np.concatenate(x) for x in zip(*parts)]
+
+
+def q17_recount(n_li: int, n_part: int, device, li=None, part=None):
+    """q17 over lineitem rows [0, n_li) and parts [0, n_part), recounted
+    with numpy: per part key the threshold 0.2 * (sum(q) / count(q)) in
+    float64 (as the plan computes it: a float64 sum of integers, exact),
+    the rows with q below it whose part has brand 'Brand#23' and
+    container 'MED BOX', sum(extendedprice) / 7.0. None when no row
+    qualifies (SQL's NULL sum). `li`/`part` are prefixes to slice."""
+    li = li if li is not None else tpch_prefix("lineitem", n_li, device)
+    part = part if part is not None else tpch_prefix("part", n_part, device)
+    pk, q, ep = li[1][:n_li], li[2][:n_li], li[3][:n_li]
+    keys, brand, cont = part[0][:n_part], part[1][:n_part], part[2][:n_part]
+    ids = tpch.vocab_ids()
+    want_b = ids["tpch_brand"][tpch.BRANDS.index("Brand#23")]
+    want_c = ids["tpch_container"][tpch.CONTAINERS.index("MED BOX")]
+    top = int(max(pk.max(initial=0), keys.max(initial=0))) + 1
+    ok = np.zeros(top, bool)
+    ok[keys[(brand == want_b) & (cont == want_c)]] = True
+    s = np.bincount(pk, weights=q.astype(np.float64), minlength=top)
+    cnt = np.bincount(pk, minlength=top)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        thr = 0.2 * (s / cnt)
+    sel = ok[pk] & (q < thr[pk])
+    if not sel.any():
+        return None
+    return int(ep[sel].sum()) / 7.0
+
+
+def q17_emitted(r: dict) -> list:
+    """The value the sink holds after each barrier (the last U+ or
+    Insert so far), None for a NULL; from the collecting sink."""
+    sink = r["sink"]
+    cols, sign, dropped = sink.arrays()
+    if dropped:
+        raise AssertionError(f"q17 sink dropped {dropped} rows")
+    valid = sink.valid[0][:sign.size].cpu().numpy()
+    out, cur, at = [], None, 0
+    for m in r["marks"]:
+        for i in range(at, m):
+            if sign[i] > 0:
+                cur = float(cols[0][i]) if valid[i] else None
+        at = m
+        out.append(cur)
+    return out
+
+
+def q17_gates(r: dict) -> dict:
+    errs = r["ex"].errs()
+    if errs != [0, 0, 0]:
+        raise AssertionError(f"q17: snapshot errs {errs}")
+    missing = [k for k in Q17_KERNELS if r["launches"][k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on q17: {missing}")
+    return dict(errs=errs)
+
+
+def phase_kernels_q17(dev) -> dict:
+    """K13-K16 against their plain versions at q17's shapes: K13 at
+    1024-row part and 8192/131072-row lineitem chunks; K14-K16 on the
+    2^20-slot fact store at bench's end state (655360 rows, 5 barriers of
+    16 chunks, and 5120 parts into 2^16 dim slots), built by the port's
+    executor from bench_q17's plan, with a variant holding NULL keys and
+    a sub-WHERE plan over the same store; then every flush step, kernel
+    against plain, and the whole flush against the CPU's."""
+    res = {}
+    ids = tpch.vocab_ids()
+    bids = torch.tensor(ids["tpch_brand"], dtype=torch.int64, device=dev)
+    cids = torch.tensor(ids["tpch_container"], dtype=torch.int64,
+                        device=dev)
+    # ---- K13
+    err = 0
+    for table, n, offs in (("part", 1024, (0, 1000, 10**12 + 7)),
+                           ("lineitem", Q17_CS, (0, 5_999_872, 10**12 + 3)),
+                           ("lineitem", 131072, (0, 987_654_321))):
+        for off in offs:
+            err = max(err, exact_err(
+                tpch.gen_tpch_columns(table, off, n, bids, cids, dev),
+                tpch.gen_tpch_columns_plain(table, off, n, bids, cids,
+                                            dev)))
+    if err:
+        raise AssertionError(f"K13 differs from plain by {err}")
+    off = 64 * Q17_CS
+    res["tpch"] = dict(
+        max_abs_err=err,
+        **timings(lambda: tpch.gen_tpch_columns("lineitem", off, Q17_CS,
+                                                bids, cids, dev),
+                  lambda: tpch.gen_tpch_columns_plain("lineitem", off,
+                                                      Q17_CS, bids, cids,
+                                                      dev)),
+        bound_ms=bytes_bound_ms(Q17_CS * 32), bound_by="bytes",
+        rows=Q17_CS,
+        part=dict(rows=1024, **timings(
+            lambda: tpch.gen_tpch_columns("part", 0, 1024, bids, cids, dev),
+            lambda: tpch.gen_tpch_columns_plain("part", 0, 1024, bids, cids,
+                                                dev)),
+            bound_ms=bytes_bound_ms(1024 * 32)))
+    emit({"phase": "kernel", "name": "tpch", **res["tpch"]})
+
+    # ---- K14: bench's end state, every append checked against plain
+    args = q17_node_args(dev)
+    ex = q17_executor(args, dev)
+    li_gen = TpchGenerator("lineitem", chunk_size=Q17_CS, device=dev)
+    part_gen = TpchGenerator("part", chunk_size=1024, device=dev)
+    err = 0
+
+    def store_copy():
+        return ([c.clone() for c in ex._fcols],
+                [v.clone() for v in ex._fvalids], ex._fn.clone(),
+                ex._errs.clone(), ex._dkeys.clone(), ex._dn.clone())
+
+    for b in range(5):
+        chunks = [("d", part_gen.next_chunk())] + [
+            ("f", li_gen.next_chunk()) for _ in range(16)]
+        for side, ch in chunks:
+            fc, fv, fn, er, dk, dn = store_copy()
+            if side == "f":
+                sja.append_rows_plain(fc, fv, fn, er,
+                                      [c.data for c in ch.columns],
+                                      [c.valid for c in ch.columns],
+                                      ch.vis, ch.ops, (), 0)
+                ex._append_fact(ch)
+                err = max(err, exact_err([*fc, *fv, fn, er],
+                                         [*ex._fcols, *ex._fvalids, ex._fn,
+                                          ex._errs]))
+            else:
+                kcol = ch.columns[ex.dim_key]
+                p = ex._dim_prog.eval(list(ch.columns))[0]
+                sja.append_rows_plain([dk], [None], dn, er, [kcol.data],
+                                      [None], ch.vis, ch.ops,
+                                      [kcol.valid, p.data, p.valid], 1)
+                ex._append_dim(ch)
+                err = max(err, exact_err([dk, dn, er],
+                                         [ex._dkeys, ex._dn, ex._errs]))
+    if err or ex.errs() != [0, 0, 0]:
+        raise AssertionError(f"K14 differs from plain by {err}, errs "
+                             f"{ex.errs()}")
+    err = max(err, k14_edge_err(dev))
+    if err:
+        raise AssertionError(f"K14 differs from plain by {err} at the edges")
+    fn0 = int(ex._fn)
+    ch = li_gen.next_chunk()
+    fc, fv, fn_t, er = ([c.clone() for c in ex._fcols],
+                        [v.clone() for v in ex._fvalids],
+                        ex._fn.clone(), ex._errs.clone())
+    src = [c.data for c in ch.columns]
+
+    def reset():
+        fn_t.fill_(fn0)
+
+    def lib_append():
+        take = ch.vis & ((ch.ops == 0) | (ch.ops == 3))
+        sel = torch.nonzero(take).squeeze(1)
+        dest = fn0 + torch.arange(sel.shape[0], device=dev)
+        for d, s_ in zip(fc, src):
+            d.index_copy_(0, dest, s_.index_select(0, sel))
+
+    res["snapshot_append"] = dict(
+        max_abs_err=err,
+        **timings(lambda: sja.append_rows(fc, fv, fn_t, er, src,
+                                          [None] * 4, ch.vis, ch.ops),
+                  lambda: sja.append_rows_plain(fc, fv, fn_t, er, src,
+                                                [None] * 4, ch.vis, ch.ops,
+                                                (), 0),
+                  setup=reset, library_fn=lib_append),
+        bound_ms=bytes_bound_ms(Q17_CS * (1 + 1 + 4 * 8 + 4 * 9)),
+        bound_by="bytes", rows=Q17_CS, store_rows=fn0,
+        store_slots=ex.capacity)
+    emit({"phase": "kernel", "name": "snapshot_append",
+          **res["snapshot_append"]})
+
+    # ---- K15, K16: every flush step against plain, on the bench state,
+    # on a copy with NULL keys, and under a sub-WHERE plan
+    null_valid = ex._fvalids[ex.fact_key].clone()
+    null_valid[::97] = False
+    sub_args = q17_node_args(dev, query=Q17_SUB_WHERE)
+    sub_ex = q17_executor(sub_args, dev)
+    steps = {}
+    err15 = err16 = 0
+    kinds_ex = q17_executor(q17_node_args(dev, query=Q17_KINDS), dev)
+    for case, e, key_valid in (("bench", ex, None), ("null_keys", ex,
+                                                     null_valid),
+                               ("sub_where", sub_ex, None),
+                               ("kinds", kinds_ex, None)):
+        if e is not ex:
+            e._fcols, e._fvalids, e._fn = ex._fcols, ex._fvalids, ex._fn
+            e._dkeys, e._dn = ex._dkeys, ex._dn
+        e15, e16, st = flush_steps_err(e, key_valid)
+        err15, err16 = max(err15, e15), max(err16, e16)
+        steps[case] = st
+    f_err, f_rel = float_aggs_err(ex, steps["bench"])
+    if err15 or err16 or f_err or f_rel > 1e-12:
+        raise AssertionError(f"K15/K16 differ from plain by {err15}, "
+                             f"{err16}; float64 aggregates {f_err}, sums "
+                             f"relative {f_rel}")
+    st = steps["bench"]
+    C, Cd = ex.capacity, ex.dim_capacity
+    seg = (st["sfk"], st["order"], ex._fn, None, ex.sub_agg_calls,
+           st["cols_s"], st["valids_s"])
+    g64 = st["gid"].to(torch.int64)
+    qv = st["cols_s"][2].to(torch.float64)
+    ones = torch.ones(C, dtype=torch.int64, device=dev)
+
+    def lib_reduce():
+        torch.zeros(C, dtype=torch.float64, device=dev).index_add_(0, g64,
+                                                                   qv)
+        torch.zeros(C, dtype=torch.int64, device=dev).index_add_(0, g64,
+                                                                 ones)
+
+    res["segment_agg"] = dict(
+        max_abs_err=err15,
+        **timings(lambda: sja.segment_reduce(*seg),
+                  lambda: sja.segment_reduce_plain(*seg),
+                  library_fn=lib_reduce),
+        # in: sorted keys, order, the quantity and its validity; out:
+        # gid, gexists, each call's value and validity
+        bound_ms=bytes_bound_ms(C * ((8 + 8 + 8 + 1) + 4 + 1
+                                     + 2 * (8 + 1))),
+        bound_by="bytes", slots=C, live_rows=fn0,
+        groups=int(st["gid"][fn0 - 1]) + 1, float_sum_rel_err=f_rel,
+        keys=dict(**timings(
+            lambda: sja.sort_keys(ex._fcols[ex.fact_key],
+                                  ex._fvalids[ex.fact_key], ex._fn),
+            lambda: sja.sort_keys_plain(ex._fcols[ex.fact_key],
+                                        ex._fvalids[ex.fact_key], ex._fn)),
+            bound_ms=bytes_bound_ms(C * (8 + 1 + 8))),
+        take=dict(**timings(
+            lambda: sja.take_rows(st["take_in"][0], st["take_in"][1],
+                                  st["order"]),
+            lambda: sja.take_rows_plain(st["take_in"][0], st["take_in"][1],
+                                        st["order"])),
+            bound_ms=bytes_bound_ms(C * (8 + 2 * 2 * (8 + 1)))),
+        take_by_gid=dict(**timings(
+            lambda: sja.take_rows(st["items"][0], st["items"][1],
+                                  st["gid"]),
+            lambda: sja.take_rows_plain(st["items"][0], st["items"][1],
+                                        st["gid"])),
+            bound_ms=bytes_bound_ms(C * (4 + 2 * (8 + 1)))))
+    emit({"phase": "kernel", "name": "segment_agg", **res["segment_agg"]})
+
+    fin = (st["sfk"], st["order"], ex._fn, st["sd"], ex._dn, None,
+           st["gid"], st["preds"], ex.final_agg_calls, st["cols_s"],
+           st["valids_s"])
+    res_p = st["preds"][0]
+    diff_k = ([p.clone() for p in st["prev"]],
+              [p.clone() for p in st["prev_valid"]], st["emitted"].clone())
+    diff_p = ([p.clone() for p in st["prev"]],
+              [p.clone() for p in st["prev_valid"]], st["emitted"].clone())
+
+    def lib_final():
+        pos = torch.searchsorted(st["sd"], st["sfk"])
+        m = (st["sd"][pos.clamp(max=Cd - 1)] == st["sfk"]) \
+            & (pos < ex._dn) & res_p.data & (st["order"] < ex._fn)
+        return torch.where(m, st["cols_s"][3], 0).sum()
+
+    res["snapshot_final"] = dict(
+        max_abs_err=err16,
+        **timings(lambda: sja.final_reduce(*fin),
+                  lambda: sja.final_reduce_plain(*fin),
+                  library_fn=lib_final),
+        bound_ms=bytes_bound_ms(C * (8 + 8 + 2 + 8 + 1) + Cd * 8),
+        bound_by="bytes", slots=C, dim_slots=Cd,
+        dim_rows=int(ex._dn), value=steps["bench"]["value"],
+        # the diff updates its previous state in place, so repeated
+        # calls keep diffing against the last value
+        diff=dict(**timings(lambda: sja.final_diff(st["cur"], *diff_k),
+                            lambda: sja.final_diff_plain(st["cur"],
+                                                         *diff_p))))
+    emit({"phase": "kernel", "name": "snapshot_final",
+          **res["snapshot_final"]})
+    # the whole flush on the card against the CPU's plain flush, and the
+    # value against the numpy recount
+    want = q17_recount(fn0, int(part_gen.offset), dev)
+    cpu = q17_executor(args, "cpu")
+    cpu._fcols = tuple(c.cpu() for c in ex._fcols)
+    cpu._fvalids = tuple(v.cpu() for v in ex._fvalids)
+    cpu._fn, cpu._dkeys, cpu._dn = (ex._fn.cpu(), ex._dkeys.cpu(),
+                                    ex._dn.cpu())
+    card_out, cpu_out = ex._flush(), cpu._flush()
+    err = columns_err(card_out.columns, [Column(c.data.to(dev),
+                                                c.valid.to(dev))
+                                         for c in cpu_out.columns])
+    got = float(card_out.columns[0].data[1])
+    if err or want is None or got != want:
+        raise AssertionError(f"q17 flush: card vs CPU err {err}, value "
+                             f"{got} vs recount {want}")
+    res["snapshot_final"]["flush_vs_cpu_err"] = err
+    return res
+
+
+def k14_edge_err(dev) -> int:
+    """K14 against its plain version where the bench state never goes:
+    invisible rows, retractions, NULL cells, a store that overflows on
+    the second chunk, extra masks and an int32 key widened into an int64
+    store (the dim side's form)."""
+    g = torch.Generator().manual_seed(23)
+    n, C = Q17_CS, Q17_CS
+    cols = [torch.randint(-1 << 40, 1 << 40, (n,), generator=g).to(dev)
+            for _ in range(3)]
+    cols.append(torch.randint(-1 << 30, 1 << 30, (n,), generator=g,
+                              dtype=torch.int32).to(dev))
+    valids = [None, (torch.rand(n, generator=g) < 0.8).to(dev), None,
+              (torch.rand(n, generator=g) < 0.9).to(dev)]
+    vis = (torch.rand(n, generator=g) < 0.9).to(dev)
+    ops = torch.where(torch.rand(n, generator=g) < 0.05, 1, 0).to(
+        torch.int8).to(dev)
+    mask = (torch.rand(n, generator=g) < 0.7).to(dev)
+    err = 0
+    for dtypes, masks in (([torch.int64] * 3 + [torch.int32], ()),
+                          ([torch.int64] * 4, (mask, valids[1], None))):
+        dst = [[torch.zeros(C, dtype=d, device=dev) for d in dtypes]
+               for _ in range(2)]
+        dvs = [[torch.zeros(C, dtype=torch.bool, device=dev)
+                for _ in dtypes] for _ in range(2)]
+        counts = [torch.tensor(1000, dtype=torch.int32, device=dev)
+                  for _ in range(2)]
+        errs = [torch.zeros(3, dtype=torch.int32, device=dev)
+                for _ in range(2)]
+        for _ in range(2):
+            sja.append_rows(dst[0], dvs[0], counts[0], errs[0], cols,
+                            valids, vis, ops, masks)
+            sja.append_rows_plain(dst[1], dvs[1], counts[1], errs[1], cols,
+                                  valids, vis, ops, masks, 0)
+        err = max(err, exact_err([*dst[0], *dvs[0], counts[0], errs[0]],
+                                 [*dst[1], *dvs[1], counts[1], errs[1]]))
+        if int(errs[0][0]) == 0 or int(errs[0][2]) == 0:
+            raise AssertionError("K14 edge case neither overflowed nor "
+                                 "retracted")
+    return err
+
+
+def float_aggs_err(ex, st) -> tuple[int, float]:
+    """K15's and K16's float64 paths, which q17's integer columns never
+    reach (the CAS-based MIN/MAX, sums of general floats), on the bench
+    state: extendedprice / 7.0 per row. Returns (the largest difference
+    of everything but the float sums, which must be 0; the sums' largest
+    relative difference, within 1e-12: other summation orders)."""
+    x = st["cols_s"][3].to(torch.float64) / 7.0
+    xv = st["valids_s"][3]
+    F = DataType.FLOAT64
+    calls = [AggCall(AggKind.SUM, 0, F, True), AggCall(AggKind.MIN, 0, F, True),
+             AggCall(AggKind.MAX, 0, F, True),
+             AggCall(AggKind.COUNT, 0, DataType.INT64, True)]
+    seg = (st["sfk"], st["order"], ex._fn, None, calls, [x], [xv])
+    gid, outs, gex = sja.segment_reduce(*seg)
+    gid_p, outs_p, gex_p = sja.segment_reduce_plain(*seg)
+    fin = (st["sfk"], st["order"], ex._fn, st["sd"], ex._dn, None, gid,
+           st["preds"], calls, [x], [xv])
+    fo, fo_p = sja.final_reduce(*fin), sja.final_reduce_plain(*fin)
+    err = max(exact_err([gid, gex], [gid_p, gex_p]),
+              columns_err(outs[1:] + fo[1:], outs_p[1:] + fo_p[1:]),
+              exact_err([outs[0].valid, fo[0].valid],
+                        [outs_p[0].valid, fo_p[0].valid]))
+    rel = 0.0
+    for a, b in ((outs[0].data, outs_p[0].data), (fo[0].data, fo_p[0].data)):
+        d = (a - b).abs() / b.abs().clamp(min=1e-300)
+        rel = max(rel, float(d.max()))
+    return err, rel
+
+
+# every aggregate kind at both levels and a fact filter, over bench's
+# sources (tests/test_torch_snapshot_join_agg.py's "kinds")
+Q17_KINDS = (
+    "SELECT count(*) AS n, count(L.l_orderkey) AS c, "
+    "sum(L.l_extendedprice) AS s, avg(L.l_quantity) AS a, "
+    "min(L.l_quantity) AS mn, max(L.l_extendedprice) AS mx "
+    "FROM lineitem L JOIN part P ON P.p_partkey = L.l_partkey "
+    "JOIN (SELECT l_partkey AS k, min(l_quantity) AS mq, "
+    "max(l_quantity) AS xq, sum(l_extendedprice) AS se "
+    "FROM lineitem GROUP BY l_partkey) A "
+    "ON A.k = L.l_partkey AND L.l_quantity <= A.xq "
+    "AND L.l_quantity >= A.mq + 1 AND L.l_extendedprice < A.se "
+    "WHERE L.l_orderkey > 2")
+
+
+# TPC-H q17's shape with a WHERE inside the subquery, whose group
+# existence decides membership (tests/test_snapshot_join_agg.py)
+Q17_SUB_WHERE = (
+    "SELECT count(*) AS n, sum(L.l_extendedprice) AS s "
+    "FROM lineitem L JOIN part P ON P.p_partkey = L.l_partkey "
+    "JOIN (SELECT l_partkey AS k, count(l_quantity) AS c, "
+    "avg(l_quantity) AS a FROM lineitem WHERE l_quantity > 48 "
+    "GROUP BY l_partkey) A "
+    "ON A.k = L.l_partkey AND L.l_quantity < A.a + A.c "
+    "WHERE P.p_brand = 'Brand#23'")
+
+
+def q17_node_args(dev, query=None) -> dict:
+    """The snapshot_join_agg node's arguments as the port's planner binds
+    bench_q17's statements (or `query` over the same sources)."""
+    async def go():
+        s = Session(device=dev)
+        for stmt in Q17_DDL[:-1]:
+            await s.execute(stmt)
+        last = Q17_DDL[-1] if query is None else (
+            f"CREATE SINK q AS {query} WITH (connector='blackhole_device')")
+        st = sql_parse(last)
+        plan = StreamPlanner(s.catalog, config=s.config).plan_sink(
+            st.select, st.options)
+        for f in plan.graph.fragments.values():
+            n = f.root
+            while n.kind != "snapshot_join_agg" and n.inputs \
+                    and not isinstance(n.inputs[0], Exchange):
+                n = n.inputs[0]
+            if n.kind == "snapshot_join_agg":
+                return dict(n.args)
+        raise AssertionError("no snapshot_join_agg node")
+    return asyncio.run(go())
+
+
+class _Schema:
+    def __init__(self, sch):
+        self.schema = sch
+        self.pk_indices = ()
+
+
+def q17_executor(args: dict, dev) -> SnapshotJoinAggExecutor:
+    a = {k: v for k, v in args.items() if k != "durable"}
+    return SnapshotJoinAggExecutor(_Schema(tpch.LINEITEM_SCHEMA),
+                                   _Schema(tpch.PART_SCHEMA), device=dev,
+                                   **a)
+
+
+def flush_steps_err(ex, key_valid=None):
+    """Every K15/K16 step of ex's flush on the card against its plain
+    version on the same inputs (with `key_valid` replacing the fact
+    key's validity). Returns (K15 err, K16 err, the step inputs)."""
+    kv = ex._fvalids[ex.fact_key] if key_valid is None else key_valid
+    fk = ex._fcols[ex.fact_key]
+    skey = sja.sort_keys(fk, kv, ex._fn)
+    e15 = exact_err([skey], [sja.sort_keys_plain(fk, kv, ex._fn)])
+    sfk, order = stable_sort(skey)
+    used = ex._used
+    take_in = ([ex._fcols[i] for i in used], [ex._fvalids[i] for i in used])
+    cu, vu = sja.take_rows(*take_in, order)
+    cp, vp = sja.take_rows_plain(*take_in, order)
+    e15 = max(e15, exact_err(cu + vu, cp + vp))
+    cols_s, valids_s = list(ex._fcols), list(ex._fvalids)
+    for i, c, v in zip(used, cu, vu):
+        cols_s[i], valids_s[i] = c, v
+    env = [Column(c, v) for c, v in zip(cols_s, valids_s)]
+    sub_pred = (ex._sub_filter_prog.eval(env)[0]
+                if ex._sub_filter_prog is not None else None)
+    seg = (sfk, order, ex._fn, sub_pred, ex.sub_agg_calls, cols_s,
+           valids_s)
+    gid, outs, gex = sja.segment_reduce(*seg)
+    gid_p, outs_p, gex_p = sja.segment_reduce_plain(*seg)
+    e15 = max(e15, exact_err([gid, gex], [gid_p, gex_p]),
+              columns_err(outs, outs_p))
+    items = ex._sub_items_prog.eval(outs)
+    it_in = ([c.data for c in items], [c.valid for c in items])
+    rd, rv = sja.take_rows(*it_in, gid)
+    pd, pv = sja.take_rows_plain(*it_in, gid)
+    e15 = max(e15, exact_err(rd + rv, pd + pv))
+    row_sub = [Column(d, v) for d, v in zip(rd, rv)]
+    preds = []
+    if ex._residue_prog is not None:
+        preds.append(ex._residue_prog.eval(env + row_sub)[0])
+    if ex._fact_filter_prog is not None:
+        preds.append(ex._fact_filter_prog.eval(env)[0])
+    dkey = sja.sort_keys(ex._dkeys, None, ex._dn)
+    e16 = exact_err([dkey], [sja.sort_keys_plain(ex._dkeys, None, ex._dn)])
+    sd, _ = stable_sort(dkey)
+    fin = (sfk, order, ex._fn, sd, ex._dn,
+           gex if ex.sub_filter is not None else None, gid, preds,
+           ex.final_agg_calls, cols_s, valids_s)
+    fo = sja.final_reduce(*fin)
+    e16 = max(e16, columns_err(fo, sja.final_reduce_plain(*fin)))
+    cur = ex._final_prog.eval(fo)
+    dev = sfk.device
+    prev = [torch.full((), 3, dtype=p.dtype, device=dev) for p in ex._prev]
+    prev_valid = [torch.ones((), dtype=torch.bool, device=dev)
+                  for _ in ex._prev]
+    for emitted in (False, True):
+        em = torch.tensor(emitted, device=dev)
+        a = [p.clone() for p in prev], [v.clone() for v in prev_valid], \
+            em.clone()
+        b = [p.clone() for p in prev], [v.clone() for v in prev_valid], \
+            em.clone()
+        ca, oa, va = sja.final_diff(cur, *a)
+        cb, ob, vb = sja.final_diff_plain(cur, *b)
+        e16 = max(e16, columns_err(ca, cb), exact_err(
+            [oa, va, *a[0], *a[1], a[2]], [ob, vb, *b[0], *b[1], b[2]]))
+    value = None
+    if bool(cur[0].valid_mask()[0]):
+        value = float(cur[0].data[0])
+    return e15, e16, dict(sfk=sfk, order=order, gid=gid, cols_s=cols_s,
+                          valids_s=valids_s, take_in=take_in, items=it_in,
+                          preds=preds, sd=sd, cur=cur, prev=prev,
+                          prev_valid=prev_valid,
+                          emitted=torch.tensor(True, device=dev),
+                          value=value)
+
+
+def q17_summary(runs: list, rows_key: str = "measured_rows") -> dict:
+    rates = [r[rows_key] / r["wall_s"] for r in runs]
+    lat = [x for r in runs for x in r["barrier_lat_s"]]
+    return dict(
+        repeats=len(runs),
+        wall_s=statistics.median(r["wall_s"] for r in runs),
+        lineitem_rows_per_s=statistics.median(rates),
+        lineitem_rows_per_s_min=min(rates),
+        lineitem_rows_per_s_max=max(rates),
+        barrier_p50_s=statistics.median(lat) if lat else None,
+        barrier_max_s=max(lat) if lat else None,
+        mem_peak_bytes=max(r["mem_peak_bytes"] for r in runs),
+        runs=[dict(wall_s=r["wall_s"], rows_per_s=rt,
+                   barrier_p50_s=statistics.median(r["barrier_lat_s"]),
+                   barrier_max_s=max(r["barrier_lat_s"]),
+                   mem_peak_bytes=r["mem_peak_bytes"])
+              for r, rt in zip(runs, rates)])
+
+
+def phase_q17_full(dev, repeats: int = 5) -> dict:
+    """bench_q17's statements through Session(device="cuda") at bench's
+    quota: one warmup barrier, then 64 x 8192 measured lineitem rows (4
+    barriers of 16 chunks), `repeats` runs from fresh state; every q17
+    kernel launched, errs [0, 0, 0]; the plan holds the fused executor."""
+    rounds = 1 + Q17_QUOTA_CHUNKS * Q17_CS // Q17_PER_BARRIER
+    runs = []
+    for _ in range(repeats):
+        r = q17_run(dev, rounds)
+        q17_gates(r)
+        ex = r["ex"]
+        runs.append(dict(
+            {k: r[k] for k in ("lineitem", "parts", "measured_rows",
+                               "wall_s", "barrier_lat_s", "mem_peak_bytes",
+                               "launches")},
+            fact_rows=int(ex._fn), fact_slots=ex.capacity,
+            dim_rows=int(ex._dn), errs=ex.errs(),
+            executor=type(ex).__name__))
+        # a run's stores are freed before the next run starts
+        del r, ex
+    first = runs[0]
+    return dict(
+        barriers=rounds, **{k: first[k] for k in (
+            "lineitem", "parts", "measured_rows", "fact_rows", "fact_slots",
+            "dim_rows", "errs", "executor")},
+        **q17_summary(runs), launches=first["launches"])
+
+
+def phase_q17_profile(dev, full: dict) -> dict:
+    """Where q17's time goes: a fresh run of bench's quota under
+    torch.profiler; the idle share against phase q17_full's unprofiled
+    median wall per measured barrier."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    rounds = full["barriers"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        r = q17_run(dev, rounds)
+        torch.cuda.synchronize()
+    kev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name: dict = {}
+    for e in kev:
+        name = e.name[:60]
+        t, c = by_name.get(name, (0.0, 0))
+        by_name[name] = (t + e.time_range.elapsed_us(), c + 1)
+    busy_s = sum(t for t, _ in by_name.values()) / 1e6
+    # the warmup barrier's device work is in the window too: per barrier
+    busy_per_barrier = busy_s / rounds
+    wall_per_barrier = full["wall_s"] / (rounds - 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:16]
+    return dict(
+        rounds=rounds, wall_s=r["wall_s"], device_busy_s=busy_s,
+        device_busy_per_barrier_s=busy_per_barrier,
+        unprofiled_wall_per_barrier_s=wall_per_barrier,
+        device_idle_share=(1 - busy_per_barrier / wall_per_barrier)
+        if kev else None,
+        device_events=len(kev),
+        top_kernels=[{"name": nm, "ms": t / 1e3, "count": c}
+                     for nm, (t, c) in top])
+
+
+def phase_q17_sf1(dev) -> dict:
+    """The same statements until the lineitem offset reaches TPC-H SF1's
+    lineitem count (6,001,215): the fact store grows from 2^20 to 2^23
+    slots. The last emitted value must equal the numpy recount exactly;
+    the last flush is timed again alone by CUDA events."""
+    rounds = -(-TPCH_SF1_LINEITEM // Q17_PER_BARRIER)
+    r = q17_run(dev, rounds)
+    q17_gates(r)
+    ex = r["ex"]
+    n_li, n_part = int(ex._fn), r["parts"]
+    if n_li != rounds * Q17_PER_BARRIER or ex.capacity != 1 << 23:
+        raise AssertionError(f"q17 sf1: {n_li} rows in {ex.capacity} slots")
+    got = float(ex._prev[0]) if bool(ex._prev_valid[0]) else None
+    want = q17_recount(n_li, n_part, dev)
+    if got != want:
+        raise AssertionError(f"q17 sf1: emitted {got}, recount {want}")
+    torch.cuda.synchronize()
+    s, e = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    s.record()
+    ex._flush()
+    e.record()
+    torch.cuda.synchronize()
+    return dict(
+        barriers=rounds, lineitem=n_li, parts=n_part,
+        fact_slots=ex.capacity, value=got, recount=want,
+        last_flush_ms=s.elapsed_time(e), errs=ex.errs(),
+        **q17_summary([r]))
+
+
+def phase_q17_check(dev) -> dict:
+    """Correctness: bench_q17's statements with a 2^17-slot fact store
+    (it grows to 2^20 over 8 barriers), into a device sink that keeps
+    rows: at every barrier the emitted value equals the numpy recount
+    over the rows the executor held at its flush (r x 16 chunks) and the
+    part prefix (r chunks), errs [0, 0, 0]. Then the shapes of
+    tests/test_snapshot_join_agg.py (sub WHERE, no residue, MIN), once
+    each at small size, against their numpy recounts."""
+    rounds = 8
+    r, got = q17_check_run(dev, rounds, capacity=1 << 17)
+    q17_gates(r)
+    if r["ex"].capacity < 1 << 19:
+        raise AssertionError(f"q17 check: the store grew only to "
+                             f"{r['ex'].capacity} slots")
+    return dict(barriers=rounds, capacity=r["ex"].capacity, values=got,
+                errs=r["ex"].errs(), shapes=q17_shapes(dev))
+
+
+def q17_check_run(dev, rounds: int, li_chunk: int = Q17_CS,
+                  part_chunk: int = Q17_PART_CHUNK,
+                  capacity: int = 1 << 20):
+    """q17_run into a collecting sink; the executor must flush exactly
+    r x 16 lineitem chunks at barrier r, and the value the sink holds
+    after each barrier must equal the numpy recount over those rows and
+    r part chunks. Returns (the run, the values)."""
+    r = q17_run(dev, rounds, li_chunk, part_chunk, capacity, collect=True)
+    per_li = 16 * li_chunk
+    want_fns = [k * per_li for k in range(1, rounds + 1)]
+    if r["fns"] != want_fns:
+        raise AssertionError(f"q17 check: flush counts {r['fns']}, "
+                             f"want {want_fns}")
+    li = tpch_prefix("lineitem", want_fns[-1], dev)
+    part = tpch_prefix("part", rounds * part_chunk, dev)
+    got = q17_emitted(r)
+    want = [q17_recount(n, (k + 1) * part_chunk, dev, li, part)
+            for k, n in enumerate(want_fns)]
+    if got != want:
+        raise AssertionError(f"q17 check: emitted {got}, recount {want}")
+    return r, got
+
+
+# tests/test_snapshot_join_agg.py's shapes, each with a numpy recount
+# over (lineitem columns, part columns, brand id of 'Brand#23')
+def _shape_sub_where(li, part, wb):
+    pk, q = li[1], li[2]
+    seen = set(part[0].tolist())
+    high = Counter(p for p, x in zip(pk.tolist(), q.tolist()) if x > 48)
+    n = sum(1 for p, x in zip(pk.tolist(), q.tolist())
+            if p in seen and p in high and x < high[p] + 100)
+    return (n,)
+
+
+def _shape_min(li, part, wb):
+    pk, q = li[1].tolist(), li[2].tolist()
+    ok = {k for k, b in zip(part[0].tolist(), part[1].tolist()) if b == wb}
+    mq: dict = {}
+    for p, x in zip(pk, q):
+        if x > 3:
+            mq[p] = min(mq.get(p, 10**9), x)
+    n = sq = 0
+    for p, x in zip(pk, q):
+        if p in ok and p in mq and x <= mq[p]:
+            n += 1
+            sq += x
+    return (n, sq if n else None)
+
+
+def _shape_no_residue(li, part, wb):
+    pk, q = li[1].tolist(), li[2].tolist()
+    ok = {k for k, b in zip(part[0].tolist(), part[1].tolist()) if b == wb}
+    rows = [x for p, x in zip(pk, q) if p in ok]
+    return (sum(rows) if rows else None, max(rows) if rows else None)
+
+
+Q17_SHAPES = {
+    "sub_where": (
+        "SELECT count(*) AS n FROM lineitem L "
+        "JOIN part P ON P.p_partkey = L.l_partkey "
+        "JOIN (SELECT l_partkey AS k, count(l_quantity) AS c "
+        "      FROM lineitem WHERE l_quantity > 48 GROUP BY l_partkey) A "
+        "  ON A.k = L.l_partkey AND L.l_quantity < A.c + 100",
+        _shape_sub_where),
+    "min": (
+        "SELECT count(L.l_extendedprice) AS n, sum(L.l_quantity) AS sq "
+        "FROM lineitem L "
+        "JOIN part P ON P.p_partkey = L.l_partkey "
+        "JOIN (SELECT l_partkey AS k, min(l_quantity) AS mq "
+        "      FROM lineitem WHERE l_quantity > 3 GROUP BY l_partkey) A "
+        "  ON A.k = L.l_partkey AND L.l_quantity <= A.mq "
+        "WHERE P.p_brand = 'Brand#23'", _shape_min),
+    "no_residue": (
+        "SELECT sum(L.l_quantity) AS sq, max(L.l_quantity) AS mq "
+        "FROM lineitem L JOIN part P ON P.p_partkey = L.l_partkey "
+        "JOIN (SELECT l_partkey AS k, count(*) AS n FROM lineitem "
+        "      GROUP BY l_partkey) A ON A.k = L.l_partkey "
+        "WHERE P.p_brand = 'Brand#23'", _shape_no_residue),
+}
+
+
+def q17_shapes(dev, rounds: int = 3, li_chunk: int = 512,
+               part_chunk: int = 256) -> dict:
+    """Each of Q17_SHAPES through the session (512-row lineitem chunks,
+    16 a barrier, 256-row part chunks) into a collecting sink; the final
+    row must equal its recount."""
+    out = {}
+    wb = tpch.vocab_ids()["tpch_brand"][tpch.BRANDS.index("Brand#23")]
+    for name, (query, recount) in Q17_SHAPES.items():
+        ddl = q17_ddl(li_chunk, part_chunk)[:-1] + [
+            f"CREATE SINK q17 AS {query} WITH (connector='blackhole_device')"]
+        r = q17_run(dev, rounds, li_chunk, part_chunk, collect=True,
+                    ddl=ddl)
+        if r["ex"].errs() != [0, 0, 0]:
+            raise AssertionError(f"q17 shape {name}: errs {r['ex'].errs()}")
+        sink = r["sink"]
+        cols, sign, _ = sink.arrays()
+        valid = [v[:sign.size].cpu().numpy() for v in sink.valid]
+        last = max(i for i in range(sign.size) if sign[i] > 0)
+        got = tuple(int(c[last]) if v[last] else None
+                    for c, v in zip(cols, valid))
+        n_li = rounds * 16 * li_chunk
+        want = recount(tpch_prefix("lineitem", n_li, dev),
+                       tpch_prefix("part", rounds * part_chunk, dev), wb)
+        if got != want or not any(want):
+            raise AssertionError(f"q17 shape {name}: {got} vs {want}")
+        out[name] = list(got)
+    return out
+
+
+# ------------------------------------------------------------- q1 (SQL)
+
+# bench.py's bench_q1 statements, verbatim
+Q1_DDL = [
+    "SET streaming_durability = 0",
+    "SET streaming_watchdog = 0",
+    ("CREATE SOURCE bid WITH (connector='nexmark', table='bid', "
+     "chunk_size=131072)"),
+    ("CREATE SINK q1 AS SELECT auction, bidder, "
+     "price * 0.908 AS price, date_time FROM bid "
+     "WITH (connector='blackhole_device')"),
+]
+Q1_KERNELS = ("nexmark_bid", "expr_eval")
+
+
+def q1_run(dev, rounds: int, chunk: int = 131072, per_barrier: int = 8,
+           collect: int = 0) -> dict:
+    """bench_q1's statements (chunk size swapped in when not bench's)
+    through the port's Session: the bid source throttled to
+    `per_barrier` chunks a barrier before the sink starts, each of
+    `rounds` barriers injected once it has emitted them, the last the
+    Stop. With collect > 0 a device sink keeps up to that many rows."""
+    async def go():
+        s = Session(device=dev)
+        ddl = [st.replace("chunk_size=131072", f"chunk_size={chunk}")
+               for st in Q1_DDL]
+        for stmt in ddl[:-1]:
+            await s.execute(stmt)
+        s.throttle_source("bid", per_barrier * chunk)
+        held = {}
+        if collect:
+            def attach(name, dep, fid):
+                root = dep.roots[fid][0]
+                actor = next(a for a in dep.actors if a.consumer is root)
+                actor.consumer = held["sink"] = DeviceCollectSinkExecutor(
+                    root, collect, dev)
+            s.build_hooks.append(attach)
+        kernels.reset_launch_counts()
+        await s.execute(ddl[-1])
+        dep = s.catalog.sinks["q1"].deployment
+        gen = dep.executors(SourceExecutor)[0].connector
+        t0 = time.perf_counter()
+        for r in range(1, rounds + 1):
+            while gen.offset < r * per_barrier * chunk:
+                for t in dep.tasks:
+                    if t.done():
+                        t.result()
+                await asyncio.sleep(0)
+            if r < rounds:
+                b = await s.coord.inject_barrier()
+                await s.coord.wait_collected(b)
+            else:
+                await s.coord.stop_all({a.actor_id for a in dep.actors})
+        wall = time.perf_counter() - t0
+        await asyncio.gather(*dep.tasks)
+        launches = {k.name: k.launches for k in kernels.KERNELS.values()}
+        s.catalog.sinks.pop("q1")
+        return dict(bids=gen.offset, wall_s=wall, launches=launches,
+                    sink=held.get("sink"), coord=s.coord)
+
+    return asyncio.run(go())
+
+
+def q1_check(dev, chunk: int = 1024, per: int = 2, rounds: int = 4) -> int:
+    """bench_q1's statements at `chunk`-bid chunks into a sink that keeps
+    the rows: every row an insert, equal to the numpy recount of the
+    projection (price * 0.908 in float64). Returns the rows checked."""
+    r = q1_run(dev, rounds, chunk, per, collect=rounds * per * chunk)
+    cols, sign, dropped = r["sink"].arrays()
+    n = r["bids"]
+    vocabs = {k: torch.tensor(v, dtype=torch.int32, device=dev)
+              for k, v in vocab_ids().items()}
+    bid = [c.cpu().numpy() for c in gen_bid_columns_plain(
+        0, n, NexmarkConfig(), vocabs, dev)]
+    want = [bid[0], bid[1], bid[2].astype(np.float64) * 0.908, bid[5]]
+    ok = (not dropped and n == rounds * per * chunk and sign.size == n
+          and (sign == 1).all()
+          and all(np.array_equal(g, w) for g, w in zip(cols, want)))
+    if not ok:
+        raise AssertionError("q1 output differs from the numpy recount")
+    return n
+
+
+def phase_q1_full(dev, repeats: int = 3, rounds: int = 8) -> dict:
+    """bench_q1's statements through Session(device="cuda"), `repeats`
+    runs of `rounds` barriers of 8 x 131072 bids: K1 and K5 launched;
+    then 4 barriers at 1024-bid chunks into a sink that keeps the rows,
+    which must equal a numpy recount (price * 0.908 in float64)."""
+    runs = []
+    for _ in range(repeats):
+        r = q1_run(dev, rounds)
+        missing = [k for k in Q1_KERNELS if r["launches"][k] == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on q1: {missing}")
+        runs.append(dict(bids=r["bids"], wall_s=r["wall_s"],
+                         bids_per_s=r["bids"] / r["wall_s"],
+                         barrier_p50_s=r["coord"].barrier_latency_percentile(
+                             0.5),
+                         launches=r["launches"]))
+    n = q1_check(dev)
+    rates = [x["bids_per_s"] for x in runs]
+    return dict(barriers=rounds, bids=runs[0]["bids"], repeats=repeats,
+                bids_per_s=statistics.median(rates),
+                bids_per_s_min=min(rates), bids_per_s_max=max(rates),
+                barrier_p50_s=statistics.median(x["barrier_p50_s"]
+                                                for x in runs),
+                check_rows=n, launches=runs[0]["launches"])
+
+
 def q5_full_run(dev, cfg: NexmarkConfig, chunk: int, cap: int,
                 per_barrier: int, rounds: int) -> dict:
     """One full-width q5 run from fresh state, checked: counts set to 0
@@ -1810,7 +2844,9 @@ KERNEL_PATH = {"nexmark_bid": "q5", "hop_window": "q5", "hash_table": "q5",
                "hash_agg": "q5", "compact": "q5", "expr_eval": "q7",
                "row_id": "q7", "sorted_join_probe": "q7",
                "sorted_join_merge": "q7", "nexmark_person": "q8",
-               "nexmark_auction": "q8", "radix_sort": "q8"}
+               "nexmark_auction": "q8", "radix_sort": "q8", "tpch": "q17",
+               "snapshot_append": "q17", "segment_agg": "q17",
+               "snapshot_final": "q17"}
 
 
 def phase_q5_full(dev, repeats: int = 5) -> dict:
@@ -1964,7 +3000,14 @@ def main(argv) -> int:
     emit({"phase": "q8_full", "nvidia_smi": smi, **q8})
     emit({"phase": "q8_profile", **phase_q8_profile(dev, q8)})
     emit({"phase": "q8_check", **phase_q8_check(dev)})
-    paths = {"q5": q5, "q7": q7, "q8": q8}
+    res.update(phase_kernels_q17(dev))
+    q17 = phase_q17_full(dev)
+    emit({"phase": "q17_full", "nvidia_smi": smi, **q17})
+    emit({"phase": "q17_profile", **phase_q17_profile(dev, q17)})
+    emit({"phase": "q17_sf1", "nvidia_smi": smi, **phase_q17_sf1(dev)})
+    emit({"phase": "q17_check", **phase_q17_check(dev)})
+    emit({"phase": "q1_full", "nvidia_smi": smi, **phase_q1_full(dev)})
+    paths = {"q5": q5, "q7": q7, "q8": q8, "q17": q17}
     rows = []
     for name, k in kernels.KERNELS.items():
         r = res[name]

@@ -19,7 +19,7 @@ __device__ __forceinline__ u64 rw_splitmix64(u64 x) {
   return x ^ (x >> 31);
 }
 
-// Floor division of int64 by a positive divisor (jnp.floor_divide).
+// Floor division of int64 by a nonzero divisor (jnp.floor_divide).
 __device__ __forceinline__ i64 rw_floordiv(i64 a, i64 b) {
   i64 q = a / b;
   return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;

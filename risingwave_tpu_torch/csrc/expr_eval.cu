@@ -43,7 +43,7 @@ enum Op {
   CMP_I = 9, CMP_F = 10, AND = 11, OR = 12, NOT = 13,
   IS_NULL = 14, IS_NOT_NULL = 15,
   I2F = 16, F2I = 17, I2B = 18, F2B = 19, WRAP = 20,
-  TSTART = 21, TEND = 22, OUT = 23, MASK = 24,
+  TSTART = 21, TEND = 22, OUT = 23, MASK = 24, DIV_I = 25, DIV_F = 26,
 };
 // comparison codes (CMP_* arg)
 enum Cmp { EQ = 0, NE = 1, LT = 2, LE = 3, GT = 4, GE = 5 };
@@ -113,6 +113,14 @@ __device__ __forceinline__ i64 compare(T a, T b, int code) {
     case GT: return a > b;
     default: return a >= b;
   }
+}
+
+// jnp's integer `//` (floor), with a zero divisor giving 0 (the caller
+// marks the row NULL) and INT64_MIN // -1 wrapping as XLA's does
+__device__ __forceinline__ i64 floor_div(i64 a, i64 b) {
+  if (b == 0) return 0;
+  if (b == -1) return static_cast<i64>(0ULL - static_cast<u64>(a));
+  return rw_floordiv(a, b);
 }
 
 // jnp's integer `%`: the remainder takes the divisor's sign
@@ -220,6 +228,14 @@ expr_eval_kernel(Prog p, long long n) {
             r = a | b;
             rv = (va & (a != 0)) | (vb & (b != 0)) | (va & vb);
             break;
+          case DIV_I: r = floor_div(a, b); rv &= b != 0; break;
+          case DIV_F: {
+            // one IEEE division; no contraction across opcodes
+            const double fb = as_f(b);
+            r = fb == 0.0 ? as_bits(0.0) : as_bits(as_f(a) / fb);
+            rv &= fb != 0.0;
+            break;
+          }
           case TSTART: r = a - floor_mod(a, b); break;
           default: r = a - floor_mod(a, b) + b;   // TEND
         }

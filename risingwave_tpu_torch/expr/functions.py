@@ -1,24 +1,28 @@
 """Scalar function bodies behind the registry (port of
-risingwave_tpu/expr/functions.py, the entries Nexmark q1 and q7 use).
+risingwave_tpu/expr/functions.py, the entries Nexmark q1/q7 and TPC-H
+q17 use).
 
 Each body is plain PyTorch over `Column`s with the JAX package's
 semantics: one entry covers every numeric width by dtype promotion, the
-result is cast to the node's return type, integer remainders floor (as
-jnp's `%` does: torch's `%` floors too, `fmod` would truncate), and
+result is cast to the node's return type, integer remainders and
+quotients floor (as jnp's `%` and `//` do: torch's `%` floors too,
+`fmod` and C's `/` would truncate), a zero divisor gives NULL, and
 `and`/`or` follow Kleene three-valued logic. These bodies are the plain
 version of kernel K5 (expr/program.py), which lowers the same names to
 opcodes.
 
-Left out of this slice (ROADMAP A3): divide, modulus, neg, abs,
+Left out of this slice (ROADMAP A3): modulus, neg, abs,
 greatest/least, case, coalesce, hll_estimate, extract/date_trunc, the
 math functions, bit ops and the string functions.
 """
 
 from __future__ import annotations
 
+import torch
+
 from ..common.chunk import Column
 from ..common.types import DataType
-from .registry import fixed, kernel, strict
+from .registry import and_valid, fixed, kernel, strict
 
 _BOOL = fixed(DataType.BOOLEAN)
 _TS = fixed(DataType.TIMESTAMP)
@@ -42,6 +46,23 @@ def _sub(node, a, b):
 @strict
 def _mul(node, a, b):
     return (a * b).to(node.ret_type.torch_dtype)
+
+
+@kernel("divide", input_kinds=("num", "num"))
+def _div(node, cols):
+    a, b = cols[0].data, cols[1].data
+    valid = and_valid(cols)
+    zero = b == 0
+    safe = torch.where(zero, torch.ones_like(b), b)
+    if node.ret_type.is_float:
+        if not (a.is_floating_point() or b.is_floating_point()):
+            a = a.to(torch.float64)     # jnp's true division of ints
+        out = torch.where(zero, 0.0, a / safe)
+    else:
+        out = torch.where(zero, 0, torch.div(a, safe, rounding_mode="floor"))
+    # a zero divisor gives NULL (the reference's per-row error -> NULL)
+    valid = (~zero) if valid is None else (valid & ~zero)
+    return Column(out.to(node.ret_type.torch_dtype), valid)
 
 
 # ------------------------------------------------------------- comparison

@@ -18,7 +18,8 @@ column's dtype and whether it has a validity mask) and cached with its
 ctypes argument arrays.
 
 Not compiled (NotImplementedError): float32 operands, arithmetic on
-booleans, and functions outside the ported registry entries.
+booleans, floor division of floats (an integer-typed divide of a float
+operand), and functions outside the ported registry entries.
 """
 
 from __future__ import annotations
@@ -52,14 +53,15 @@ MAX_CODE, MAX_IN, MAX_OUT, MAX_STACK = 48, 16, 8, 16   # csrc/expr_eval.cu
 # opcodes (csrc/expr_eval.cu keeps the same numbers)
 (LOAD, CONST, NUL, ADD_I, SUB_I, MUL_I, ADD_F, SUB_F, MUL_F, CMP_I, CMP_F,
  AND, OR, NOT, IS_NULL, IS_NOT_NULL, I2F, F2I, I2B, F2B, WRAP, TSTART, TEND,
- OUT, MASK) = range(25)
+ OUT, MASK, DIV_I, DIV_F) = range(27)
 CMP_CODES = {"equal": 0, "not_equal": 1, "less_than": 2,
              "less_than_or_equal": 3, "greater_than": 4,
              "greater_than_or_equal": 5}
 _ARITH = {"add": (ADD_I, ADD_F), "subtract": (SUB_I, SUB_F),
           "multiply": (MUL_I, MUL_F)}
-_TYPE_CODES = {torch.int64: 0, torch.int32: 1, torch.int16: 2, torch.int8: 3,
-               torch.bool: 4, torch.float64: 5}
+# element type codes shared by the kernels' column tables
+TYPE_CODES = {torch.int64: 0, torch.int32: 1, torch.int16: 2, torch.int8: 3,
+              torch.bool: 4, torch.float64: 5}
 _BITS = {torch.int64: 64, torch.int32: 32, torch.int16: 16, torch.int8: 8,
          torch.bool: 8}
 
@@ -101,6 +103,8 @@ class _Compiler:
             infos = [self.info(a) for a in e.args]
             if e.name in ("is_null", "is_not_null"):
                 nullable = False
+            elif e.name == "divide":
+                nullable = True         # a zero divisor gives NULL
             else:
                 nullable = any(n for _, n in infos)
             return e.ret_type.torch_dtype, nullable
@@ -161,6 +165,23 @@ class _Compiler:
             if _kind(out_dt) == "i":
                 self._wrap(out_dt)
             return
+        if name == "divide":
+            dts = [self.info(a)[0] for a in args]
+            if torch.bool in dts:
+                raise NotImplementedError("K5: arithmetic on booleans")
+            # the result type picks the division: true division in
+            # float64, or floor division in the widest operand's width
+            k = _kind(out_dt)
+            if k == "i" and "f" in kinds:
+                raise NotImplementedError("K5: floor division of floats")
+            for a, ka in zip(args, kinds):
+                self.emit(a)
+                self._to(ka, k)
+            self._op(DIV_F if k == "f" else DIV_I, push=-1)
+            if k == "i":
+                self._wrap(max(dts, key=lambda d: _BITS[d]))
+                self._wrap(out_dt)
+            return
         if name in CMP_CODES:
             k = "f" if "f" in kinds else "i"
             for a, ka in zip(args, kinds):
@@ -219,11 +240,11 @@ class _Compiled:
         self.imms = (ctypes.c_longlong * n)(*[c[2] for c in comp.code])
         self.inputs = list(comp.inputs)
         self.in_types = kernels.int_array(
-            _TYPE_CODES[comp.sig[i][0]] for i in comp.inputs)
+            TYPE_CODES[comp.sig[i][0]] for i in comp.inputs)
         self.outs = outs                   # expression index per output
         self.out_dtypes = out_dtypes
         self.out_nullable = out_nullable
-        self.out_types = kernels.int_array(_TYPE_CODES[d] for d in out_dtypes)
+        self.out_types = kernels.int_array(TYPE_CODES[d] for d in out_dtypes)
         self.mask = mask
 
 

@@ -15,15 +15,21 @@ and executor arguments:
                             ("pair" for windowed equi-joins, "band" for
                             interval joins), join-input pruning pushed
                             into the upstream fragments
+  global aggs over L JOIN dim JOIN (SELECT k, aggs FROM L GROUP BY k) A
+                         -> one snapshot_join_agg fragment fed by the two
+                            sources (TPC-H q17's shape, append-only
+                            inputs; `_try_snapshot_join_agg`)
   plain SELECT           -> project (+ row_id for a keyless MV pk)
   CREATE SINK            -> the plan ends in a sink node
 
 What the JAX planner also plans raises `BindError("... not ported yet
 (ROADMAP A9)")` here, never a different plan: WHERE (filters and their
 pushdown, NOW() dynamic filters), GROUP BY and aggregates, HOP, sub-
-queries, MV-on-MV scans, ORDER BY/LIMIT (top-N), window functions,
-outer and temporal joins, non-integer join keys (hash join), the
-snapshot join-agg fusion and remote fragment placement.
+queries outside the snapshot join-agg fusion (where that fusion
+declines, JAX falls back to the generic join plan, which the port has
+not ported), MV-on-MV scans, ORDER BY/LIMIT (top-N), window functions,
+outer and temporal joins, non-integer join keys (hash join) and remote
+fragment placement.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from typing import Optional
 import numpy as np
 
 from ..common.types import DataType, Field, Schema
+from ..expr.agg import AggCall, AggKind
 from ..expr.ir import Expr, InputRef, call, col, input_refs, lit, \
     remap_inputs
 from ..expr.transforms import TumbleEndTransform, TumbleStartTransform
@@ -410,6 +417,11 @@ class StreamPlanner:
                 raise BindError("comma join needs join conditions in WHERE")
             rel = ast.JoinRel(rel.left, rel.right, where)
             where = None
+        fused = self._try_snapshot_join_agg(ast.Select(
+            list(sel.items), rel, where, sel.group_by, list(sel.order_by),
+            sel.limit, sel.offset))
+        if fused is not None:
+            return fused
         if where is not None:
             raise not_ported("WHERE (filters)")
         if sel.group_by or any(contains_agg(it.expr) for it in sel.items):
@@ -460,6 +472,285 @@ class StreamPlanner:
                          inputs=(frag.root,))
         return (fid, names, [e.ret_type for e in exprs], tuple(key_pos),
                 False, project_wm(exprs))
+
+    # ------------------------------------------- snapshot join-agg fusion
+    def _try_snapshot_join_agg(self, sel: ast.Select):
+        """Fuse the q17 shape — SELECT <global aggs over L> FROM L JOIN
+        dim JOIN (SELECT k, <agg exprs> FROM L GROUP BY k) A ON A.k = L.k
+        [AND residue] WHERE <single-side filters> — into ONE barrier-
+        snapshot executor (stream/snapshot_join_agg.py) when every input
+        is append-only. Returns a `_plan_query` result tuple, or None
+        when the shape does not match (SET streaming_snapshot_fuse = 0
+        forces None); the caller then raises, having no generic plan."""
+        if not self.cfg("streaming_snapshot_fuse", 1):
+            return None
+        if (sel.group_by or sel.order_by or sel.limit is not None
+                or sel.offset):
+            return None
+        if not sel.items or not all(
+                isinstance(it.expr, ast.Lit) or contains_agg(it.expr)
+                for it in sel.items):
+            return None
+        if not isinstance(sel.rel, ast.JoinRel):
+            return None
+        leaves: list = []
+        bad: list = []
+
+        def flat(r):
+            if isinstance(r, ast.JoinRel):
+                if (getattr(r, "join_type", "inner") != "inner"
+                        or getattr(r, "temporal", False) or r.on is None):
+                    bad.append(r)
+                    return
+                flat(r.left)
+                leaves.append((r.right, r.on))
+            else:
+                leaves.append((r, None))
+
+        flat(sel.rel)
+        if bad or len(leaves) != 3:
+            return None
+        rels = [l for l, _ in leaves]
+        if not isinstance(rels[0], ast.TableRel):
+            return None
+        sub_pos_leaf = [i for i in (1, 2)
+                        if isinstance(rels[i], ast.SubqueryRel)]
+        dim_pos_leaf = [i for i in (1, 2)
+                        if isinstance(rels[i], ast.TableRel)]
+        if len(sub_pos_leaf) != 1 or len(dim_pos_leaf) != 1:
+            return None
+        fact_rel = rels[0]
+        dim_rel = rels[dim_pos_leaf[0]]
+        sub_rel = rels[sub_pos_leaf[0]]
+        asel = sub_rel.select
+        if (not isinstance(asel, ast.Select)
+                or len(asel.group_by) != 1 or asel.order_by
+                or asel.limit is not None or asel.offset
+                or not isinstance(asel.rel, ast.TableRel)
+                or asel.rel.name != fact_rel.name):
+            return None
+        # both scans of L must see identical rows: require a SOURCE (an
+        # MV could change between the two logical scans' backfills)
+        if fact_rel.name in getattr(self.catalog, "mvs", {}) \
+                or dim_rel.name in getattr(self.catalog, "mvs", {}):
+            return None
+        try:
+            fact_src = self.catalog.source(fact_rel.name)
+            dim_src = self.catalog.source(dim_rel.name)
+        except Exception:
+            return None
+        dim_pk = dim_src.options.get("primary_key")
+        if dim_pk is None:
+            return None    # the membership mask needs a UNIQUE dim key
+        fscope = Scope.of(fact_src.schema, fact_rel.alias or fact_rel.name)
+        dscope = Scope.of(dim_src.schema, dim_rel.alias or dim_rel.name)
+        nl, nd = len(fscope.schema), len(dscope.schema)
+
+        # ---- the subquery: key + agg items over its own scan scope
+        ascan = Scope.of(fact_src.schema, asel.rel.alias or asel.rel.name)
+        try:
+            gkey = bind_scalar(asel.group_by[0], ascan)
+        except BindError:
+            return None
+        if not isinstance(gkey, InputRef):
+            return None
+        fact_key = gkey.index
+
+        def make_decomp(calls: list, scope_: Scope):
+            def arg_of(e):
+                try:
+                    b = bind_scalar(e, scope_)
+                except BindError:
+                    return None
+                return b.index if isinstance(b, InputRef) else None
+
+            def decomp(e):
+                if isinstance(e, ast.Func) and e.name in AGG_FUNCS:
+                    if e.name == "count":
+                        a = None
+                        if not getattr(e, "star", False) and e.args:
+                            a = arg_of(e.args[0])
+                            if a is None:
+                                return None
+                        calls.append(AggCall(AggKind.COUNT, a,
+                                             DataType.INT64, True))
+                        return col(len(calls) - 1, DataType.INT64)
+                    if not e.args:
+                        return None
+                    a = arg_of(e.args[0])
+                    if a is None:
+                        return None
+                    at = scope_.schema[a].data_type
+                    if at is DataType.VARCHAR and e.name != "count":
+                        return None
+                    if e.name == "avg":
+                        calls.append(AggCall(AggKind.SUM, a,
+                                             DataType.FLOAT64, True))
+                        s_ = len(calls) - 1
+                        calls.append(AggCall(AggKind.COUNT, a,
+                                             DataType.INT64, True))
+                        return call("divide", col(s_, DataType.FLOAT64),
+                                    col(s_ + 1, DataType.INT64))
+                    if e.name == "sum":
+                        ret = (DataType.FLOAT64
+                               if at in (DataType.FLOAT64,
+                                         DataType.FLOAT32)
+                               else DataType.INT64)
+                        calls.append(AggCall(AggKind.SUM, a, ret, True))
+                        return col(len(calls) - 1, ret)
+                    if e.name not in ("min", "max"):
+                        return None     # not ported: bool_and/or, hll
+                    kind = (AggKind.MIN if e.name == "min"
+                            else AggKind.MAX)
+                    calls.append(AggCall(kind, a, at, True))
+                    return col(len(calls) - 1, at)
+                if isinstance(e, ast.Lit):
+                    return lit(e.value)
+                if isinstance(e, ast.BinOp):
+                    l_, r_ = decomp(e.left), decomp(e.right)
+                    if l_ is None or r_ is None:
+                        return None
+                    return call(e.op, l_, r_)
+                if isinstance(e, ast.UnOp):
+                    a_ = decomp(e.arg)
+                    return None if a_ is None else call(e.op, a_)
+                return None
+            return decomp
+
+        sub_agg_calls: list[AggCall] = []
+        decomp_sub = make_decomp(sub_agg_calls, ascan)
+        a_fields, a_items, key_item = [], [], None
+        for j, it in enumerate(asel.items):
+            name = it.alias or auto_name(it.expr, j)
+            if not contains_agg(it.expr):
+                try:
+                    b = bind_scalar(it.expr, ascan)
+                except BindError:
+                    return None
+                if (not isinstance(b, InputRef) or b.index != fact_key
+                        or key_item is not None):
+                    return None
+                key_item = j
+                a_fields.append(Field(name, b.ret_type))
+                a_items.append(None)
+            else:
+                e2 = decomp_sub(it.expr)
+                if e2 is None:
+                    return None
+                a_fields.append(Field(name, e2.ret_type))
+                a_items.append(e2)
+        if key_item is None:
+            return None
+        sub_filter = None
+        if asel.where is not None:
+            try:
+                sub_filter = bind_scalar(asel.where, ascan)
+            except BindError:
+                return None
+
+        # ---- classify every ON + WHERE conjunct
+        ascope = Scope.of(Schema(tuple(a_fields)), sub_rel.alias)
+        parts = {dim_pos_leaf[0]: dscope, sub_pos_leaf[0]: ascope}
+        full = Scope.join(Scope.join(fscope, parts[1]), parts[2])
+        offs = {1: nl, 2: nl + len(parts[1].schema)}
+        dim_off = offs[dim_pos_leaf[0]]
+        a_off = offs[sub_pos_leaf[0]]
+        na = len(a_fields)
+        conjs = []
+        for _, on in leaves[1:]:
+            conjs += split_conjuncts(on)
+        if sel.where is not None:
+            conjs += split_conjuncts(sel.where)
+        fact_link = dim_link = None
+        fact_filters, dim_filters, residues = [], [], []
+        for conj in conjs:
+            p = equi_pair(conj, fscope, dscope)
+            if p is not None:
+                if dim_link is not None or p[1] != dim_pk:
+                    return None
+                dim_link = p[0]
+                continue
+            p = equi_pair(conj, fscope, ascope)
+            if p is not None and p[1] == key_item:
+                if fact_link is not None or p[0] != fact_key:
+                    return None
+                fact_link = p[0]
+                continue
+            try:
+                b = bind_scalar(conj, full)
+            except BindError:
+                return None
+            refs = input_refs(b)
+            if all(i < nl for i in refs):
+                fact_filters.append(b)
+            elif all(dim_off <= i < dim_off + nd for i in refs):
+                dim_filters.append(remap_inputs(
+                    b, {i: i - dim_off for i in refs}))
+            elif all(i < nl or (a_off <= i < a_off + na
+                                and i - a_off != key_item)
+                     for i in refs):
+                residues.append(b)
+            else:
+                return None
+        # membership is computed on the group-key column: the dim must be
+        # keyed by the same L column the aggregate groups on
+        if fact_link is None or dim_link is None or dim_link != fact_key:
+            return None
+
+        sub_items = [e for e in a_items if e is not None]
+        sub_idx = {}
+        for j, e in enumerate(a_items):
+            if e is not None:
+                sub_idx[j] = len(sub_idx)
+
+        def combine(es):
+            if not es:
+                return None
+            e = es[0]
+            for r in es[1:]:
+                e = call("and", e, r)
+            return e
+
+        residue = combine(residues)
+        if residue is not None:
+            refs = input_refs(residue)
+            residue = remap_inputs(residue, {
+                i: (i if i < nl else nl + sub_idx[i - a_off])
+                for i in refs})
+        fact_filter = combine(fact_filters)
+        dim_filter = combine(dim_filters)
+
+        # ---- final (global) aggregates over L columns only
+        final_agg_calls: list[AggCall] = []
+        decomp_fin = make_decomp(final_agg_calls, fscope)
+        final_items, names, types = [], [], []
+        for j, it in enumerate(sel.items):
+            e2 = decomp_fin(it.expr)
+            if e2 is None:
+                return None
+            final_items.append(e2)
+            names.append(it.alias or auto_name(it.expr, j))
+            types.append(e2.ret_type)
+
+        # ---- everything matches: plan the two scans and emit the node
+        lf, _, linfo = self.plan_rel(fact_rel)
+        df, _, dinfo = self.plan_rel(dim_rel)
+        if not (linfo.append_only and dinfo.append_only):
+            return None
+        wd = 1 if self.cfg("streaming_watchdog", 1) else None
+        node = Node("snapshot_join_agg", dict(
+            fact_key=fact_key, dim_key=dim_pk,
+            sub_agg_calls=sub_agg_calls, sub_items=sub_items,
+            residue=residue, final_agg_calls=final_agg_calls,
+            final_items=final_items, out_names=names, out_types=types,
+            fact_filter=fact_filter, sub_filter=sub_filter,
+            dim_filter=dim_filter,
+            capacity=self.cfg("streaming_join_capacity", 1 << 17),
+            dim_capacity=self.cfg("streaming_agg_capacity", 1 << 16),
+            durable=self.durable(), watchdog_interval=wd),
+            inputs=(Exchange(lf), Exchange(df)))
+        f = self.graph.add(Fragment(self.fid(), node, dispatch="simple"))
+        return (f.fid, names, types, (), False, frozenset())
 
     # ----------------------------------------------------- optimizer passes
     def _optimize_join(self, jinfo, scope: Scope, info: RelInfo,

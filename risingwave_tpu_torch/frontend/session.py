@@ -8,12 +8,15 @@ the port's binder, built into actors on the session's device (CUDA by
 default; the CPU only when asked for) and brought up with the first
 barrier. `tick` advances the barrier loop.
 
-Left out of this slice (ROADMAP A9/A10): durable state
+Sources: the `nexmark` and `tpch` connectors (device generators).
+
+Left out of this slice (ROADMAP A5/A9/A10): durable state
 (`streaming_durability = 1` raises rather than running volatile), the
 durable catalog and recovery, batch SELECT and the serving path, DROP,
 CREATE TABLE/INSERT, EXPLAIN/SHOW, backup and restore, cluster mode,
-the monitor and subscription endpoints, and every session variable
-beyond the five the port plans with.
+the monitor and subscription endpoints, the stuck-barrier watchdog
+(`SET barrier_stall_threshold_ms` raises), and every session variable
+beyond the seven the port plans with.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import Optional
 
 from ..common.types import Schema
 from ..connectors.nexmark import AUCTION_SCHEMA, BID_SCHEMA, PERSON_SCHEMA
+from ..connectors.tpch import TPCH_SCHEMAS
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..meta.barrier_manager import BarrierCoordinator
 from ..plan.build import BuildEnv, Deployment, build_graph
@@ -90,8 +94,12 @@ class Session:
     CONFIG_VARS = {
         "streaming_join_capacity": (1 << 17, int),
         "streaming_join_match_factor": (64, int),
+        "streaming_agg_capacity": (1 << 16, int),
         "streaming_watchdog": (1, int),      # 0 disables error fetches
         "streaming_parallelism": (1, int),
+        # 0 disables the snapshot join-agg fusion; the port has no
+        # generic plan for that shape, so it then raises BindError
+        "streaming_snapshot_fuse": (1, int),
         # 0 = in-memory state; 1 (the JAX default) is durable state,
         # which the port refuses to plan (ROADMAP A10)
         "streaming_durability": (1, int),
@@ -139,13 +147,23 @@ class Session:
     def _create_source(self, stmt: ast.CreateSource) -> SourceDef:
         opts = dict(stmt.options)
         connector = opts.pop("connector", "nexmark")
-        if connector != "nexmark":
+        if connector == "tpch":
+            schemas = TPCH_SCHEMAS
+        elif connector == "nexmark":
+            schemas = _NEXMARK_SCHEMAS
+        else:
             raise BindError(f"connector {connector!r} not ported yet "
                             "(ROADMAP A9)")
-        schemas = _NEXMARK_SCHEMAS
         table = opts.pop("table", stmt.name)
         if table not in schemas:
             raise BindError(f"unknown {connector} table {table!r}")
+        if connector == "tpch":
+            bad = {"emit_watermarks", "watermark_lag_us", "inter_event_us",
+                   "base_time_us"} & set(opts)
+            if bad:
+                raise BindError(
+                    f"options {sorted(bad)} are not supported by the "
+                    "tpch connector (no event-time column)")
         args = {"connector": connector, "table": table,
                 "chunk_size": int(opts.pop("chunk_size", 4096))}
         if "splits" in opts:
@@ -170,7 +188,7 @@ class Session:
             if k in opts:
                 args[k] = int(opts.pop(k))
         if opts:
-            raise BindError(f"unknown nexmark options {sorted(opts)}")
+            raise BindError(f"unknown {connector} options {sorted(opts)}")
         src = SourceDef(stmt.name, schemas[table], args)
         self.catalog.sources[stmt.name] = src
         return src

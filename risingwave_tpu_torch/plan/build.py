@@ -15,8 +15,8 @@ vnode bitmaps, merge executors), remote and cluster placement
 mesh-chain fusion, memory and stats registration, and the builders of
 node kinds the port cannot plan yet (hop_window, hash_agg and the other
 aggregates, filter, joins other than sorted, top-N, over-window,
-stream_scan, dedup, snapshot join-agg); sinks other than
-`blackhole_device`; connectors other than `nexmark`.
+stream_scan, dedup); durable snapshot join-agg state; sinks other than
+`blackhole_device`; connectors other than `nexmark` and `tpch`.
 """
 
 from __future__ import annotations
@@ -32,8 +32,8 @@ from ..state.store import StateStore
 from ..stream import (
     Actor, BroadcastDispatcher, Channel, ChannelInput,
     DeviceBlackholeSinkExecutor, MaterializeExecutor, NoOpExecutor,
-    ProjectExecutor, RowIdGenExecutor, SimpleDispatcher, SortedJoinExecutor,
-    SourceExecutor,
+    ProjectExecutor, RowIdGenExecutor, SimpleDispatcher,
+    SnapshotJoinAggExecutor, SortedJoinExecutor, SourceExecutor,
 )
 from ..stream.executor import Executor
 from .graph import Exchange, Fragment, Node, StreamGraph
@@ -244,7 +244,8 @@ def _dispatcher_for(graph, f, cons, channels):
 @register_builder("nexmark_source")
 def _build_source(args, inputs, ctx: ActorCtx, key):
     from ..connectors.nexmark import NexmarkConfig, NexmarkGenerator
-    if args.get("connector", "nexmark") != "nexmark":
+    from ..connectors.tpch import TpchGenerator
+    if args.get("connector", "nexmark") not in ("nexmark", "tpch"):
         raise NotImplementedError(
             f"connector {args.get('connector')!r} is not ported yet "
             "(ROADMAP A9)")
@@ -260,11 +261,16 @@ def _build_source(args, inputs, ctx: ActorCtx, key):
             ctx.table_id(key),
             Schema((SchemaField("split_id", DataType.INT64),
                     SchemaField("offset", DataType.INT64))), (0,))
-    cfg = (NexmarkConfig(**args["cfg"]) if args.get("cfg")
-           else NexmarkConfig())
-    gen = NexmarkGenerator(args["table"],
-                           chunk_size=args.get("chunk_size", 8192), cfg=cfg,
-                           device=ctx.env.device)
+    if args.get("connector") == "tpch":
+        gen = TpchGenerator(args["table"],
+                            chunk_size=args.get("chunk_size", 8192),
+                            device=ctx.env.device)
+    else:
+        cfg = (NexmarkConfig(**args["cfg"]) if args.get("cfg")
+               else NexmarkConfig())
+        gen = NexmarkGenerator(args["table"],
+                               chunk_size=args.get("chunk_size", 8192),
+                               cfg=cfg, device=ctx.env.device)
     return SourceExecutor(
         ctx.actor_id, gen, barrier_q, state_table=st,
         emit_watermarks=args.get("emit_watermarks", False),
@@ -311,6 +317,29 @@ def _build_sorted_join(args, inputs, ctx: ActorCtx, key):
                                             (None, None))),
         clean_specs=(tuple(args["clean_specs"])
                      if args.get("clean_specs") is not None else None),
+        watchdog_interval=args.get("watchdog_interval", 1),
+        device=ctx.env.device)
+
+
+@register_builder("snapshot_join_agg")
+def _build_snapshot_join_agg(args, inputs, ctx: ActorCtx, key):
+    if args.get("durable"):
+        raise NotImplementedError(
+            "durable snapshot join-agg state is not ported yet (ROADMAP "
+            "A10)")
+    return SnapshotJoinAggExecutor(
+        inputs[0], inputs[1],
+        fact_key=args["fact_key"], dim_key=args["dim_key"],
+        sub_agg_calls=args["sub_agg_calls"],
+        sub_items=args["sub_items"], residue=args["residue"],
+        final_agg_calls=args["final_agg_calls"],
+        final_items=args["final_items"],
+        out_names=args["out_names"], out_types=args["out_types"],
+        fact_filter=args.get("fact_filter"),
+        sub_filter=args.get("sub_filter"),
+        dim_filter=args.get("dim_filter"),
+        capacity=args.get("capacity", 1 << 17),
+        dim_capacity=args.get("dim_capacity", 1 << 14),
         watchdog_interval=args.get("watchdog_interval", 1),
         device=ctx.env.device)
 
@@ -416,6 +445,9 @@ def infer_fragment_schemas(graph: StreamGraph,
             on_node(n, ins)
         k, a = n.kind, n.args
         if k == "nexmark_source":
+            if a.get("connector") == "tpch":
+                from ..connectors.tpch import TPCH_SCHEMAS
+                return TPCH_SCHEMAS[a["table"]]
             from ..connectors.nexmark import (AUCTION_SCHEMA, BID_SCHEMA,
                                               PERSON_SCHEMA)
             return {"bid": BID_SCHEMA, "person": PERSON_SCHEMA,
@@ -436,6 +468,9 @@ def infer_fragment_schemas(graph: StreamGraph,
             if oi is not None:
                 fields = tuple(fields[i] for i in oi)
             return Schema(fields)
+        if k == "snapshot_join_agg":
+            return Schema(tuple(SchemaField(nm, t) for nm, t in
+                                zip(a["out_names"], a["out_types"])))
         raise NotImplementedError(
             f"no schema rule for node kind {k!r} (ROADMAP A9)")
 

@@ -12,6 +12,7 @@ from .misc import NoOpExecutor
 from .project import ProjectExecutor
 from .row_id import RowIdGenExecutor
 from .sink import DeviceBlackholeSinkExecutor
+from .snapshot_join_agg import SnapshotJoinAggExecutor
 from .sorted_join import SortedJoinExecutor
 from .source import SourceExecutor
 
@@ -21,5 +22,5 @@ __all__ = ["Actor", "barrier_align", "BroadcastDispatcher", "Channel",
            "ConflictBehavior", "MaterializeExecutor", "Barrier",
            "BarrierKind", "StopMutation", "Watermark", "NoOpExecutor",
            "ProjectExecutor", "RowIdGenExecutor",
-           "DeviceBlackholeSinkExecutor", "SortedJoinExecutor",
-           "SourceExecutor"]
+           "DeviceBlackholeSinkExecutor", "SnapshotJoinAggExecutor",
+           "SortedJoinExecutor", "SourceExecutor"]

@@ -39,7 +39,8 @@ def _port():
 
 def _inputs(seed=0):
     """(arrays, valids): a int64, b int64, c int32, d int32, f float64,
-    p bool, q bool, ts timestamp, ts2 timestamp."""
+    p bool, q bool, ts timestamp, ts2 timestamp, z int64 (small, with
+    zeros)."""
     rng = np.random.default_rng(seed)
     a = rng.integers(-10**6, 10**6, N)
     b = rng.integers(-10**6, 10**6, N)
@@ -55,19 +56,32 @@ def _inputs(seed=0):
     arrays = [a, b, c, d, f, p, q, ts, ts2]
     valids = [rng.random(N) < 0.8 if i in (0, 2, 4, 5, 6, 7) else None
               for i in range(len(arrays))]
+    # divisors: zeros and negatives, some NULL
+    z = rng.integers(-3, 4, N)
+    arrays.append(z)
+    valids.append(rng.random(N) < 0.9)
     return arrays, valids
 
 
 TYPES = ["INT64", "INT64", "INT32", "INT32", "FLOAT64", "BOOLEAN",
-         "BOOLEAN", "TIMESTAMP", "TIMESTAMP"]
+         "BOOLEAN", "TIMESTAMP", "TIMESTAMP", "INT64"]
 
 
 def _exprs(call, col, lit, DT, FC):
     """The same expression list in either package."""
     a, b, c, d = (col(i, getattr(DT, TYPES[i])) for i in range(4))
     f, p, q, ts, ts2 = (col(i, getattr(DT, TYPES[i])) for i in range(4, 9))
+    z = col(9, DT.INT64)
     W = 10_000_000
     return [
+        # divide: int floor (negative operands, zero -> NULL), int32
+        # wrapping, int/float promotion, NULL inputs, q17's avg and
+        # `sum / 7.0`, an explicitly float-typed division of ints
+        call("divide", a, z), call("divide", c, d),
+        call("divide", c, lit(-7)), call("divide", f, z),
+        call("divide", a, lit(7.0)), call("divide", a, lit(None)),
+        call("multiply", lit(0.2), call("divide", f, a)),
+        FC("divide", (a, z), DT.FLOAT64), call("divide", z, lit(0)),
         call("add", a, b), call("subtract", a, b), call("multiply", a, b),
         call("add", c, d), call("multiply", c, d), call("subtract", c, d),
         call("add", a, f), call("multiply", a, lit(0.908)),
@@ -214,6 +228,16 @@ def _emulate(prog, columns, n, mask=None):
                 elif op == P.OR:
                     r = a | b
                     rv = (va & (a != 0)) | (vb & (b != 0)) | (va & vb)
+                elif op == P.DIV_I:
+                    zero = b == 0
+                    r = np.where(zero, 0, np.floor_divide(
+                        a, np.where(zero, 1, b)))
+                    rv = rv & ~zero
+                elif op == P.DIV_F:
+                    zero = f(b) == 0
+                    r = bits(np.where(zero, 0.0, f(a) / np.where(
+                        zero, 1.0, f(b))))
+                    rv = rv & ~zero
                 elif op == P.TSTART:
                     r = a - np.remainder(a, b)
                 else:

@@ -1,14 +1,17 @@
 """The port's SQL frontend against the JAX package's: the parser gives
 the same AST for bench.py's DDL, the planner gives the same fragments,
 node kinds and executor arguments for bench_q8's statements and for
-tests/test_wm_derivation.py's q8 view, what the port cannot plan yet
-raises BindError, and chip_smoke.py's q8 statements are bench.py's.
+tests/test_wm_derivation.py's q8 view, for bench_q17's statements and
+tests/test_tpch_q17.py's view (the fused snapshot join-agg), what the
+port cannot plan yet raises BindError, and chip_smoke.py's q8 and q17
+statements are bench.py's.
 
 bench.py is read as source (its DDL lists evaluated from the syntax
 tree), never imported."""
 
 import ast
 import asyncio
+import enum
 import pathlib
 
 import pytest
@@ -48,8 +51,49 @@ def bench_ddl(func: str, **names) -> list:
     return eval(code, {"W": W, **names})
 
 
+def bench_q17_ddl() -> list:
+    """bench_q17's statement list (the `for stmt in [...]` loop), with
+    the function's own CS."""
+    tree = ast.parse((ROOT / "bench.py").read_text())
+    fn = next(n for n in tree.body if isinstance(
+        n, ast.AsyncFunctionDef) and n.name == "bench_q17")
+    names = {n.targets[0].id: ast.literal_eval(n.value)
+             for n in fn.body if isinstance(n, ast.Assign)
+             and isinstance(n.targets[0], ast.Name)
+             and isinstance(n.value, ast.Constant)}
+    loop = next(n for n in ast.walk(fn) if isinstance(n, ast.For)
+                and isinstance(n.iter, ast.List))
+    code = compile(ast.Expression(loop.iter), "bench.py", "eval")
+    return eval(code, {"W": W, **names})
+
+
+def bench_q17_other_statements() -> list:
+    """The string constants bench_q17 executes outside that list."""
+    tree = ast.parse((ROOT / "bench.py").read_text())
+    fn = next(n for n in tree.body if isinstance(
+        n, ast.AsyncFunctionDef) and n.name == "bench_q17")
+    return [n.args[0].value for n in ast.walk(fn)
+            if isinstance(n, ast.Call) and getattr(n.func, "attr", "")
+            == "execute" and n.args and isinstance(n.args[0], ast.Constant)]
+
+
+# tests/test_tpch_q17.py's view, over bench_q17's sources
+Q17_MV = (
+    "CREATE MATERIALIZED VIEW q17 AS "
+    "SELECT sum(L.l_extendedprice) / 7.0 AS avg_yearly "
+    "FROM lineitem L "
+    "JOIN part P ON P.p_partkey = L.l_partkey "
+    "JOIN (SELECT l_partkey AS agg_partkey, "
+    "             0.2 * avg(l_quantity) AS avg_quantity "
+    "      FROM lineitem GROUP BY l_partkey) A "
+    "  ON A.agg_partkey = L.l_partkey "
+    " AND L.l_quantity < A.avg_quantity "
+    "WHERE P.p_brand = 'Brand#23' AND P.p_container = 'MED BOX'")
+
+
 BENCH_DDL = {
     "q1": lambda: bench_ddl("bench_q1"),
+    "q17": bench_q17_ddl,
     "q5": lambda: bench_ddl("_q5_ddl", cs=131072),
     "q5_mesh": lambda: bench_ddl("_q5_ddl", cs=32768),
     "q7": lambda: bench_ddl("_q7_ddl", cs=131072),
@@ -82,7 +126,13 @@ def test_parse_gives_jax_ast(query):
 
 def _value_sig(v):
     """Comparable form of a node argument: expressions by their repr,
-    watermark transforms by kind and window."""
+    aggregate calls by their fields, enums by value, watermark
+    transforms by kind and window."""
+    if isinstance(v, enum.Enum):
+        return v.value
+    if hasattr(v, "kind") and hasattr(v, "append_only"):
+        return ("agg", v.kind.value, v.arg, v.ret_type.value,
+                v.append_only)
     if isinstance(v, dict):
         return {k: _value_sig(x) for k, x in v.items()}
     if isinstance(v, (list, tuple)):
@@ -142,10 +192,11 @@ def _plans(ddl):
     return asyncio.run(jax_plan()), asyncio.run(port_plan())
 
 
-@pytest.mark.parametrize("query", ["q8", "q8_mv", "q1"])
+@pytest.mark.parametrize("query", ["q8", "q8_mv", "q1", "q17", "q17_mv"])
 def test_planner_gives_jax_fragments_and_arguments(query):
     ddl = {"q8": BENCH_DDL["q8"], "q8_mv": lambda: WM_Q8_DDL,
-           "q1": BENCH_DDL["q1"]}[query]()
+           "q1": BENCH_DDL["q1"], "q17": BENCH_DDL["q17"],
+           "q17_mv": lambda: BENCH_DDL["q17"]()[:-1] + [Q17_MV]}[query]()
     jp, pp = _plans(ddl)
     js = _graph_sig(jp.graph, JExchange, strip=JAX_ONLY_ARGS)
     ps = _graph_sig(pp.graph, PExchange)
@@ -172,6 +223,25 @@ def test_planner_gives_jax_fragments_and_arguments(query):
         # min(2, mf) slots a row; the view's keyless sources get row ids
         assert a["match_factors"] == ((2, 2) if query == "q8" else (16, 16))
         assert a["durable"] is False
+    if query.startswith("q17"):
+        # one fused executor fed by the two tpch sources (through their
+        # no_op fragments), as JAX's binder lowers it
+        kinds = {f.fid: f.root.kind for f in pp.graph.fragments.values()}
+        fused = [f for f in pp.graph.fragments.values()
+                 if (f.root.kind == "snapshot_join_agg"
+                     or f.root.inputs and getattr(f.root.inputs[0], "kind",
+                                                  None)
+                     == "snapshot_join_agg")]
+        assert len(fused) == 1 and "sorted_join" not in kinds.values()
+        node = fused[0].root
+        if node.kind != "snapshot_join_agg":
+            node = node.inputs[0]
+        a = node.args
+        assert (a["fact_key"], a["dim_key"]) == (1, 0)
+        assert [c.kind.value for c in a["sub_agg_calls"]] == ["sum", "count"]
+        assert repr(a["residue"]) == "less_than($2, $4)"
+        assert a["capacity"] == 1 << 20 and a["dim_capacity"] == 1 << 16
+        assert a["watchdog_interval"] is None and a["durable"] is False
 
 
 @pytest.mark.parametrize("sql", [
@@ -213,9 +283,12 @@ def test_durable_state_and_batch_select_raise():
             await s.execute("SET streaming_durability = 1")
         with pytest.raises(BindError, match="not ported yet"):
             await s.execute("SELECT * FROM bid")
+        # bench_q17's stuck-barrier watchdog setting (ROADMAP A5): refused,
+        # never accepted as a no-op
         with pytest.raises(BindError, match="unknown session variable"):
-            await s.execute("SET streaming_agg_capacity = 64")
+            await s.execute("SET barrier_stall_threshold_ms = 15000")
         assert await s.execute("SET streaming_durability = 0") == 0
+        assert await s.execute("SET streaming_agg_capacity = 64") == 64
     asyncio.run(go())
 
 
@@ -226,6 +299,45 @@ def test_chip_smoke_q8_statements_are_bench_q8s():
     assert f"chunk_size={chip_smoke.Q8_PERSON_CHUNK}," in chip_smoke.Q8_DDL[4]
     assert f"chunk_size={chip_smoke.Q8_AUCTION_CHUNK}," in \
         chip_smoke.Q8_DDL[5]
+
+
+def test_chip_smoke_q17_statements_are_bench_q17s():
+    """chip_smoke drives bench_q17's list verbatim; the one statement
+    bench_q17 runs outside it sets the JAX coordinator's stuck-barrier
+    watchdog, which the port leaves out (and refuses)."""
+    assert chip_smoke.Q17_DDL == BENCH_DDL["q17"]()
+    assert chip_smoke.q17_ddl() == chip_smoke.Q17_DDL
+    assert bench_q17_other_statements() == [
+        "SET barrier_stall_threshold_ms = 15000"]
+    assert chip_smoke.Q17_CS == 8192 and chip_smoke.Q17_QUOTA_CHUNKS == 64
+
+
+@pytest.mark.parametrize("case", ["fuse_off", "no_dim_pk", "no_group_by",
+                                  "left_join"])
+def test_declined_q17_fusion_raises(case):
+    """Where the snapshot join-agg fusion declines, JAX plans a changelog
+    join cascade, which the port has not: it raises BindError."""
+    ddl = BENCH_DDL["q17"]()
+    last = ddl[-1]
+    if case == "fuse_off":
+        ddl.insert(-1, "SET streaming_snapshot_fuse = 0")
+    elif case == "no_dim_pk":
+        ddl[4] = ddl[4].replace(", primary_key='p_partkey'", "")
+    elif case == "no_group_by":
+        last = last.replace(" FROM lineitem GROUP BY l_partkey",
+                            " FROM lineitem")
+    else:
+        last = last.replace("JOIN part P", "LEFT JOIN part P")
+    ddl[-1] = last
+
+    async def go():
+        s = PortSession(device="cpu")
+        for stmt in ddl[:-1]:
+            await s.execute(stmt)
+        with pytest.raises(BindError, match="not ported yet"):
+            await s.execute(ddl[-1])
+        assert not s.catalog.sinks
+    asyncio.run(go())
 
 
 def test_q1_statements_run_through_the_session():
@@ -250,7 +362,7 @@ def test_q1_statements_run_through_the_session():
                    ("price", "float64"), ("date_time", "timestamp")]
 
 
-@pytest.mark.parametrize("query", ["q8", "q8_mv"])
+@pytest.mark.parametrize("query", ["q8", "q8_mv", "q17"])
 def test_plan_ids_and_schemas_match_jax(query):
     """The deterministic actor/table ids and the planner-level fragment
     schemas of a plan agree with the JAX package's."""
@@ -258,7 +370,8 @@ def test_plan_ids_and_schemas_match_jax(query):
         assign_graph_ids as jax_ids, infer_fragment_schemas as jax_schemas)
     from risingwave_tpu_torch.plan.build import (
         assign_graph_ids, infer_fragment_schemas)
-    ddl = BENCH_DDL["q8"]() if query == "q8" else WM_Q8_DDL
+    ddl = {"q8": BENCH_DDL["q8"], "q8_mv": lambda: WM_Q8_DDL,
+           "q17": BENCH_DDL["q17"]}[query]()
     jp, pp = _plans(ddl)
     assert assign_graph_ids(pp.graph, 10, 100) == jax_ids(jp.graph, 10, 100)
 

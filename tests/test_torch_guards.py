@@ -44,6 +44,8 @@ MODULES = [
     "risingwave_tpu_torch.frontend.binder",
     "risingwave_tpu_torch.frontend.session", "risingwave_tpu_torch.plan",
     "risingwave_tpu_torch.plan.graph", "risingwave_tpu_torch.plan.build",
+    "risingwave_tpu_torch.connectors.tpch",
+    "risingwave_tpu_torch.stream.snapshot_join_agg",
 ]
 
 
@@ -92,17 +94,21 @@ def test_port_sources_name_no_jax_import():
 
 def _entry_points():
     from risingwave_tpu_torch.connectors.nexmark import NexmarkGenerator
+    from risingwave_tpu_torch.connectors.tpch import TpchGenerator
     from risingwave_tpu_torch.device import resolve_device
     from risingwave_tpu_torch.frontend import Session
     from risingwave_tpu_torch.interop import (
         agg_state_from_numpy, chunk_from_numpy, hash_table_from_numpy,
         sorted_side_from_numpy)
     from risingwave_tpu_torch.stream.hash_agg import HashAggExecutor
+    from risingwave_tpu_torch.stream.snapshot_join_agg import (
+        SnapshotJoinAggExecutor)
     from risingwave_tpu_torch.stream.sorted_join import SortedJoinExecutor
     return [NexmarkGenerator.__init__, HashAggExecutor.__init__,
             SortedJoinExecutor.__init__, resolve_device, chunk_from_numpy,
             hash_table_from_numpy, agg_state_from_numpy,
-            sorted_side_from_numpy, Session.__init__]
+            sorted_side_from_numpy, Session.__init__,
+            TpchGenerator.__init__, SnapshotJoinAggExecutor.__init__]
 
 
 def test_entry_points_default_to_cuda():
@@ -114,13 +120,17 @@ def test_cuda_without_a_card_raises():
     from risingwave_tpu_torch.common import DataType
     from risingwave_tpu_torch.common import schema as make_schema
     from risingwave_tpu_torch.connectors import nexmark as nx
+    from risingwave_tpu_torch.connectors import tpch
     from risingwave_tpu_torch.connectors.nexmark import NexmarkGenerator
+    from risingwave_tpu_torch.expr import lit
     from risingwave_tpu_torch.expr.agg import count_star
     from risingwave_tpu_torch.frontend import Session
     from risingwave_tpu_torch.interop import (
         agg_state_from_numpy, chunk_from_numpy, hash_table_from_numpy,
         sorted_side_from_numpy)
     from risingwave_tpu_torch.stream.hash_agg import HashAggExecutor
+    from risingwave_tpu_torch.stream.snapshot_join_agg import (
+        SnapshotJoinAggExecutor)
     from risingwave_tpu_torch.stream.sorted_join import SortedJoinExecutor
 
     class _In:
@@ -155,6 +165,12 @@ def test_cuda_without_a_card_raises():
                                       card_vocabs(), "cuda")[0].device,
         lambda: nx.gen_auction_columns(0, 8, nx.NexmarkConfig(),
                                        card_vocabs(), "cuda")[0].device,
+        lambda: tpch.TpchGenerator("lineitem", chunk_size=64).device,
+        lambda: SnapshotJoinAggExecutor(
+            _In(), _In(), fact_key=0, dim_key=0, sub_agg_calls=[],
+            sub_items=[], residue=None, final_agg_calls=[count_star(True)],
+            final_items=[lit(1)], out_names=["n"],
+            out_types=[DataType.INT64], capacity=64).device,
     ]
     for build in builders:
         if torch.cuda.is_available():
@@ -171,7 +187,8 @@ def test_every_kernel_is_registered_with_its_source():
     assert names == ["compact", "expr_eval", "hash_agg", "hash_table",
                      "hop_window", "nexmark_auction", "nexmark_bid",
                      "nexmark_person", "radix_sort", "row_id",
-                     "sorted_join_merge", "sorted_join_probe"]
+                     "segment_agg", "snapshot_append", "snapshot_final",
+                     "sorted_join_merge", "sorted_join_probe", "tpch"]
     for k in kernels.KERNELS.values():
         assert k.source.exists()
         src = k.source.read_text()
@@ -186,7 +203,10 @@ def test_wrappers_refuse_other_devices():
     from risingwave_tpu_torch.common.chunk import Column
     from risingwave_tpu_torch.expr import ExprProgram, call, col, lit
     from risingwave_tpu_torch.ops import hash_table as ht
+    from risingwave_tpu_torch.connectors import tpch
+    from risingwave_tpu_torch.expr.agg import count_star
     from risingwave_tpu_torch.stream import row_id, sorted_join as sj
+    from risingwave_tpu_torch.stream import snapshot_join_agg as sja
     t = ht.HashTable.empty(32, [torch.int64], "meta")
     with pytest.raises(ValueError, match="unsupported device"):
         ht.lookup_or_insert(t, [torch.zeros(4, dtype=torch.int64,
@@ -207,6 +227,15 @@ def test_wrappers_refuse_other_devices():
                          [Column(i64)], 8, errs),
         lambda: sj.merge(side, i64, i64, errs[0], [Column(i64)], None,
                          None, 8, (0,), None, 0, errs, side),
+        lambda: tpch.gen_tpch_columns("part", 0, 4, i64, i64, "meta"),
+        lambda: sja.append_rows([i64.clone()], [None], errs[0], errs, [i64],
+                                [None], b, i64.to(torch.int8)),
+        lambda: sja.sort_keys(i64, None, errs[0]),
+        lambda: sja.take_rows([i64], [None], i64),
+        lambda: sja.segment_reduce(i64, i64, errs[0], None, [], [], []),
+        lambda: sja.final_reduce(i64, i64, errs[0], i64, errs[0], None,
+                                 errs, [], [count_star(True)], [], []),
+        lambda: sja.final_diff([Column(i64[:1])], [i64[0]], [b[0]], b[0]),
     ]
     for refuse in refusals:
         with pytest.raises(ValueError, match="unsupported device"):
