@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--host-profile]
 
 Drives the port (`risingwave_tpu_torch`, never the JAX package) through
-three Nexmark paths and holds every hand-written kernel against its
+its Nexmark and TPC-H paths and holds every hand-written kernel against its
 plain PyTorch version on the card:
   q5 — bid source -> HOP(2 s, 10 s) -> count(*) GROUP BY (auction,
        window_start) with watermark state cleaning;
@@ -18,7 +18,11 @@ plain PyTorch version on the card:
   q17 — bench.py's bench_q17 statements, verbatim, through the Session:
        TPC-H lineitem x part x (0.2 * avg(l_quantity) per part), a global
        sum, lowered to the fused snapshot join-agg executor;
-  q1 — bench.py's bench_q1 statements through the Session.
+  q1 — bench.py's bench_q1 statements through the Session;
+  q7d — bench.py's bench_q7d statements, verbatim, through the Session
+       on a Hummock store over a local-fs object store (durable state,
+       two checkpoints in flight), and bench_q7_kill's as an MV with a
+       crash and a recovery.
 Phases, one JSON line each:
 
   1. device: the card, torch/CUDA versions, the kernels' build time;
@@ -43,9 +47,32 @@ Phases, one JSON line each:
      cleaning causes (q7_delete_misses, which the CPU tests hold against
      the JAX executor); bids/s, barrier latency, peak memory; then a
      short profiled q7 run for the idle share;
-  6. q7_check: the same wiring and capacities at one barrier per
-     32768-bid chunk into a device sink that keeps the output rows; its
-     net output must equal a numpy recount and every error counter 0;
+  6. q7_check: bench's _q7_ddl() statements through
+     Session(device="cuda") at one barrier per 32768-bid chunk into a
+     device sink that keeps the output rows; its net output must equal
+     the hand wiring's at the same geometry and a numpy recount, every
+     error counter 0;
+  6a. kernels_q7d: K17 (the join's snapshot diff) and K18 (the agg's
+     persist view and eviction keys) against their plain versions,
+     exactly, on the state a bench_q7d run holds (both join sides at
+     2^18 slots against their snapshots from the barrier before, the
+     2^13-slot agg) and on edge cases (an empty diff, every row changed,
+     duplicate identical rows, NULL lanes, a float64 column, a full
+     store, an eviction with nothing below the watermark);
+  6b. q7d_full: bench_q7d's statements, verbatim, on a Hummock store
+     over a local-fs object store in a temporary directory, 8 chunks of
+     32768 bids a barrier, 8 barriers, five runs: committed epochs
+     strictly increasing and drained, join errs [0, m, 0] with m =
+     q7_delete_misses; bids/s, barrier p50/max, upload_overlap_pct, rows
+     and bytes fetched per checkpoint, peak memory; alternating with the
+     same statements at streaming_durability = 0 over a
+     MemoryStateStore: the flush tax is the durable wall over the
+     volatile one, within this call;
+  6c. q7d_recover: bench_q7_kill's statements (an MV), one 8192-bid
+     chunk a barrier: 30 barriers, crash(), HummockStateStore.open, a
+     new Session, recover() (recovery_ms: from the store's opening to
+     the first collected barrier), barriers to 491520 bids; the MV must equal an
+     uninterrupted durable run's and the numpy recount;
   7. kernels_q8: K9-K12 against their plain versions at q8's shapes
      (98304-row person and 294912-row auction chunks; the join's hash
      sorts; a 16384-row netting lexsort; K12 over q5's 2^20 slots);
@@ -81,7 +108,7 @@ Phases, one JSON line each:
      numpy recount;
  13. the kernels line: launches on the first run of each kernel's own
      slice's path (q5 for K1-K4 and K12, q7 for K5-K8, q8 for K9-K11,
-     q17 for K13-K16), error, times, bounds.
+     q17 for K13-K16, q7d for K17-K18), error, times, bounds.
 With --host-profile, phase 4 also runs q5 under cProfile and lists the
 host functions with the most own time.
 The last line is {"ok": true, "device": {...}}. Any failed phase exits
@@ -97,6 +124,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter
 
@@ -108,9 +136,10 @@ from risingwave_tpu_torch.common.types import DataType
 from risingwave_tpu_torch.connectors import tpch
 from risingwave_tpu_torch.connectors.tpch import TpchGenerator
 from risingwave_tpu_torch.connectors.nexmark import (
-    NexmarkConfig, NexmarkGenerator, gen_auction_columns,
-    gen_auction_columns_plain, gen_bid_columns, gen_bid_columns_plain,
-    gen_person_columns, gen_person_columns_plain, vocab_ids,
+    BID_PROPORTION, TOTAL_PROPORTION, NexmarkConfig, NexmarkGenerator,
+    gen_auction_columns, gen_auction_columns_plain, gen_bid_columns,
+    gen_bid_columns_plain, gen_person_columns, gen_person_columns_plain,
+    vocab_ids,
 )
 from risingwave_tpu_torch.expr import ExprProgram, FuncCall, call, col, lit
 from risingwave_tpu_torch.expr.agg import (
@@ -129,7 +158,9 @@ from risingwave_tpu_torch.ops.sort import (
     stable_lexsort, stable_sort, stable_sort_plain,
 )
 from risingwave_tpu_torch.plan.graph import Exchange
-from risingwave_tpu_torch.state import MemoryStateStore, StateTable
+from risingwave_tpu_torch.state import (
+    HummockStateStore, LocalFsObjectStore, MemoryStateStore, StateTable,
+)
 from risingwave_tpu_torch.stream import (
     Actor, BroadcastDispatcher, Channel, ChannelInput,
     DeviceBlackholeSinkExecutor, Executor, HashAggExecutor,
@@ -139,17 +170,18 @@ from risingwave_tpu_torch.stream import (
 )
 from risingwave_tpu_torch.stream import snapshot_join_agg as sja
 from risingwave_tpu_torch.stream.hash_agg import (
-    AggState, agg_apply, agg_apply_plain,
+    AggState, agg_apply, agg_apply_plain, persist_pack, persist_pack_plain,
 )
 from risingwave_tpu_torch.stream.hop_window import (
     hop_expand, hop_expand_plain,
 )
 from risingwave_tpu_torch.stream.row_id import row_ids, row_ids_plain
 from risingwave_tpu_torch.stream.sorted_join import (
-    HSENTINEL, NO_WATERMARK, SortedSideState, _Buffers, empty_sorted_side,
-    key_hash, merge, merge_plain, net_pk_runs, probe, probe_plain,
-    store_from_rows,
+    HSENTINEL, NO_WATERMARK, SortedSideState, _Buffers, copy_side,
+    empty_sorted_side, key_hash, merge, merge_plain, net_pk_runs,
+    pack_diff_plain, probe, probe_plain, snapshot_diff, store_from_rows,
 )
+from risingwave_tpu_torch.utils import d2h
 from risingwave_tpu_torch.stream.message import BarrierKind
 
 SLIDE_US = 2_000_000
@@ -465,14 +497,41 @@ def _bid_prefix(n_bids: int, cfg: NexmarkConfig, device, idx,
 
 def q7_delete_misses(n_bids: int, per_barrier: int, cfg: NexmarkConfig,
                      device) -> int:
-    """The delete misses q7 must count when a barrier spans more event
-    time than the watermark lag (bench.py's geometry): a window whose
-    bids straddle a barrier is flushed by the agg at the first barrier,
-    and its max row is evicted from the join's right side during the
-    next epoch, before the agg's U-/U+ for it arrives at the second
-    barrier. So each straddling window whose max rises after the
-    barrier is one miss. (At one such barrier a chunk this is what the
-    JAX executor counts; tests/test_torch_q7_pipeline.py holds both.)"""
+    """The delete misses q7's join counts over bids [0, n_bids) with a
+    barrier every `per_barrier` bids. A window whose bids straddle a
+    barrier is flushed by the agg at that barrier; when the join's clean
+    bound (the left input's watermark, the epoch's last bid time minus
+    the lag) passes the window's end before the agg's update for it
+    arrives at the next barrier, the window's max row is evicted and the
+    update's delete misses. So each straddling window whose max rises
+    after the barrier is one miss, provided the join has read enough of
+    the left input when the update arrives. It takes one message from
+    each input in turn: when it is a whole epoch behind, it applies the
+    update having read the left watermarks of only the first half of the
+    epoch's chunks. The count is therefore exact when half a barrier
+    spans more event time than the lag plus the window (60 s at q7's
+    W = 10 s, lag 20 s), and 0 when a barrier spans less than the lag
+    minus the window; in between it depends on how far the join is
+    behind, and this raises. (tests/test_torch_q7_pipeline.py holds the
+    count against the JAX executor at 8 chunks a barrier;
+    tests/test_torch_durable.py shows the port's durable and volatile
+    sessions and JAX's counting fewer misses at 4.)"""
+    span = per_barrier * cfg.inter_event_us * TOTAL_PROPORTION \
+        // BID_PROPORTION                    # bids are 46 of 50 events
+    if span < Q7_LAG_US - Q7_W:
+        # the clean bound never passes a window's end before its update
+        return 0
+    if span <= 2 * (Q7_LAG_US + Q7_W):
+        raise ValueError(f"q7 misses at a {span / 1e6} s barrier depend on "
+                         "how far the join is behind")
+    return q7_rising_straddles(n_bids, per_barrier, cfg, device)
+
+
+def q7_rising_straddles(n_bids: int, per_barrier: int, cfg: NexmarkConfig,
+                        device) -> int:
+    """The windows whose bids straddle a barrier (one every `per_barrier`
+    bids) and whose max price rises after it: the most delete misses q7
+    can count at that pacing."""
     price, ts = _bid_prefix(n_bids, cfg, device, (2, 5))
     end = ts - ts % Q7_W + Q7_W               # monotone in the bid index
     misses = 0
@@ -1350,37 +1409,6 @@ def phase_q7_profile(dev, full: dict, rounds: int = 3) -> dict:
         device_events=len(kev),
         top_kernels=[{"name": nm, "ms": t / 1e3, "count": c}
                      for nm, (t, c) in top])
-
-
-def phase_q7_check(dev, chunk: int = 32768, rounds: int = 40) -> dict:
-    """The correctness gate: q7 with the planner's wiring, full
-    capacities and inter_event_us=250, one barrier per chunk of `chunk`
-    bids (8.2 s of event time, under the lag minus the window, so the
-    band cleaning never evicts a bid before its window's max arrives).
-    The device sink's net output must equal the recount; every error
-    counter must be 0."""
-    q7 = build_q7(dev, chunk, 250, chunk, collect=1 << 16)
-    asyncio.run(drive_paced(q7, chunk, rounds))
-    torch.cuda.synchronize()
-    got, dropped = q7["head"].rows()
-    got = Counter({(r[0], r[1], r[2], r[3], r[5]): c for r, c in got.items()})
-    want = q7_recount(q7["gen"].offset, NexmarkConfig(inter_event_us=250),
-                      dev)
-    errs = q7["join"].errs()
-    overflow = q7["agg"].overflow()
-    if dropped or errs != [0, 0, 0] or overflow:
-        raise AssertionError(f"q7 check: dropped {dropped}, join errs "
-                             f"{errs}, agg overflow {overflow}")
-    if got != want:
-        raise AssertionError(
-            f"q7 output differs from the recount: {sum(got.values())} vs "
-            f"{sum(want.values())} rows, {len(got - want)} extra, "
-            f"{len(want - got)} missing")
-    if len(want) < 10:
-        raise AssertionError("q7 check: too few output rows to mean much")
-    return dict(bids=q7["gen"].offset, barriers=rounds, rows=len(want),
-                output_changes=int(q7["head"].count), join_errs=errs,
-                agg_overflow=overflow)
 
 
 # ------------------------------------------------------------ q8 (SQL)
@@ -2846,7 +2874,8 @@ KERNEL_PATH = {"nexmark_bid": "q5", "hop_window": "q5", "hash_table": "q5",
                "sorted_join_merge": "q7", "nexmark_person": "q8",
                "nexmark_auction": "q8", "radix_sort": "q8", "tpch": "q17",
                "snapshot_append": "q17", "segment_agg": "q17",
-               "snapshot_final": "q17"}
+               "snapshot_final": "q17", "snapshot_diff": "q7d",
+               "persist_view": "q7d"}
 
 
 def phase_q5_full(dev, repeats: int = 5) -> dict:
@@ -2963,6 +2992,583 @@ def phase_q5_mv(dev) -> dict:
     return dict(groups=len(got), bids=q5["gen"].offset)
 
 
+# ------------------------------------------------- q7 and q7d (SQL)
+
+# bench.py's _q7_ddl() statements, verbatim (cs = 131072)
+Q7_DDL = [
+    "SET streaming_durability = 0",
+    "SET streaming_watchdog = 0",
+    f"SET streaming_join_capacity = {1 << 19}",
+    "SET streaming_join_match_factor = 2",
+    f"SET streaming_agg_capacity = {1 << 13}",
+    ("CREATE SOURCE bid WITH (connector='nexmark', table='bid', "
+     f"chunk_size=131072, inter_event_us=250, emit_watermarks=1, "
+     f"watermark_lag_us={2 * W})"),
+    ("CREATE SINK q7 AS "
+     "SELECT B.auction, B.price, B.bidder, B.date_time "
+     "FROM bid B JOIN ("
+     "  SELECT max(price) AS maxprice, window_end "
+     f"  FROM TUMBLE(bid, date_time, {W}) GROUP BY window_end) B1 "
+     "ON B.price = B1.maxprice "
+     f"AND B.date_time > B1.window_end - {W} "
+     "AND B.date_time <= B1.window_end "
+     "WITH (connector='blackhole_device')"),
+]
+# bench.py's bench_q7d statements, verbatim: durable q7 as a sink over a
+# Hummock store on a local-fs object store, two checkpoints in flight
+Q7D_DDL = [
+    "SET streaming_durability = 1",
+    "SET streaming_watchdog = 0",
+    "SET checkpoint_max_inflight = 2",
+    f"SET streaming_join_capacity = {1 << 18}",
+    "SET streaming_join_match_factor = 2",
+    f"SET streaming_agg_capacity = {1 << 13}",
+    ("CREATE SOURCE bid WITH (connector='nexmark', table='bid', "
+     f"chunk_size=32768, inter_event_us=250, emit_watermarks=1, "
+     f"watermark_lag_us={2 * W})"),
+    ("CREATE SINK q7 AS "
+     "SELECT B.auction, B.price, B.bidder, B.date_time "
+     "FROM bid B JOIN ("
+     "  SELECT max(price) AS maxprice, window_end "
+     f"  FROM TUMBLE(bid, date_time, {W}) GROUP BY window_end) B1 "
+     "ON B.price = B1.maxprice "
+     f"AND B.date_time > B1.window_end - {W} "
+     "AND B.date_time <= B1.window_end "
+     "WITH (connector='blackhole_device')"),
+]
+# bench.py's bench_q7_kill statement list, verbatim: the same shape as a
+# materialized view, 8192-bid chunks, a 65536-row rate limit
+Q7K_DDL = [
+    "SET streaming_durability = 1",
+    "SET streaming_watchdog = 0",
+    "SET checkpoint_max_inflight = 2",
+    f"SET streaming_join_capacity = {1 << 18}",
+    "SET streaming_join_match_factor = 2",
+    f"SET streaming_agg_capacity = {1 << 13}",
+    ("CREATE SOURCE bid WITH (connector='nexmark', table='bid', "
+     f"chunk_size=8192, inter_event_us=250, emit_watermarks=1, "
+     f"watermark_lag_us={2 * W}, rate_limit=65536)"),
+    ("CREATE MATERIALIZED VIEW q7 AS "
+     "SELECT B.auction, B.price, B.bidder, B.date_time "
+     "FROM bid B JOIN ("
+     "  SELECT max(price) AS maxprice, window_end "
+     f"  FROM TUMBLE(bid, date_time, {W}) GROUP BY window_end) B1 "
+     "ON B.price = B1.maxprice "
+     f"AND B.date_time > B1.window_end - {W} "
+     "AND B.date_time <= B1.window_end"),
+]
+Q7D_CHUNK = 32768
+# 8 chunks a barrier: 262144 bids, 71.2 s of event time, more than twice
+# the lag plus the window, where q7_delete_misses' model is exact
+Q7D_CHUNKS_PER_BARRIER = 8
+Q7D_ROUNDS = 8
+Q7K_CHUNK = 8192               # q7d_recover: one chunk a barrier (2.23 s)
+Q7D_KERNELS = Q7_KERNELS + ("snapshot_diff", "persist_view")
+
+
+def with_chunk(ddl: list, old: int, new: int) -> list:
+    """A statement list with another chunk size (the CPU rehearsals)."""
+    return [st.replace(f"chunk_size={old},", f"chunk_size={new},")
+            for st in ddl]
+
+
+def volatile(ddl: list) -> list:
+    """The same statements with device-resident state only."""
+    return [st.replace("SET streaming_durability = 1",
+                       "SET streaming_durability = 0") for st in ddl]
+
+
+def q7s_run(dev, ddl: list, rounds: int, per_barrier: int, store=None,
+            collect: int = 0, recover_to: int = 0, crash: bool = False,
+            on_flow=None) -> dict:
+    """q7's statements `ddl` through the port's Session on `dev` (over
+    `store`, a MemoryStateStore when None, or a function that opens the
+    store, called on the clock of recovery_ms). The source is throttled to
+    `per_barrier` rows between barriers (a build hook sets its rate
+    limit before it starts) and barriers are paced by rows: barrier k
+    follows the source's offset reaching base + k * per_barrier, for k
+    in 1..rounds (base 0); the last is the Stop barrier, or with `crash`
+    the session crashes there instead. With `recover_to`, the session
+    replays the store's catalog (`recover()`, timed from the store's
+    opening, or the session's construction, to its first collected
+    barrier) instead of running `ddl`, base is the recovered offset and
+    barriers run until the offset `recover_to`. Counts are set to 0 just
+    before the flow starts and read just after the last barrier.
+    `on_flow(session, deployment)` runs once the flow exists."""
+    on_card = torch.device(dev).type == "cuda"
+
+    async def go():
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launch_counts()
+        d2h.STATS.update(fetches=0, bytes=0)
+        held = {}
+
+        def attach(name, dep, fid):
+            for src_ in dep.executors(SourceExecutor):
+                src_.rate_limit = per_barrier
+            if collect:
+                root = dep.roots[fid][0]
+                actor = next(a for a in dep.actors if a.consumer is root)
+                actor.consumer = held["sink"] = DeviceCollectSinkExecutor(
+                    root, collect, dev)
+
+        t_open = time.perf_counter()
+        s = Session(device=dev, store=store() if callable(store) else store)
+        s.build_hooks.append(attach)
+        recovery_s = None
+        if recover_to:
+            await s.recover()
+            if on_card:
+                torch.cuda.synchronize()
+            recovery_s = time.perf_counter() - t_open
+        else:
+            for stmt in ddl:
+                await s.execute(stmt)
+        flows = {**s.catalog.sinks, **s.catalog.mvs}
+        dep = flows["q7"].deployment
+        src = dep.executors(SourceExecutor)[0]
+        gen = src.connector
+        base = 0
+        n_rounds = rounds
+        if recover_to:
+            base = src.state_table.get_row((0,))[1]
+            n_rounds = (recover_to - base) // per_barrier
+        join = dep.executors(SortedJoinExecutor)[0]
+        agg = dep.executors(HashAggExecutor)[0]
+        if on_flow is not None:
+            on_flow(s, dep)
+        coord = s.coord
+
+        def check():
+            for t in dep.tasks:
+                if t.done():
+                    t.result()
+
+        t0 = time.perf_counter()
+        for k in range(1, n_rounds + 1):
+            while gen.offset < base + k * per_barrier:
+                check()
+                await asyncio.sleep(0)
+            if k < n_rounds or crash:
+                b = await coord.inject_barrier()
+                await coord.wait_collected(b)
+            else:
+                await coord.stop_all({a.actor_id for a in dep.actors})
+        wall = time.perf_counter() - t0
+        inflight = coord._inflight
+        if crash:
+            await s.crash()
+        else:
+            await asyncio.gather(*dep.tasks)
+        launches = {k.name: k.launches for k in kernels.KERNELS.values()}
+        if on_card:
+            torch.cuda.synchronize()
+        mv = s.catalog.mvs.get("q7")
+        out = dict(
+            bids=gen.offset, base=base, barriers=n_rounds, wall_s=wall,
+            inflight_at_end=inflight, join=join, agg=agg,
+            sink=held.get("sink"), coord=coord, session=s,
+            launches=launches, recovery_s=recovery_s,
+            mv=(sorted(mv.table.iter_committed()) if mv is not None
+                else None),
+            d2h_fetches=d2h.STATS["fetches"], d2h_bytes=d2h.STATS["bytes"],
+            persist_rows=join.persist_rows + agg.persist_rows,
+            mem_peak_bytes=(torch.cuda.max_memory_allocated(dev)
+                            if on_card else None))
+        s.catalog.sinks.pop("q7", None)
+        s.catalog.mvs.pop("q7", None)
+        return out
+
+    return asyncio.run(go())
+
+
+def mv_counter(rows) -> Counter:
+    """q7 MV rows (auction, price, bidder, date_time, _row_id, window_end)
+    as q7_recount's rows."""
+    return Counter((r[0], r[1], r[2], r[3], r[5]) for r in rows)
+
+
+def q7d_full_run(dev, per_barrier: int, rounds: int, want_misses: int,
+                 chunk: int = Q7D_CHUNK) -> dict:
+    """One bench_q7d run from fresh state on a Hummock store over a
+    local-fs object store in a temporary directory."""
+    with tempfile.TemporaryDirectory(prefix="q7d_") as d:
+        store = HummockStateStore(LocalFsObjectStore(d))
+        r = q7s_run(dev, with_chunk(Q7D_DDL, Q7D_CHUNK, chunk), rounds,
+                    per_barrier, store=store)
+        coord, errs = r["coord"], r["join"].errs()
+        ce = coord.committed_epochs
+        drained = (coord._inflight == 0 and not store._sealed
+                   and not store._shared and not store._deferred)
+        if errs != [0, want_misses, 0] or r["agg"].overflow():
+            raise AssertionError(
+                f"q7d: join errs {errs} (want [0, {want_misses}, 0]), agg "
+                f"overflow {r['agg'].overflow()}")
+        if len(ce) != rounds or any(a >= b for a, b in zip(ce, ce[1:])) \
+                or not drained or store.committed_epoch() != ce[-1]:
+            raise AssertionError(f"q7d: committed epochs {ce} not strictly "
+                                 f"increasing to the end, drained "
+                                 f"{drained}")
+        missing = [k for k in Q7D_KERNELS if r["launches"][k] == 0]
+        if missing and torch.device(dev).type == "cuda":
+            raise AssertionError(f"kernels never launched on q7d: {missing}")
+        phases = coord.upload_phases
+        return dict(
+            bids=r["bids"], wall_s=r["wall_s"],
+            bids_per_s=r["bids"] / r["wall_s"],
+            barrier_p50_s=coord.barrier_latency_percentile(0.5),
+            barrier_max_s=coord.barrier_latency_percentile(1.0),
+            committed_epochs=len(ce), drained=drained,
+            upload_overlap_pct=coord.upload_overlap_pct(),
+            upload_busy_s=coord.upload_busy_ns / 1e9,
+            backpressure_s=coord.backpressure_wait_ns / 1e9,
+            seal_ms_p50=statistics.median(p[0] for p in phases) / 1e6,
+            upload_ms_p50=statistics.median(p[1] for p in phases) / 1e6,
+            commit_ms_p50=statistics.median(p[2] for p in phases) / 1e6,
+            rows_fetched_per_ckpt=r["persist_rows"] / len(ce),
+            bytes_fetched_per_ckpt=r["d2h_bytes"] / len(ce),
+            fetches_per_ckpt=r["d2h_fetches"] / len(ce),
+            sst_bytes=sum(os.path.getsize(os.path.join(dp, f))
+                          for dp, _, fs in os.walk(d) for f in fs),
+            join_errs=errs, mem_peak_bytes=r["mem_peak_bytes"],
+            launches=r["launches"])
+
+
+def phase_q7d_full(dev, repeats: int = 5, chunk: int = Q7D_CHUNK,
+                   per_chunks: int = Q7D_CHUNKS_PER_BARRIER,
+                   rounds: int = Q7D_ROUNDS) -> dict:
+    """bench_q7d's statements verbatim, `repeats` runs, each from fresh
+    state: `per_chunks` 32768-bid chunks a barrier, `rounds` barriers;
+    then the same statements with streaming_durability = 0 over a
+    MemoryStateStore, as many times, alternating, for the flush tax
+    (the durable wall over the volatile wall, within this call)."""
+    per_barrier = per_chunks * chunk
+    want = q7_delete_misses(per_barrier * rounds, per_barrier,
+                            NexmarkConfig(inter_event_us=250), dev)
+    runs, vol = [], []
+    for _ in range(repeats):
+        runs.append(q7d_full_run(dev, per_barrier, rounds, want, chunk))
+        v = q7s_run(dev, volatile(with_chunk(Q7D_DDL, Q7D_CHUNK, chunk)),
+                    rounds, per_barrier)
+        if v["join"].errs() != [0, want, 0]:
+            raise AssertionError(f"volatile q7 at q7d's chunking: join errs "
+                                 f"{v['join'].errs()}")
+        vol.append(dict(wall_s=v["wall_s"],
+                        bids_per_s=v["bids"] / v["wall_s"],
+                        barrier_p50_s=v["coord"].barrier_latency_percentile(
+                            0.5)))
+    first = runs[0]
+    med = statistics.median
+    d_wall = med(r["wall_s"] for r in runs)
+    v_wall = med(v["wall_s"] for v in vol)
+    keys = ("wall_s", "bids_per_s", "barrier_p50_s", "barrier_max_s",
+            "upload_overlap_pct", "rows_fetched_per_ckpt",
+            "bytes_fetched_per_ckpt", "mem_peak_bytes")
+    return dict(
+        chunk=chunk, chunks_per_barrier=per_chunks, barriers=rounds,
+        bids=first["bids"], repeats=repeats, want_delete_misses=want,
+        wall_s=d_wall, bids_per_s=med(r["bids_per_s"] for r in runs),
+        barrier_p50_s=med(r["barrier_p50_s"] for r in runs),
+        barrier_max_s=med(r["barrier_max_s"] for r in runs),
+        volatile_wall_s=v_wall,
+        volatile_bids_per_s=med(v["bids_per_s"] for v in vol),
+        volatile_barrier_p50_s=med(v["barrier_p50_s"] for v in vol),
+        flush_tax=d_wall / v_wall,
+        runs=[{k: r[k] for k in keys} for r in runs], volatile_runs=vol,
+        **{k: first[k] for k in (
+            "committed_epochs", "drained", "upload_overlap_pct",
+            "upload_busy_s", "backpressure_s", "seal_ms_p50",
+            "upload_ms_p50", "commit_ms_p50", "rows_fetched_per_ckpt",
+            "bytes_fetched_per_ckpt", "fetches_per_ckpt", "sst_bytes",
+            "join_errs", "mem_peak_bytes", "launches")})
+
+
+def phase_q7d_recover(dev, r1: int = 30, r2: int = 30,
+                      chunk: int = Q7K_CHUNK) -> dict:
+    """bench_q7_kill's statements (the MV) on a Hummock store, paced at
+    one chunk a barrier (2.23 s of event time, under the lag minus the
+    window, where q7_delete_misses models 0 misses): r1 barriers, then
+    crash() (uploads in flight are abandoned), HummockStateStore.open
+    on the directory, a new Session, recover() (recovery_ms: from the
+    store's opening to the new session's first collected barrier), then barriers from the
+    recovered offset to (r1 + r2) * chunk (r2, plus the epochs the crash
+    dropped), then Stop. The MV must equal an
+    uninterrupted durable run's to the same offset and the numpy
+    recount; the join counts no error in either."""
+    ddl = with_chunk(Q7K_DDL, Q7K_CHUNK, chunk)
+    n = (r1 + r2) * chunk
+    cfg = NexmarkConfig(inter_event_us=250)
+    model = q7_delete_misses(n, chunk, cfg, dev)
+    with tempfile.TemporaryDirectory(prefix="q7k_") as d1, \
+            tempfile.TemporaryDirectory(prefix="q7k_") as d2:
+        whole = q7s_run(dev, ddl, r1 + r2, chunk,
+                        store=HummockStateStore(LocalFsObjectStore(d1)))
+        a = q7s_run(dev, ddl, r1, chunk, crash=True,
+                    store=HummockStateStore(LocalFsObjectStore(d2)))
+        b = q7s_run(dev, ddl, 0, chunk, recover_to=n,
+                    store=lambda: HummockStateStore.open(
+                        LocalFsObjectStore(d2)))
+    want = q7_recount(n, cfg, dev)
+    errs = [whole["join"].errs(), b["join"].errs()]
+    if model != 0 or errs != [[0, 0, 0], [0, 0, 0]]:
+        raise AssertionError(f"q7d_recover: model misses {model}, join "
+                             f"errs {errs}")
+    if whole["bids"] != n or b["bids"] != n:
+        raise AssertionError(f"q7d_recover: offsets {whole['bids']}, "
+                             f"{b['bids']} (want {n})")
+    # row ids come from the barriers' epochs (the wall clock), so the
+    # runs are compared on every other column, with multiplicity
+    if mv_counter(b["mv"]) != mv_counter(whole["mv"]) \
+            or mv_counter(b["mv"]) != want:
+        raise AssertionError(
+            f"q7d_recover: recovered MV ({len(b['mv'])} rows) differs from "
+            f"the uninterrupted run's ({len(whole['mv'])}) or the recount "
+            f"({sum(want.values())})")
+    if len(want) < 10:
+        raise AssertionError("q7d_recover: too few output rows to mean much")
+    return dict(
+        chunk=chunk, barriers_before_crash=r1, bids=n,
+        uploads_in_flight_at_crash=a["inflight_at_end"],
+        recovered_offset=b["base"], barriers_after_recovery=b["barriers"],
+        recovery_ms=b["recovery_s"] * 1e3, mv_rows=len(b["mv"]),
+        recount_rows=sum(want.values()), model_delete_misses=model,
+        join_errs=errs, launches=b["launches"])
+
+
+def q7d_capture(dev, rounds: int = 6) -> dict:
+    """Real q7d state for the kernel checks: bench_q7d's statements at
+    q7d_full's pacing, and at the last barrier each join side as it is
+    and as of the barrier before (the diff's inputs), and the agg state
+    before its persist."""
+    cap: dict = {}
+
+    def on_flow(s, dep):
+        join = dep.executors(SortedJoinExecutor)[0]
+        agg = dep.executors(HashAggExecutor)[0]
+        diff_write, persist = join._persist_diff_write, agg._persist
+
+        def rec_diff(st, cur, snap):
+            side = 0 if st is join.state_tables[0] else 1
+            cap[side] = (copy_side(None, cur), copy_side(None, snap))
+            return diff_write(st, cur, snap)
+
+        def rec_persist(barrier):
+            a = agg.state
+            cap["agg"] = AggState(
+                ht.HashTable(tuple(k.clone() for k in a.table.keys),
+                             a.table.occupied.clone()),
+                tuple(x.clone() for x in a.agg_states), a.row_count.clone(),
+                a.dirty.clone(), a.prev_exists.clone(),
+                tuple(x.clone() for x in a.prev_emit))
+            cap["wm"] = agg._pending_clean_wm
+            return persist(barrier)
+
+        join._persist_diff_write = rec_diff
+        agg._persist = rec_persist
+
+    with tempfile.TemporaryDirectory(prefix="q7d_") as d:
+        q7s_run(dev, Q7D_DDL, rounds, Q7D_CHUNKS_PER_BARRIER * Q7D_CHUNK,
+                store=HummockStateStore(LocalFsObjectStore(d)),
+                on_flow=on_flow)
+    return cap
+
+
+def side_store(dev, C: int, n: int, seed: int, dtypes, null_p: float = 0.0,
+               dup_every: int = 0) -> SortedSideState:
+    """A side store of capacity C with n live rows of random content:
+    khash in [0, 2^62), columns of `dtypes`, NULL lanes with probability
+    null_p, and every dup_every-th row a copy of the row before."""
+    g = torch.Generator().manual_seed(seed)
+    kh = torch.randint(0, 1 << 62, (C,), generator=g)
+    cols, valids = [], []
+    for dt in dtypes:
+        if dt.is_floating_point:
+            c = torch.randn(C, generator=g, dtype=torch.float64).to(dt) * 1e3
+        else:
+            c = torch.randint(-(1 << 40), 1 << 40, (C,), generator=g).to(dt)
+        cols.append(c)
+        valids.append(torch.rand(C, generator=g) >= null_p)
+    if dup_every:
+        src = torch.arange(C) - (torch.arange(C) % dup_every == dup_every - 1
+                                 ).to(torch.int64)
+        kh = kh[src]
+        cols = [c[src] for c in cols]
+        valids = [v[src] for v in valids]
+    return SortedSideState(kh.to(dev), tuple(c.to(dev) for c in cols),
+                           tuple(v.to(dev) for v in valids),
+                           torch.zeros(C, dtype=torch.int32, device=dev),
+                           torch.tensor(n, dtype=torch.int32, device=dev))
+
+
+def mutate(st: SortedSideState, seed: int, frac: float) -> SortedSideState:
+    """A copy of `st` with a fraction of its rows' first column changed
+    and its rows rolled by one slot (a diff against it has both deletes
+    and inserts)."""
+    g = torch.Generator().manual_seed(seed)
+    out = copy_side(None, st)
+    C = st.capacity
+    hit = (torch.rand(C, generator=g) < frac).to(st.khash.device)
+    c0 = out.cols[0]
+    out.cols[0].copy_(torch.where(hit, c0 + 1, c0))
+    return SortedSideState(out.khash.roll(1), tuple(c.roll(1)
+                                                    for c in out.cols),
+                           tuple(v.roll(1) for v in out.valids),
+                           out.degree, out.n)
+
+
+def diff_err(cur, snap) -> tuple[int, int, int]:
+    """K17 against its plain version on one pair: (max abs error over the
+    counts and the counted rows, deletes, inserts)."""
+    pk, ck = snapshot_diff(cur, snap)
+    pp, cp = pack_diff_plain(cur, snap)
+    nd, ni = (int(x) for x in cp)
+    K = len(cur.cols)
+    n = (nd + ni) * K
+    err = max(exact_err([ck], [cp]), exact_err([pk[:n]], [pp[:n]]))
+    return err, nd, ni
+
+
+def phase_kernels_q7d(dev) -> dict:
+    """K17 and K18 against their plain versions, exactly: on q7d's state
+    (both join sides at C = 2^18 as a bench_q7d run holds them at a
+    barrier, each against its snapshot from the barrier before, and the
+    2^13-slot agg before its persist) and on edge cases."""
+    cap = q7d_capture(dev)
+    res = {}
+    # ---- K17
+    cases = {}
+    for side in (0, 1):
+        cur, snap = cap[side]
+        cases[f"q7d_side{side}"] = (cur, snap)
+    C = 1 << 14
+    i64, f64 = torch.int64, torch.float64
+    base = side_store(dev, C, C // 2, 1, (i64, i64, i64))
+    cases["empty_diff"] = (base, copy_side(None, base))
+    cases["all_changed"] = (base, side_store(dev, C, C // 2, 2,
+                                             (i64, i64, i64)))
+    dup = side_store(dev, C, C, 3, (i64, i64), dup_every=2)
+    cases["duplicates"] = (dup, mutate(dup, 4, 0.1))
+    nul = side_store(dev, C, C // 2, 5, (i64, i64, i64), null_p=0.3)
+    cases["nulls"] = (nul, mutate(nul, 6, 0.1))
+    flt = side_store(dev, C, C // 2, 7, (i64, f64))
+    cases["float64"] = (flt, mutate(flt, 8, 0.1))
+    full = side_store(dev, C, C, 9, (i64, i64, torch.int32))
+    cases["full_store"] = (full, mutate(full, 10, 0.05))
+    errs = {}
+    for name, (cur, snap) in cases.items():
+        errs[name] = diff_err(cur, snap)
+        if errs[name][0]:
+            raise AssertionError(f"K17 differs from plain on {name}: "
+                                 f"{errs[name]}")
+    if errs["empty_diff"][1:] != (0, 0) or errs["all_changed"][1] == 0:
+        raise AssertionError(f"K17 edge cases did not bite: {errs}")
+    cur, snap = cases["q7d_side0"]
+    nd, ni = errs["q7d_side0"][1:]
+    K = len(cur.cols)
+    # what the diff must move: each side's live rows (slots < n) read
+    # once, lanes and valid bits, and the changed rows and counts written
+    row_bytes = sum(t.element_size()
+                    for t in (cur.khash, *cur.cols, *cur.valids))
+    live = int(cur.n) + int(snap.n)
+    res["snapshot_diff"] = dict(
+        max_abs_err=max(e[0] for e in errs.values()),
+        cases={k: {"deletes": v[1], "inserts": v[2]}
+               for k, v in errs.items()},
+        **timings(lambda: snapshot_diff(cur, snap),
+                  lambda: pack_diff_plain(cur, snap)),
+        bound_ms=bytes_bound_ms(live * row_bytes + 2 * 4
+                                + (nd + ni) * K * 8 + 16),
+        bound_by="bytes")
+    emit({"phase": "kernel", "name": "snapshot_diff",
+          **res["snapshot_diff"]})
+    # ---- K18
+    st, wm = cap["agg"], cap["wm"]
+    j = 0
+    errs18 = {}
+
+    def k18_err(state, jj, w):
+        bk, ck = persist_pack(state, jj, w)
+        bp, cp = persist_pack_plain(state, jj, w)
+        nd, nev = (int(x) for x in cp)
+        wp = 2 + len(state.table.keys) + len(state.agg_states) + 1
+        n = nd * wp + nev * len(state.table.keys)
+        return max(exact_err([ck], [cp]), exact_err([bk[:n]], [bp[:n]])), \
+            nd, nev
+
+    errs18["q7d_agg"] = k18_err(st, j if wm is not None else None, wm)
+    wend = st.table.keys[0]
+    occ = st.table.occupied
+    lo = int(wend[occ].min()) if bool(occ.any()) else 0
+    errs18["evict_none_below"] = k18_err(st, j, lo)
+    errs18["evict_all"] = k18_err(st, j, 1 << 62)
+    if any(e[0] for e in errs18.values()) or \
+            errs18["evict_none_below"][2] != 0:
+        raise AssertionError(f"K18 differs from plain: {errs18}")
+    Ca = st.table.capacity
+    nd = errs18["q7d_agg"][1]
+    wp = 2 + len(st.table.keys) + len(st.agg_states) + 1
+    cols = list(st.table.keys) + list(st.agg_states) + [st.row_count]
+    # what the persist entry must move: the dirty byte of every slot, the
+    # columns and prev_exists of the dirty rows, the packed rows and the
+    # counts
+    row_bytes = sum(c.element_size() for c in cols) \
+        + st.prev_exists.element_size()
+
+    def library():
+        sel = torch.nonzero(st.dirty).squeeze(1)
+        return [c.index_select(0, sel) for c in cols]
+
+    res["persist_view"] = dict(
+        max_abs_err=max(e[0] for e in errs18.values()),
+        cases={k: {"dirty": v[1], "evicted": v[2]}
+               for k, v in errs18.items()},
+        **timings(lambda: persist_pack(st, None, None),
+                  lambda: persist_pack_plain(st, None, None),
+                  library_fn=library),
+        bound_ms=bytes_bound_ms(Ca * st.dirty.element_size()
+                                + nd * row_bytes + nd * wp * 8 + 16),
+        bound_by="bytes")
+    emit({"phase": "kernel", "name": "persist_view", **res["persist_view"]})
+    return res
+
+
+def phase_q7_check(dev, chunk: int = 32768, rounds: int = 40) -> dict:
+    """The correctness gate: bench's _q7_ddl() statements through
+    Session(device="cuda") with inter_event_us=250, one barrier per chunk
+    of `chunk` bids (8.9 s of event time, under the lag minus the window,
+    so the band cleaning never evicts a bid before its window's max
+    arrives), into a device sink that keeps the output rows. Its net
+    output must equal build_q7's hand wiring at the same geometry and a
+    numpy recount; every error counter must be 0."""
+    r = q7s_run(dev, with_chunk(Q7_DDL, 131072, chunk), rounds, chunk,
+                collect=1 << 16)
+    got, dropped = r["sink"].rows()
+    got = Counter({(x[0], x[1], x[2], x[3], x[5]): c
+                   for x, c in got.items()})
+    q7 = build_q7(dev, chunk, 250, chunk, collect=1 << 16)
+    asyncio.run(drive_paced(q7, chunk, rounds))
+    hand, hand_dropped = q7["head"].rows()
+    hand = Counter({(x[0], x[1], x[2], x[3], x[5]): c
+                    for x, c in hand.items()})
+    want = q7_recount(r["bids"], NexmarkConfig(inter_event_us=250), dev)
+    errs = [r["join"].errs(), q7["join"].errs()]
+    overflow = [r["agg"].overflow(), q7["agg"].overflow()]
+    if dropped or hand_dropped or errs != [[0, 0, 0]] * 2 or any(overflow):
+        raise AssertionError(f"q7 check: dropped {dropped}/{hand_dropped}, "
+                             f"join errs {errs}, agg overflow {overflow}")
+    if got != hand or got != want:
+        raise AssertionError(
+            f"q7 output differs: session {sum(got.values())} rows, hand "
+            f"wiring {sum(hand.values())}, recount {sum(want.values())}")
+    if len(want) < 10:
+        raise AssertionError("q7 check: too few output rows to mean much")
+    return dict(bids=r["bids"], barriers=rounds, rows=len(want),
+                output_changes=int(r["sink"].count), join_errs=errs[0],
+                agg_overflow=overflow[0])
+
+
 def main(argv) -> int:
     unknown = [a for a in argv if a != "--host-profile"]
     if unknown:
@@ -2995,6 +3601,11 @@ def main(argv) -> int:
     emit({"phase": "q7_full", "nvidia_smi": smi, **q7})
     emit({"phase": "q7_profile", **phase_q7_profile(dev, q7)})
     emit({"phase": "q7_check", **phase_q7_check(dev)})
+    res.update(phase_kernels_q7d(dev))
+    q7d = phase_q7d_full(dev)
+    emit({"phase": "q7d_full", "nvidia_smi": smi, **q7d})
+    emit({"phase": "q7d_recover", "nvidia_smi": smi,
+          **phase_q7d_recover(dev)})
     res.update(phase_kernels_q8(dev))
     q8 = phase_q8_full(dev)
     emit({"phase": "q8_full", "nvidia_smi": smi, **q8})
@@ -3007,7 +3618,7 @@ def main(argv) -> int:
     emit({"phase": "q17_sf1", "nvidia_smi": smi, **phase_q17_sf1(dev)})
     emit({"phase": "q17_check", **phase_q17_check(dev)})
     emit({"phase": "q1_full", "nvidia_smi": smi, **phase_q1_full(dev)})
-    paths = {"q5": q5, "q7": q7, "q8": q8, "q17": q17}
+    paths = {"q5": q5, "q7": q7, "q8": q8, "q17": q17, "q7d": q7d}
     rows = []
     for name, k in kernels.KERNELS.items():
         r = res[name]

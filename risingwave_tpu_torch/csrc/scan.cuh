@@ -132,9 +132,3 @@ __device__ __forceinline__ i64 rw_load_any(const void* col, int width,
     default: return static_cast<const signed char*>(col)[i];
   }
 }
-
-// The sorted join's 63-bit key hash (sorted_join.py:key_hash): the
-// splitmix64 chain of the hash table's _bucket_pair, shifted right once.
-constexpr u64 kKeyHashSeed = 0x243F6A8885A308D3ULL;
-constexpr u64 kGolden = 0x9E3779B97F4A7C15ULL;
-constexpr i64 kHashSentinel = 0x7fffffffffffffffLL;

@@ -39,6 +39,7 @@
 //   clear_tail: the second store's rows in [n, its previous n) get the
 //   sentinel and zeros, so every slot equals the reference's store.
 
+#include "key_hash.cuh"
 #include "scan.cuh"
 
 namespace {

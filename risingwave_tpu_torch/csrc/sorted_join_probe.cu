@@ -33,6 +33,7 @@
 //      reference does, so every slot, visible or not, holds the same
 //      values as the reference's buffer.
 
+#include "key_hash.cuh"
 #include "scan.cuh"
 
 namespace {
@@ -72,10 +73,10 @@ probe_rows(Keys keys, const unsigned char* __restrict__ active,
       if (k < keys.n) {
         const u64 c = static_cast<u64>(
             rw_load_any(keys.chunk[k], keys.width[k], i));
-        hh = rw_splitmix64(hh ^ (c * kGolden));
+        hh = rw_key_hash_step(hh, c);
       }
     }
-    const i64 h = static_cast<i64>(hh >> 1);
+    const i64 h = rw_key_hash_finish(hh);
     h_out[i] = h;
     if (ins_h) ins_h[i] = is_ins[i] ? h : kHashSentinel;
     const long long lo = rw_lower_bound(okh, Co, h);

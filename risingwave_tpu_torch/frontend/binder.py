@@ -7,8 +7,14 @@ and in its order, so the same SQL gives the same fragments, node kinds
 and executor arguments:
 
   FROM source            -> shared source fragment + no_op fragment
+  FROM (subquery) alias  -> the inner query's plan, unmaterialized
   TUMBLE(...)            -> project fragment appending window_start and
                             window_end, with their watermark transforms
+  GROUP BY keys, COUNT / SUM / MIN / MAX
+                         -> pre-project (keys, then agg args), a
+                            hash_agg fragment (hash dispatch on the keys,
+                            one actor) with the first watermarked key as
+                            its state-cleaning column, post-project
   JOIN ... ON            -> sorted_join fragment (equi conjunctions are
                             key columns, the rest the non-equi
                             condition), watermark-derived state cleaning
@@ -24,12 +30,11 @@ and executor arguments:
 
 What the JAX planner also plans raises `BindError("... not ported yet
 (ROADMAP A9)")` here, never a different plan: WHERE (filters and their
-pushdown, NOW() dynamic filters), GROUP BY and aggregates, HOP, sub-
-queries outside the snapshot join-agg fusion (where that fusion
-declines, JAX falls back to the generic join plan, which the port has
-not ported), MV-on-MV scans, ORDER BY/LIMIT (top-N), window functions,
-outer and temporal joins, non-integer join keys (hash join) and remote
-fragment placement.
+pushdown, NOW() dynamic filters), global aggregates outside the q17
+fusion (simple_agg), AVG / bool_and / bool_or / approx_count_distinct,
+HOP, MV-on-MV scans, ORDER BY/LIMIT (top-N), window functions, outer and
+temporal joins, non-integer join keys (hash join), parallelism > 1 and
+remote fragment placement.
 """
 
 from __future__ import annotations
@@ -248,7 +253,15 @@ class StreamPlanner:
         if isinstance(rel, ast.JoinRel):
             return self._plan_join(rel)
         if isinstance(rel, ast.SubqueryRel):
-            raise not_ported("FROM (subquery)")
+            # FROM (SELECT ...) alias: plan the inner query without
+            # materialization; its changelog feeds the outer plan
+            sub_fid, names, types, pk_hint, ao, wm = self._plan_query(
+                rel.select)
+            schema = Schema(tuple(Field(n, t)
+                                  for n, t in zip(names, types)))
+            return (sub_fid, Scope.of(schema, rel.alias),
+                    RelInfo(stream_key=pk_hint, append_only=ao,
+                            wm_cols=wm))
         raise BindError(f"cannot plan relation {rel!r}")
 
     def _plan_join(self, rel: ast.JoinRel) -> tuple[int, Scope, RelInfo]:
@@ -424,8 +437,10 @@ class StreamPlanner:
             return fused
         if where is not None:
             raise not_ported("WHERE (filters)")
-        if sel.group_by or any(contains_agg(it.expr) for it in sel.items):
-            raise not_ported("GROUP BY / aggregates through SQL")
+        has_agg = bool(sel.group_by) or any(
+            contains_agg(it.expr) for it in sel.items)
+        if has_agg and not sel.group_by:
+            raise not_ported("global aggregates (simple_agg)")
         if any(isinstance(it.expr, ast.WindowFunc) for it in sel.items):
             raise not_ported("window functions (over-window)")
 
@@ -444,6 +459,10 @@ class StreamPlanner:
                 j for j, e in enumerate(exprs)
                 if isinstance(e, InputRef) and e.index in info.wm_cols)
 
+        if has_agg:
+            afid, names, types, pk, wm_out = self._plan_agg(sel, fid, scope,
+                                                            info)
+            return (afid, names, types, pk, False, wm_out)
         exprs, names = [], []
         for j, it in enumerate(sel.items):
             exprs.append(bind_scalar(it.expr, scope))
@@ -472,6 +491,143 @@ class StreamPlanner:
                          inputs=(frag.root,))
         return (fid, names, [e.ret_type for e in exprs], tuple(key_pos),
                 False, project_wm(exprs))
+
+    # ----------------------------------------------------------- GROUP BY
+    def _plan_agg(self, sel: ast.Select, fid: int, scope: Scope,
+                  info: RelInfo):
+        """GROUP BY with COUNT / SUM / MIN / MAX, as the JAX binder's
+        `_plan_agg` plans it: a pre-project of the group keys then the
+        agg arguments grafted onto `fid`, a hash_agg fragment (hash
+        dispatch on the keys), a post-project of the SELECT items over
+        [keys..., agg outputs...]. Returns (agg fragment id, names,
+        types, pk positions, watermark columns)."""
+        frag = self.graph.fragments[fid]
+        keys = [bind_scalar(g, scope) for g in sel.group_by]
+        key_names = [auto_name(g, j) for j, g in enumerate(sel.group_by)]
+        pre_exprs = list(keys)
+        pre_names = list(key_names)
+
+        def add_arg(e) -> int:
+            pre_exprs.append(bind_scalar(e, scope))
+            pre_names.append(f"a{len(pre_exprs)}")
+            return len(pre_exprs) - 1
+
+        items_plan = []          # per item: ("key", idx) | ("expr",)
+        agg_calls: list[AggCall] = []
+
+        def add_call(kind: AggKind, arg: Optional[int],
+                     ret: DataType) -> int:
+            # append-only inputs get the running max/min variants
+            agg_calls.append(AggCall(kind, arg, ret,
+                                     append_only=info.append_only))
+            return len(agg_calls) - 1
+
+        nk = len(keys)
+
+        def agg_post(e) -> Expr:
+            if e.name == "count":
+                idx = add_call(AggKind.COUNT,
+                               None if e.star else add_arg(e.args[0]),
+                               DataType.INT64)
+                return col(nk + idx, DataType.INT64)
+            if e.name == "sum":
+                a = add_arg(e.args[0])
+                at = pre_exprs[a].ret_type
+                ret = (DataType.FLOAT64
+                       if at in (DataType.FLOAT64, DataType.FLOAT32)
+                       else DataType.INT64)
+                return col(nk + add_call(AggKind.SUM, a, ret), ret)
+            if e.name in ("min", "max"):
+                a = add_arg(e.args[0])
+                at = pre_exprs[a].ret_type
+                if at is DataType.VARCHAR:
+                    raise BindError(
+                        f"streaming {e.name}() over VARCHAR is unsupported "
+                        "(dict encoding is not lexicographic)")
+                kind = AggKind.MIN if e.name == "min" else AggKind.MAX
+                return col(nk + add_call(kind, a, at), at)
+            raise not_ported(f"aggregate {e.name}() through SQL")
+
+        def post_of(e) -> Expr:
+            """Scalar expression over aggregates and keys."""
+            if isinstance(e, ast.Func) and e.name in AGG_FUNCS:
+                return agg_post(e)
+            if isinstance(e, ast.Lit):
+                return lit(e.value)
+            if not contains_agg(e):
+                bound = bind_scalar(e, scope)
+                for kj, ke in enumerate(keys):
+                    if repr(ke) == repr(bound):
+                        return col(kj, keys[kj].ret_type)
+            if isinstance(e, ast.BinOp):
+                return call(e.op, post_of(e.left), post_of(e.right))
+            if isinstance(e, ast.UnOp):
+                return call(e.op, post_of(e.arg))
+            raise BindError(
+                f"{e}: non-aggregate parts of a SELECT item must appear "
+                f"in GROUP BY")
+
+        post, names = [], []
+        for j, it in enumerate(sel.items):
+            e = it.expr
+            names.append(it.alias or auto_name(e, j))
+            if not contains_agg(e):
+                bound = bind_scalar(e, scope)
+                for kj, ke in enumerate(keys):
+                    if repr(ke) == repr(bound):
+                        items_plan.append(("key", kj))
+                        post.append(col(kj, keys[kj].ret_type))
+                        break
+                else:
+                    raise BindError(
+                        f"{it.alias or e}: non-aggregate SELECT item "
+                        f"must appear in GROUP BY")
+            else:
+                items_plan.append(("expr",))
+                post.append(post_of(e))
+
+        frag.root = Node("project", dict(exprs=pre_exprs, names=pre_names),
+                         inputs=(frag.root,))
+        # group keys that are direct refs to watermarked input columns:
+        # the first becomes the agg's state-cleaning column
+        wm_keys = [kj for kj, ke in enumerate(keys)
+                   if isinstance(ke, InputRef) and ke.index in info.wm_cols]
+        wd = 1 if self.cfg("streaming_watchdog", 1) else None
+        frag.dispatch = "hash"
+        frag.dist_key_indices = tuple(range(nk))
+        agg = self.graph.add(Fragment(self.fid(), Node(
+            "hash_agg", dict(
+                group_key_indices=list(range(nk)),
+                agg_calls=agg_calls, durable=self.durable(),
+                capacity=self.cfg("streaming_agg_capacity", 1 << 16),
+                cleaning_watermark_col=(wm_keys[0] if wm_keys else None),
+                watchdog_interval=wd),
+            inputs=(Exchange(fid),)),
+            dispatch="hash", dist_key_indices=tuple(range(nk)),
+            parallelism=self.parallelism))
+        # MV pk = the group keys, which must survive the projection:
+        # append any key not already selected
+        pk = []
+        key_out = {}
+        for kj in range(nk):
+            found = None
+            for j, plan in enumerate(items_plan):
+                if plan[0] == "key" and plan[1] == kj:
+                    found = j
+                    break
+            if found is None:
+                post.append(col(kj, keys[kj].ret_type))
+                names.append(f"_key{kj}")
+                found = len(post) - 1
+            pk.append(found)
+            key_out[kj] = found
+        agg.root = Node("project", dict(exprs=post, names=names),
+                        inputs=(agg.root,))
+        # group-key watermarks pass through the agg re-indexed, then
+        # through the post-project on their InputRef positions
+        wm_out = frozenset(key_out[kj] for kj in wm_keys)
+        return (agg.fid, names, [e.ret_type for e in post], tuple(pk),
+                wm_out)
 
     # ------------------------------------------- snapshot join-agg fusion
     def _try_snapshot_join_agg(self, sel: ast.Select):

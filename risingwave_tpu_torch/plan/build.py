@@ -8,12 +8,17 @@ coordinator. Each fragment becomes one actor; each inter-fragment edge
 is a bounded channel. Executors that own tensors get the environment's
 device.
 
-Left out of this slice (ROADMAP A9): parallel fragments (hash dispatch,
-vnode bitmaps, merge executors), remote and cluster placement
-(`build_partial_graph`, `cluster_remote_edges`,
+Hash dispatch into a singleton consumer is a simple dispatch (every
+row lands on the one actor). Durable nodes (`durable=True`) get their
+state tables here, with the JAX package's table-id rule, so a store one
+engine wrote is a store the other recovers.
+
+Left out of this slice (ROADMAP A9): parallel fragments (vnode-routed
+hash dispatch, vnode bitmaps, merge executors), remote and cluster
+placement (`build_partial_graph`, `cluster_remote_edges`,
 `_infer_fragment_schema`), per-fragment rebuild and channel replay,
 mesh-chain fusion, memory and stats registration, and the builders of
-node kinds the port cannot plan yet (hop_window, hash_agg and the other
+node kinds the port cannot plan yet (hop_window, simple and the other
 aggregates, filter, joins other than sorted, top-N, over-window,
 stream_scan, dedup); durable snapshot join-agg state; sinks other than
 `blackhole_device`; connectors other than `nexmark` and `tpch`.
@@ -31,7 +36,8 @@ from ..state.state_table import StateTable
 from ..state.store import StateStore
 from ..stream import (
     Actor, BroadcastDispatcher, Channel, ChannelInput,
-    DeviceBlackholeSinkExecutor, MaterializeExecutor, NoOpExecutor,
+    DeviceBlackholeSinkExecutor, HashAggExecutor, MaterializeExecutor,
+    NoOpExecutor,
     ProjectExecutor, RowIdGenExecutor, SimpleDispatcher,
     SnapshotJoinAggExecutor, SortedJoinExecutor, SourceExecutor,
 )
@@ -75,6 +81,11 @@ class BuildEnv:
 
     def state_table(self, table_id: int, schema: Schema,
                     pk_indices: Sequence[int]) -> StateTable:
+        if getattr(self.store, "objects", None) is not None and any(
+                f.data_type is DataType.VARCHAR for f in schema):
+            raise NotImplementedError(
+                "a durable table with a VARCHAR column needs the string "
+                "dictionary's durable log, not ported yet (ROADMAP A10)")
         return StateTable(self.store, table_id=table_id, schema=schema,
                           pk_indices=pk_indices)
 
@@ -204,10 +215,10 @@ def build_graph(graph: StreamGraph, env: BuildEnv) -> Deployment:
     consumers = {fid: graph.consumers(fid) for fid in order}
     for fid in order:
         f = graph.fragments[fid]
-        if f.parallelism != 1 or f.dispatch == "hash" or f.remote_worker:
+        if f.parallelism != 1 or f.remote_worker:
             raise NotImplementedError(
-                "parallel, hash-dispatched or remote fragments are not "
-                "ported yet (ROADMAP A9)")
+                "parallel or remote fragments are not ported yet "
+                "(ROADMAP A9)")
         for d_fid, k in consumers[fid]:
             channels[(fid, d_fid, k)] = Channel(env.channel_capacity)
     for fid in order:
@@ -224,7 +235,7 @@ def build_graph(graph: StreamGraph, env: BuildEnv) -> Deployment:
 
 def _dispatcher_for(graph, f, cons, channels):
     """Output dispatcher of fragment `f`'s actor (singleton consumers:
-    broadcast and simple dispatch both send every message down each
+    broadcast, hash and simple dispatch all send every message down each
     edge)."""
     if not cons:
         return None
@@ -292,11 +303,45 @@ def _build_no_op(args, inputs, ctx, key):
     return NoOpExecutor(inputs[0])
 
 
+def _agg_state_schema(in_schema: Schema, group_key_indices,
+                      agg_calls) -> Schema:
+    """Durable agg row: keys ++ one state per call ++ row count (the
+    JAX package's layout for non-retractable calls)."""
+    fields = [in_schema[i] for i in group_key_indices]
+    fields += [SchemaField(f"state{j}", c.ret_type)
+               for j, c in enumerate(agg_calls)]
+    fields.append(SchemaField("_row_count", DataType.INT64))
+    return Schema(tuple(fields))
+
+
+@register_builder("hash_agg")
+def _build_hash_agg(args, inputs, ctx: ActorCtx, key):
+    st = None
+    if args.get("durable"):
+        gk = tuple(args["group_key_indices"])
+        st = ctx.env.state_table(
+            ctx.table_id(key),
+            _agg_state_schema(inputs[0].schema, gk, args["agg_calls"]),
+            tuple(range(len(gk))))
+    return HashAggExecutor(
+        inputs[0], args["group_key_indices"], args["agg_calls"],
+        capacity=args.get("capacity", 1 << 16), state_table=st,
+        group_key_names=args.get("group_key_names"),
+        cleaning_watermark_col=args.get("cleaning_watermark_col"),
+        watchdog_interval=args.get("watchdog_interval", 1),
+        device=ctx.env.device)
+
+
 @register_builder("sorted_join")
 def _build_sorted_join(args, inputs, ctx: ActorCtx, key):
+    state_tables = None
     if args.get("durable"):
-        raise NotImplementedError(
-            "durable join state is not ported yet (ROADMAP A10)")
+        state_tables = tuple(
+            ctx.env.state_table(
+                ctx.table_id((key, s)), inp.schema,
+                tuple(args["left_pk_indices" if s == 0
+                           else "right_pk_indices"]))
+            for s, inp in enumerate(inputs))
     if args.get("temporal"):
         raise NotImplementedError("temporal joins are not ported yet "
                                   "(ROADMAP A7)")
@@ -317,6 +362,7 @@ def _build_sorted_join(args, inputs, ctx: ActorCtx, key):
                                             (None, None))),
         clean_specs=(tuple(args["clean_specs"])
                      if args.get("clean_specs") is not None else None),
+        state_tables=state_tables,
         watchdog_interval=args.get("watchdog_interval", 1),
         device=ctx.env.device)
 
@@ -459,6 +505,15 @@ def infer_fragment_schemas(graph: StreamGraph,
                                 for nm, e in zip(names, a["exprs"])))
         if k in ("no_op", "materialize", "sink"):
             return ins[0]
+        if k == "hash_agg":
+            gk = list(a["group_key_indices"])
+            names = list(a.get("group_key_names")
+                         or [ins[0][i].name for i in gk])
+            return Schema(tuple(
+                [SchemaField(nm, ins[0][i].data_type)
+                 for nm, i in zip(names, gk)]
+                + [SchemaField(f"agg{j}", c.ret_type)
+                   for j, c in enumerate(a["agg_calls"])]))
         if k == "row_id_gen":
             return Schema(tuple(ins[0])
                           + (SchemaField("_row_id", DataType.SERIAL),))

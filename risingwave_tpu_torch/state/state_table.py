@@ -6,9 +6,13 @@ a mem-table buffers writes between barriers; `commit(new_epoch)` flushes
 and seals the epoch. Device executors keep their compute state on the
 device; the StateTable is the host-side durability and MV path.
 
-Left out of this slice (ROADMAP Queue A): the native C++ batch codec of
-`write_chunk_columns` (the port writes row by row), `get_rows`, and the
-consistency modes beyond double-insert detection.
+`write_chunk_columns` is the per-barrier persist path. The JAX package
+encodes its batches with a host C++ codec (risingwave_tpu/native); the
+port writes the same bytes with vectorised numpy for all-int64 schemas
+with an ascending pk, and row by row through `serde.py` otherwise.
+
+Left out of this slice (ROADMAP Queue A): the consistency modes beyond
+double-insert detection and `update_vnode_bitmap` (rescaling).
 """
 
 from __future__ import annotations
@@ -56,9 +60,16 @@ class StateTable:
         self.check_consistency = check_consistency
         self._pk_types = tuple(schema[i].data_type for i in self.pk_indices)
         self._serde = RowSerde(schema)
-        # mem-table: full key -> (op, row|None); op in {+1 put, -1 delete}
-        self._mem: dict[bytes, tuple[int, Optional[tuple]]] = {}
+        # mem-table: full key -> (op, row|None, enc|None); op in {+1 put,
+        # -1 delete}. Batch writes store encoded values and decode them
+        # lazily on read-through.
+        self._mem: dict[bytes, tuple[int, Optional[tuple],
+                                     Optional[bytes]]] = {}
         self.epoch: Optional[int] = None
+        self._all_i64 = all(
+            np.dtype(f.data_type.np_dtype).kind == "i"
+            and np.dtype(f.data_type.np_dtype).itemsize == 8
+            for f in schema)
 
     # ------------------------------------------------------------- keys
     def _vnodes_of_batch(self, rows: Sequence[tuple]) -> np.ndarray:
@@ -99,17 +110,17 @@ class StateTable:
         if self.check_consistency and prev is not None and prev[0] > 0:
             raise StateTableError(
                 f"double insert for key {row!r} in table {self.table_id}")
-        self._mem[k] = (1, tuple(row))
+        self._mem[k] = (1, tuple(row), None)
 
     def delete(self, row: tuple) -> None:
         # always a tombstone: an insert+delete within one epoch must still
         # delete any version of the key from a prior epoch
-        self._mem[self._key_of(row)] = (-1, None)
+        self._mem[self._key_of(row)] = (-1, None, None)
 
     def update(self, old_row: tuple, new_row: tuple) -> None:
         ko, kn = self._key_of(old_row), self._key_of(new_row)
         if ko == kn:
-            self._mem[kn] = (1, tuple(new_row))
+            self._mem[kn] = (1, tuple(new_row), None)
         else:
             self.delete(old_row)
             self.insert(new_row)
@@ -124,9 +135,67 @@ class StateTable:
             k = self.key_of_pk(tuple(row[i] for i in self.pk_indices),
                                int(vn))
             if op in (OP_INSERT, OP_UPDATE_INSERT):
-                self._mem[k] = (1, tuple(row))
+                self._mem[k] = (1, tuple(row), None)
             else:
-                self._mem[k] = (-1, None)
+                self._mem[k] = (-1, None, None)
+
+    def write_chunk_columns(self, ops: np.ndarray, cols: Sequence[np.ndarray],
+                            vis: np.ndarray) -> None:
+        """Columnar batch write, the per-barrier persist path. `ops` uses
+        the chunk Op encoding; rows with vis False are skipped. Column
+        data is written as given (the persist views carry no NULLs).
+
+        For all-int64 schemas with an ascending pk, keys and values are
+        encoded for the whole batch in numpy, byte for byte what the JAX
+        package's native codec writes (memcomparable field = 0x01 ++
+        big-endian(v ^ sign bit); value row = zero null bitmap ++
+        little-endian int64s); otherwise row by row."""
+        ops = np.asarray(ops)
+        vis = np.asarray(vis, dtype=bool)
+        idx = np.flatnonzero(vis)
+        if idx.size == 0:
+            return
+        if not (self._all_i64 and self.pk_descending is None):
+            rows = [(int(ops[i]), tuple(
+                np.asarray(cols[j])[i].item() for j in range(len(cols))))
+                for i in idx]
+            self.write_chunk_rows(rows)
+            return
+        n = idx.size
+        mat = np.stack([np.asarray(c, dtype=np.int64)[idx] for c in cols],
+                       axis=1)
+        pk = np.ascontiguousarray(mat[:, list(self.pk_indices)])
+        if self.dist_key_indices:
+            vns = compute_vnodes_numpy(
+                [mat[:, i] for i in self.dist_key_indices]).astype(np.uint8)
+        else:
+            vns = np.zeros(n, dtype=np.uint8)
+        npk = pk.shape[1]
+        kw = 5 + 9 * npk
+        keys = np.empty((n, kw), dtype=np.uint8)
+        keys[:, :4] = np.frombuffer(self.table_id.to_bytes(4, "big"),
+                                    dtype=np.uint8)
+        keys[:, 4] = vns
+        flipped = np.ascontiguousarray(
+            (pk.view(np.uint64) ^ np.uint64(1 << 63)).astype(">u8"))
+        body = flipped.view(np.uint8).reshape(n, npk, 8)
+        fields = keys[:, 5:].reshape(n, npk, 9)
+        fields[:, :, 0] = 1
+        fields[:, :, 1:] = body
+        nb = self._serde._nbytes_nulls
+        vw = nb + 8 * mat.shape[1]
+        vals = np.zeros((n, vw), dtype=np.uint8)
+        vals[:, nb:] = np.ascontiguousarray(mat.astype("<i8")).view(
+            np.uint8).reshape(n, -1)
+        kb, vb = keys.tobytes(), vals.tobytes()
+        put = np.isin(ops[idx], (OP_INSERT, OP_UPDATE_INSERT))
+        mem = self._mem
+        for r in range(n):
+            k = kb[r * kw:(r + 1) * kw]
+            if put[r]:
+                mem[k] = (1, None, vb[r * vw:(r + 1) * vw])
+            else:
+                mem[k] = (-1, None, None)
 
     # ------------------------------------------------------------- reads
     def get_row(self, pk: tuple,
@@ -140,10 +209,46 @@ class StateTable:
                 row_for_vnode[i] = dist_values[j]
         k = self._key_of(tuple(row_for_vnode))
         if k in self._mem:
-            op, row = self._mem[k]
-            return row if op > 0 else None
+            return self._mem_row(k)
         v = self.store.get(k)
         return self._serde.decode(v) if v is not None else None
+
+    def _mem_row(self, k: bytes) -> Optional[tuple]:
+        op, row, enc = self._mem[k]
+        if op <= 0:
+            return None
+        return row if row is not None else self._serde.decode(enc)
+
+    def get_rows(self, pks: Sequence[tuple]) -> list:
+        """Batch point-get (dist key within the pk): vnodes for the batch
+        hash in one vectorized pass, mem-table first, then the store's
+        `get_many`."""
+        if not pks:
+            return []
+        if self.dist_key_indices:
+            pos = [self.pk_indices.index(i) for i in self.dist_key_indices]
+            cols = [np.asarray([0 if pk[p] is None else pk[p]
+                                for pk in pks]).astype(
+                        self.schema[i].data_type.np_dtype)
+                    for p, i in zip(pos, self.dist_key_indices)]
+            vns = compute_vnodes_numpy(cols)
+        else:
+            vns = np.zeros(len(pks), dtype=np.int32)
+        keys = [self.key_of_pk(tuple(pk), int(vn))
+                for pk, vn in zip(pks, vns)]
+        out: list = []
+        pending_keys, pending_pos = [], []
+        for i, k in enumerate(keys):
+            if k in self._mem:
+                out.append(self._mem_row(k))
+            else:
+                out.append(None)
+                pending_keys.append(k)
+                pending_pos.append(i)
+        for i, v in zip(pending_pos, self.store.get_many(pending_keys)):
+            if v is not None:
+                out[i] = self._serde.decode(v)
+        return out
 
     def iter_vnode(self, vnode: int) -> Iterator[tuple[bytes, tuple]]:
         """All rows of one vnode, pk order, mem-table merged."""
@@ -151,9 +256,9 @@ class StateTable:
         merged: dict[bytes, Optional[tuple]] = {}
         for k, v in self.store.iter_range(start, end):
             merged[k] = self._serde.decode(v)
-        for k, (op, row) in self._mem.items():
+        for k in self._mem:
             if start <= k < end:
-                merged[k] = row if op > 0 else None
+                merged[k] = self._mem_row(k)
         for k in sorted(merged):
             if merged[k] is not None:
                 yield k, merged[k]
@@ -177,8 +282,9 @@ class StateTable:
         if self.epoch is None:
             raise StateTableError("init_epoch not called")
         puts: dict[bytes, Optional[bytes]] = {
-            k: (self._serde.encode(row) if op > 0 else None)
-            for k, (op, row) in self._mem.items()}
+            k: (None if op <= 0 else
+                enc if enc is not None else self._serde.encode(row))
+            for k, (op, row, enc) in self._mem.items()}
         if puts:
             self.store.ingest_batch(WriteBatch(self.table_id, self.epoch,
                                                puts))

@@ -8,12 +8,10 @@ contiguous. `MemoryStateStore` is a sorted map with per-epoch shared
 buffers; epochs are tracked for sync semantics but everything stays in
 RAM.
 
-Left out of this slice (ROADMAP Queue A): the deferred-flush protocol
-(`defer_flush`, `take_deferred`, `run_deferred`) that durable executors
-use to overlap their barrier persist with the stream, per-fragment
-`discard_staged_tables`, committed-only and epoch-bounded reads
-(`get_committed`, `get_many`, `iter_range(committed_only, max_epoch)`),
-`reset_uncommitted`, and the durable LSM store.
+The durable LSM store is `hummock.py`. Both stores carry the
+deferred-flush protocol (`defer_flush`, `take_deferred`, `run_deferred`)
+that durable executors use to overlap their barrier persist with the
+stream, committed-only and epoch-bounded reads and `reset_uncommitted`.
 """
 
 from __future__ import annotations
@@ -61,15 +59,83 @@ class WriteBatch:
 
 class StateStore:
     """Epoch-versioned KV. Writes are staged per epoch; `sync(epoch)`
-    makes everything up to `epoch` durable."""
+    makes everything up to `epoch` durable.
+
+    Deferred-flush protocol (the checkpoint pipeline's hook): a stateful
+    executor's barrier-time persist splits into a device half that
+    launches at the barrier and a staged host half registered here with
+    `defer_flush(epoch, *stages)`, each stage a `(wait, cont)` pair:
+
+      * `wait()` -> payload: a PURE wait (`utils/d2h.py`'s
+        `PendingFetch.wait`, an event synchronize). The background
+        uploader runs it on a worker thread. It MUST NOT launch work on
+        the card: every launch stays on the event loop's thread.
+      * `cont(payload)`: runs on the event loop; may launch follow-up
+        device work (count-dependent prefix copies) and write and commit
+        state tables.
+
+    With `defer_enabled` False (the default, and the inline-sync mode)
+    all stages run at once, in order. The barrier coordinator's
+    background uploader enables deferral and drains the queue before it
+    seals each epoch."""
+
+    def __init__(self):
+        # FIFO of (epoch, stages, table_id); epoch = the shared-buffer
+        # epoch the flush writes into (it runs before that epoch seals)
+        self._deferred: list[tuple] = []
+        self.defer_enabled = False
+
+    @staticmethod
+    def _run_stages(stages) -> None:
+        for wait, cont in stages:
+            cont(wait() if wait is not None else None)
+
+    def defer_flush(self, epoch: int, *stages, table_id=None) -> None:
+        if self.defer_enabled:
+            self._deferred.append((epoch, stages, table_id))
+        else:
+            self._run_stages(stages)
+
+    def take_deferred(self, epoch: int) -> list[tuple]:
+        """Pop every stage list registered for epochs <= epoch, in
+        registration order."""
+        taken = [st for e, st, _t in self._deferred if e <= epoch]
+        self._deferred = [t for t in self._deferred if t[0] > epoch]
+        return taken
+
+    def discard_staged_tables(self, table_ids) -> None:
+        """Drop the staged (uncommitted shared-buffer) writes and pending
+        deferred flushes of exactly these tables."""
+        ids = set(table_ids)
+        self._deferred = [t for t in self._deferred if t[2] not in ids]
+        for buf in getattr(self, "_shared", {}).values():
+            for k in [k for k in buf
+                      if int.from_bytes(k[:4], "big") in ids]:
+                del buf[k]
+
+    def run_deferred(self, epoch: int) -> None:
+        for stages in self.take_deferred(epoch):
+            self._run_stages(stages)
 
     def get(self, key: bytes) -> Optional[bytes]:
         raise NotImplementedError
 
-    def iter_range(self, start: bytes, end: bytes
+    def get_committed(self, key: bytes) -> Optional[bytes]:
+        """Point get against the COMMITTED snapshot only: staged and
+        sealed-but-uncommitted epochs are invisible."""
+        raise NotImplementedError
+
+    def get_many(self, keys) -> list:
+        """Batch point-get over the same read view as `get`."""
+        return [self.get(k) for k in keys]
+
+    def iter_range(self, start: bytes, end: bytes,
+                   committed_only: bool = False,
+                   max_epoch: Optional[int] = None
                    ) -> Iterator[tuple[bytes, bytes]]:
-        """Live (key, value) pairs in [start, end), staged epochs
-        included, ascending by key."""
+        """Live (key, value) pairs in [start, end), ascending by key.
+        Staged epochs are included unless committed_only; max_epoch
+        bounds which staged epochs are visible."""
         raise NotImplementedError
 
     def ingest_batch(self, batch: WriteBatch) -> None:
@@ -88,6 +154,7 @@ class MemoryStateStore(StateStore):
     `sync` applies destructively."""
 
     def __init__(self):
+        super().__init__()
         self._keys: list[bytes] = []       # sorted, synced base
         self._vals: dict[bytes, bytes] = {}
         self._shared: dict[int, dict[bytes, Optional[bytes]]] = {}
@@ -100,10 +167,18 @@ class MemoryStateStore(StateStore):
                 return buf[key]
         return self._vals.get(key)
 
-    def iter_range(self, start: bytes, end: bytes):
-        streams = [sorted((k, v) for k, v in self._shared[e].items()
-                          if start <= k < end)
-                   for e in sorted(self._shared, reverse=True)]  # newest 1st
+    def get_committed(self, key: bytes) -> Optional[bytes]:
+        # the synced base map IS the committed view
+        return self._vals.get(key)
+
+    def iter_range(self, start: bytes, end: bytes,
+                   committed_only: bool = False,
+                   max_epoch: Optional[int] = None):
+        streams = [] if committed_only else [
+            sorted((k, v) for k, v in self._shared[e].items()
+                   if start <= k < end)
+            for e in sorted(self._shared, reverse=True)   # newest first
+            if max_epoch is None or e <= max_epoch]
 
         def base():
             i = bisect.bisect_left(self._keys, start)
@@ -118,6 +193,7 @@ class MemoryStateStore(StateStore):
         self._shared.setdefault(batch.epoch, {}).update(batch.puts)
 
     def sync(self, epoch: int) -> dict:
+        self.run_deferred(epoch)
         for e in sorted(e for e in self._shared if e <= epoch):
             for k, v in self._shared.pop(e).items():
                 if v is None:
@@ -135,3 +211,8 @@ class MemoryStateStore(StateStore):
 
     def committed_epoch(self) -> int:
         return self._committed_epoch
+
+    def reset_uncommitted(self) -> None:
+        """Recovery entry point (see HummockStateStore.reset_uncommitted)."""
+        self._shared.clear()
+        self._deferred.clear()

@@ -10,14 +10,24 @@ state, dirty bits, and the overflow accumulator, all on the device. At a
 barrier the flush compacts the dirty slots and lays out UpdateDelete /
 UpdateInsert pairs (Insert for born groups, Delete for died ones), as the
 reference's changelog contract says. The flush, watermark eviction and
-rehash are plain PyTorch for now (ROADMAP Queue B6/B8).
+rehash are plain PyTorch around K12 for now (ROADMAP Queue B8).
+
+Durable state (a state table of keys ++ one state per call ++
+row_count): at each barrier, BEFORE the flush resets the dirty bits,
+kernel K18 (`csrc/persist_view.cu`) compacts the dirty groups' rows
+(and the keys of groups the cleaning watermark evicts) into one packed
+int64 buffer; the counts and then the rows are fetched through the
+store's deferred-flush stages, so with a pipelined checkpoint the
+fetch and the state-table write run behind the stream. Recovery at the
+first barrier re-inserts the stored groups through K3 and scatters
+their states.
 
 State updates happen in place where the JAX package donated the state
 buffers to its jitted programs.
 
-Left out of this slice (ROADMAP Queue A): durable state (state table
-persist/recover), the memory manager (LRU stamps, spill, reload),
-retractable MIN/MAX, and the batched interval scan (`_make_apply_scan`).
+Left out of this slice (ROADMAP Queue A): the memory manager (LRU
+stamps, spill, reload), retractable MIN/MAX (a durable retractable call
+raises with them), and the batched interval scan (`_make_apply_scan`).
 """
 
 from __future__ import annotations
@@ -26,6 +36,7 @@ import ctypes
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..common.chunk import (
@@ -37,8 +48,11 @@ from ..device import resolve_device
 from ..expr.agg import AggCall, AggKind, AggSpec
 from ..ops import kernels
 from ..ops.hash_table import (
-    HashTable, compact_mask, lookup_or_insert, needs_rebuild,
+    HashTable, compact_mask, compact_mask_plain, lookup_or_insert,
+    needs_rebuild,
 )
+from ..state.state_table import StateTable
+from ..utils.d2h import PendingFetch, pack_rows, unpack_rows
 from .executor import Executor
 from .message import Barrier, BarrierKind, Watermark
 
@@ -72,6 +86,10 @@ MAX_CALLS = 8   # agg calls one K4 launch takes
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_PP = ctypes.POINTER(_P)
+_PI = ctypes.POINTER(_I)
+MAX_PERSIST_COLS = 16   # csrc/persist_view.cu
 
 # K4. Replaces stream/hash_agg.py:HashAggExecutor._apply_impl (248) with
 # expr/agg.py:AggSpec.partial (74) / combine (93).
@@ -157,9 +175,134 @@ def agg_apply(state: AggState, specs: Sequence[AggSpec],
                kernels.stream_of(slots))
 
 
+# ---------------------------------------------------------------- K18
+# Replaces stream/hash_agg.py:_persist_view_impl (891) with
+# _durable_cols_at (906), and _evict_keys_impl (358).
+K_PERSIST = kernels.register(kernels.CudaKernel(
+    "persist_view",
+    replaces="risingwave_tpu/stream/hash_agg.py:891",
+    functions={
+        "rw_persist_view": [_L, _P, _P, _P, _I, _PP, _PI, _P, _P, _P, _P],
+        "rw_evict_keys": [_L, _P, _P, _I, _PP, _PI, _I, _L, _P, _P, _P,
+                          _I, _P, _P],
+        "rw_pv_sums": [_L]}))
+
+
+def _np_dtype(t: torch.Tensor) -> np.dtype:
+    return torch.empty(0, dtype=t.dtype).numpy().dtype
+
+
+def durable_cols_at(state: AggState, sel: torch.Tensor) -> list:
+    """Durable-row columns (keys ++ one state per call ++ row_count)
+    gathered at `sel`."""
+    return ([tk[sel] for tk in state.table.keys]
+            + [st[sel] for st in state.agg_states] + [state.row_count[sel]])
+
+
+def persist_view_plain(state: AggState):
+    """Plain PyTorch version of K18's persist entry, step by step as the
+    JAX package's `_persist_view_impl`: the rows of the groups touched
+    since the last flush, compacted in slot order. Returns (cols, ops,
+    vis, n_dirty); ops = Insert where the group lives, else Delete; vis =
+    it lives now or lived at the last flush."""
+    C = state.table.capacity
+    exists_now = state.row_count > 0
+    d_slot, n_dirty = compact_mask_plain(state.dirty)
+    is_dirty = torch.arange(C, device=d_slot.device) < n_dirty
+    exists = exists_now[d_slot]
+    existed = state.prev_exists[d_slot]
+    vis = is_dirty & (exists | existed)
+    ops = torch.where(exists, OP_INSERT, OP_DELETE).to(torch.int8)
+    return durable_cols_at(state, d_slot), ops, vis, n_dirty
+
+
+def evict_keys_plain(state: AggState, j: int, watermark: int):
+    """Plain PyTorch version of K18's evict entry (the JAX package's
+    `_evict_keys_impl`): the compacted keys of live groups whose key j
+    lies below the cleaning watermark. Returns (keys, n)."""
+    evict = (state.table.occupied & (state.table.keys[j] < watermark)
+             & (state.row_count > 0))
+    sel, n = compact_mask_plain(evict)
+    return [tk[sel] for tk in state.table.keys], n
+
+
+def persist_pack_plain(state: AggState, j: Optional[int],
+                       watermark: Optional[int]):
+    """The plain versions in K18's output layout: (buffer, counts). The
+    buffer holds n_dirty persist rows of 2 + nk + calls + 1 lanes (ops,
+    vis, columns), then n_evict rows of the nk key lanes; counts =
+    [n_dirty, n_evict] on the device. Entries past them are 0."""
+    C = state.table.capacity
+    nk = len(state.table.keys)
+    dev = state.row_count.device
+    cols, ops, vis, nd = persist_view_plain(state)
+    p_rows = pack_rows([ops, vis, *cols])
+    wp = p_rows.shape[0] // C
+    buf = torch.zeros(C * wp + C * nk + 1, dtype=torch.int64, device=dev)
+    trash = buf.shape[0] - 1
+    ar = torch.arange(C * wp, device=dev)
+    buf[torch.where(ar < nd * wp, ar, trash)] = p_rows
+    nev = torch.zeros((), dtype=torch.int64, device=dev)
+    if j is not None:
+        keys, nev = evict_keys_plain(state, j, watermark)
+        ar = torch.arange(C * nk, device=dev)
+        buf[torch.where(ar < nev * nk, nd * wp + ar, trash)] = \
+            pack_rows(keys)
+    return buf[:trash], torch.stack([nd, nev])
+
+
+def persist_pack(state: AggState, j: Optional[int],
+                 watermark: Optional[int]):
+    """Kernel K18 on a CUDA device (the persist entry, then the evict
+    entry when j is given), the plain version on the CPU. Same contract
+    as `persist_pack_plain`, except that entries past the counted rows
+    are unspecified."""
+    dev = state.row_count.device
+    if dev.type == "cpu":
+        return persist_pack_plain(state, j, watermark)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    C = state.table.capacity
+    keys = list(state.table.keys)
+    cols = keys + list(state.agg_states)
+    nk = len(keys)
+    if len(cols) > MAX_PERSIST_COLS:
+        raise ValueError(f"K18 persists at most {MAX_PERSIST_COLS} columns")
+    for c in cols:
+        if c.dim() != 1 or c.shape[0] != C or not c.is_contiguous() \
+                or c.dtype == torch.float32:
+            raise ValueError("K18 gathers contiguous [C] columns of integer, "
+                             "bool or float64 state")
+    wp = 2 + len(cols) + 1
+    i64 = dict(dtype=torch.int64, device=dev)
+    buf = torch.empty(C * wp + C * nk, **i64)
+    counts = torch.zeros(2, **i64)
+    sums = torch.empty(K_PERSIST.lib().rw_pv_sums(C), dtype=torch.int32,
+                       device=dev)
+    stream = kernels.stream_of(state.row_count)
+    widths = kernels.int_array(c.element_size() for c in cols)
+    K_PERSIST.launches += 1
+    K_PERSIST.call("rw_persist_view", C, kernels.ptr(state.dirty),
+                   kernels.ptr(state.row_count),
+                   kernels.ptr(state.prev_exists), len(cols),
+                   kernels.ptr_array(cols), widths, kernels.ptr(sums),
+                   kernels.ptr(buf), kernels.ptr(counts[0:1]), stream)
+    if j is not None:
+        sums2 = torch.empty_like(sums)
+        K_PERSIST.launches += 1
+        K_PERSIST.call("rw_evict_keys", C, kernels.ptr(state.table.occupied),
+                       kernels.ptr(state.row_count), nk,
+                       kernels.ptr_array(keys), widths, j, int(watermark),
+                       kernels.ptr(sums2), kernels.ptr(buf),
+                       kernels.ptr(counts[0:1]), wp,
+                       kernels.ptr(counts[1:2]), stream)
+    return buf, counts
+
+
 class HashAggExecutor(Executor):
     def __init__(self, input: Executor, group_key_indices: Sequence[int],
                  agg_calls: Sequence[AggCall], capacity: int = 1 << 16,
+                 state_table: Optional[StateTable] = None,
                  group_key_names: Optional[Sequence[str]] = None,
                  cleaning_watermark_col: Optional[int] = None,
                  watchdog_interval: Optional[int] = 1,
@@ -178,6 +321,8 @@ class HashAggExecutor(Executor):
             + [Field(f"agg{j}", c.ret_type) for j, c in enumerate(agg_calls)]))
         self.pk_indices = tuple(range(len(self.group_key_indices)))
         self.capacity = capacity
+        self.state_table = state_table
+        self.persist_rows = 0        # rows the persists wrote
         # Watermark state cleaning: groups whose watermark-column key
         # falls below the watermark can never be touched again, so their
         # state is zeroed on the device at the barrier. The slot stays an
@@ -286,16 +431,6 @@ class HashAggExecutor(Executor):
         live = (state.row_count > 0).sum(dtype=torch.int64)
         return occ, live
 
-    def _evict_keys_impl(self, state: AggState, watermark: int):
-        """Compacted group keys of live groups below the cleaning
-        watermark — the rows a durable state table must delete when the
-        device state is zeroed."""
-        j = self.cleaning_watermark_key
-        evict = (state.table.occupied & (state.table.keys[j] < watermark)
-                 & (state.row_count > 0))
-        sel, n = compact_mask(evict)
-        return tuple(tk[sel] for tk in state.table.keys), n
-
     def _evict_impl(self, state: AggState, watermark: int) -> None:
         """Zero out groups below the state-cleaning watermark, in place.
         Slots stay occupied zombies; rebuilds reclaim them later."""
@@ -384,6 +519,109 @@ class HashAggExecutor(Executor):
         """Unresolved rows accumulated on the device (one fetch)."""
         return int(self._overflow_dev)
 
+    # ------------------------------------------------------- persistence
+    def _persist(self, barrier: Barrier) -> None:
+        """Durable flush, split as the store's deferred-flush stages:
+        K18 and the counts' copy launch here, behind the epoch's applies
+        and before the flush resets the dirty bits; the waits are pure
+        event synchronizes; the continuations (on the event loop) launch
+        the packed rows' copy, then write and commit the state table.
+        Inline when the store does not defer, on the uploader when it
+        does."""
+        if self.state_table is None:
+            return
+        st = self.state_table
+        evicting = (self.cleaning_watermark_key is not None
+                    and self._pending_clean_wm is not None)
+        buf, counts = persist_pack(
+            self.state, self.cleaning_watermark_key if evicting else None,
+            self._pending_clean_wm)
+        counts_fetch = PendingFetch(counts)
+        nk = len(self.state.table.keys)
+        key_dts = [_np_dtype(k) for k in self.state.table.keys]
+        row_dts = ([np.dtype(np.int8), np.dtype(bool)] + key_dts
+                   + [_np_dtype(a) for a in self.state.agg_states]
+                   + [np.dtype(np.int64)])
+        wp = len(row_dts)
+        new_epoch = barrier.epoch.curr
+        cell: dict = {}
+
+        def cont_prepare(host_counts):
+            cell["nd"], cell["nev"] = (int(x) for x in host_counts)
+            n = cell["nd"] * wp + cell["nev"] * nk
+            if n:
+                cell["fetch"] = PendingFetch(buf[:n])
+
+        def wait_rows():
+            f = cell.get("fetch")
+            return f.wait() if f is not None else None
+
+        def cont_apply(host):
+            nd, nev = cell["nd"], cell["nev"]
+            self.persist_rows += nd + nev
+            if nd:
+                ops, vis, *cols = unpack_rows(host, nd, row_dts)
+                st.write_chunk_columns(ops, cols, vis)
+            if nev:
+                self._apply_evict_deletes(
+                    unpack_rows(host[nd * wp:], nev, key_dts), nev)
+            st.commit(new_epoch)
+
+        st.store.defer_flush(barrier.epoch.prev,
+                             (counts_fetch.wait, cont_prepare),
+                             (wait_rows, cont_apply),
+                             table_id=st.table_id)
+
+    def _apply_evict_deletes(self, keys_np, n: int) -> None:
+        # evicted groups leave the durable table in the epoch their device
+        # state is zeroed; the non-pk columns of a delete are unused
+        pad = (0,) * (len(self.agg_calls) + 1)
+        self.state_table.write_chunk_rows(
+            [(OP_DELETE, tuple(k[r].item() for k in keys_np) + pad)
+             for r in range(n)])
+
+    def recover(self) -> None:
+        """Rebuild the device state from the state table, sized from the
+        stored row count (runtime growth is not persisted)."""
+        if self.state_table is None:
+            return
+        rows = [r for _, r in self.state_table.iter_all()]
+        if not rows:
+            return
+        need = 1 << max(self.capacity.bit_length() - 1,
+                        int(len(rows) / 0.7).bit_length())
+        self.capacity = max(self.capacity, need)
+        self.state = self._state_from_rows(rows, self.capacity)
+        self._occ_known = len(rows)
+
+    def _state_from_rows(self, rows: list, capacity: int) -> AggState:
+        """An AggState of `capacity` holding exactly `rows` (the durable
+        row layout): K3 places the keys, tensor scatters the states."""
+        dev = self.device
+        nk = len(self.group_key_indices)
+        key_cols = [torch.tensor([r[j] for r in rows], dtype=dt, device=dev)
+                    for j, dt in enumerate(self._key_dtypes)]
+        active = torch.ones(len(rows), dtype=torch.bool, device=dev)
+        st = self._empty_state(capacity)
+        table, slots, n_un = lookup_or_insert(st.table, key_cols, active)
+        if int(n_un):
+            raise RuntimeError("hash-agg recovery overflowed its table")
+        slots = slots.to(torch.int64)
+        agg_states = []
+        for j, (init, spec) in enumerate(zip(st.agg_states, self.specs)):
+            init[slots] = torch.tensor([r[nk + j] for r in rows],
+                                       dtype=init.dtype, device=dev)
+            agg_states.append(init)
+        st.row_count[slots] = torch.tensor(
+            [r[nk + len(self.specs)] for r in rows], dtype=torch.int64,
+            device=dev)
+        st.prev_exists[slots] = True
+        for spec, ags, pe in zip(self.specs, agg_states, st.prev_emit):
+            pe[slots] = spec.emit(ags)[slots].to(pe.dtype)
+        return AggState(table=table, agg_states=tuple(agg_states),
+                        row_count=st.row_count, dirty=st.dirty,
+                        prev_exists=st.prev_exists, prev_emit=st.prev_emit)
+
     # ----------------------------------------------------------- stream
     async def execute(self):
         first = True
@@ -393,12 +631,17 @@ class HashAggExecutor(Executor):
             elif isinstance(msg, Barrier):
                 if first or msg.kind is BarrierKind.INITIAL:
                     first = False
+                    if self.state_table is not None:
+                        self.state_table.init_epoch(msg.epoch.curr)
+                        self.recover()
                     yield msg
                     continue
                 stopping = msg.mutation is not None and msg.is_stop_any()
                 if self.watchdog_interval and (
                         stopping or self._applied_since_flush):
                     self._check_watchdog()
+                # the persist view reads the dirty bits the flush resets
+                self._persist(msg)
                 flushed = self._applied_since_flush
                 if flushed:
                     self._applied_since_flush = False

@@ -31,6 +31,16 @@ collision only costs a compare). One chunk's apply is:
 Errors accumulate on the device in `errs` [match overflow, delete miss,
 row overflow] and are read only by the watchdog (or by a caller).
 
+Durable state (one state table a side): at every barrier a side that
+changed is diffed against a device copy of itself as of the last
+checkpoint (kernel K17, `csrc/snapshot_diff.cu`: row hashes, two K11
+sorts, an exact compare against the first candidate, a compaction
+straight into one packed int64 buffer), the counts and then the packed
+rows are fetched, and deletes then inserts are written to the side's
+state table. Recovery replays the stored RIGHT rows, then the LEFT
+rows, through the apply (K6/K7) with a generous match buffer, so the
+degrees need no table of their own.
+
 On a CUDA device the match buffers, the second stores and the kernels'
 scratch are allocated once per side and reused: an output chunk's
 tensors are valid until this side's next apply, so a consumer that
@@ -38,9 +48,8 @@ keeps rows past that copies them (the device sinks reduce or copy at
 once). On the CPU every apply allocates, as the reference does.
 
 Left out of this slice (ROADMAP Queue A, A7): outer joins and degree
-transitions, temporal joins, durable state (`_diff_impl`, persist,
-recover), the memory manager (spill/reload), capacity growth
-(`_maybe_grow`) and the sharded subclass.
+transitions, temporal joins, the memory manager (spill/reload),
+capacity growth (`_maybe_grow`) and the sharded subclass.
 """
 
 from __future__ import annotations
@@ -51,6 +60,8 @@ from typing import Optional, Sequence
 
 import torch
 
+import numpy as np
+
 from ..common.chunk import (
     Column, StreamChunk, OP_DELETE, OP_INSERT, op_sign,
 )
@@ -60,6 +71,7 @@ from ..expr.program import ExprProgram
 from ..ops import kernels
 from ..ops.sort import stable_lexsort, stable_sort
 from ..ops.hashing import key_hash as _chain_hash, srl
+from ..utils.d2h import PendingFetch, as_i64_lanes, pack_rows, unpack_rows
 from .align import LEFT, RIGHT, barrier_align
 from .executor import Executor
 from .message import Barrier, BarrierKind, Watermark
@@ -98,6 +110,19 @@ K_MERGE = kernels.register(kernels.CudaKernel(
         _P, _I, _PP, _PP, _PI, _P, _P, _L, _P, _PP, _PP, _P, _P, _I, _L,
         _L, _P, _P, _P, _PP, _PP, _P, _P, _L, _I, _PI,
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P]}))
+
+
+# K17. Replaces stream/sorted_join.py:_diff_impl (655) with _row_lanes
+# (643) and key_hash (102).
+K_DIFF = kernels.register(kernels.CudaKernel(
+    "snapshot_diff",
+    replaces="risingwave_tpu/stream/sorted_join.py:655",
+    functions={
+        "rw_diff_rowhash": [_P, _I, _PP, _PP, _PI, _P, _L, _P, _P],
+        "rw_diff_compact": [_P, _PP, _PP, _P, _L, _P, _PP, _PP, _P, _L, _I,
+                            _PI, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _P],
+        "rw_diff_sums": [_L, _L]}))
 
 
 def key_hash(key_cols: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -457,6 +482,150 @@ def merge(own: SortedSideState, nh, iorder, n_new,
     return spare
 
 
+# ------------------------------------------------------------------ K17
+
+def row_lanes(st: SortedSideState) -> list[torch.Tensor]:
+    """Row identity and content lanes for diffing: khash ++ data
+    (invalid lanes 0, floats by their bits) ++ valid bits."""
+    lanes = [st.khash]
+    for c, v in zip(st.cols, st.valids):
+        lanes.append(torch.where(v, as_i64_lanes(c), 0))
+    lanes.extend(v.to(torch.int64) for v in st.valids)
+    return lanes
+
+
+def diff_plain(cur: SortedSideState, snap: SortedSideState):
+    """Plain PyTorch version of kernel K17, step by step as the JAX
+    package's `_diff_impl`: rows in `cur` not in `snap` (inserts) and
+    rows in `snap` not in `cur` (deletes), matched by row hash and an
+    exact lane compare against the first candidate of equal hash.
+    Returns compacted (del_cols, n_del, ins_cols, n_ins); only the first
+    n entries of each column are meaningful."""
+    def rowhash(st):
+        live = torch.arange(st.capacity, device=st.khash.device) < st.n
+        return torch.where(live, key_hash(row_lanes(st)), HSENTINEL), live
+
+    rh_c, live_c = rowhash(cur)
+    rh_s, live_s = rowhash(snap)
+    sorted_c, order_c = torch.sort(rh_c, stable=True)
+    sorted_s, order_s = torch.sort(rh_s, stable=True)
+    lanes_c = row_lanes(cur)
+    lanes_s = row_lanes(snap)
+
+    def unmatched(rh_a, live_a, lanes_a, rh_b_sorted, order_b, lanes_b,
+                  cap_b):
+        pos = torch.searchsorted(rh_b_sorted, rh_a).clamp(0, cap_b - 1)
+        cand = order_b[pos]
+        eq = rh_b_sorted[pos] == rh_a
+        for la, lb in zip(lanes_a, lanes_b):
+            eq &= la == lb[cand]
+        return live_a & ~eq
+
+    ins_mask = unmatched(rh_c, live_c, lanes_c, sorted_s, order_s, lanes_s,
+                         snap.capacity)
+    del_mask = unmatched(rh_s, live_s, lanes_s, sorted_c, order_c, lanes_c,
+                         cur.capacity)
+
+    def compact(mask, cols):
+        cap = mask.shape[0]
+        rank = torch.cumsum(mask.to(torch.int64), 0) - 1
+        sel = torch.zeros(cap + 1, dtype=torch.int64, device=mask.device)
+        sel[torch.where(mask, rank, cap)] = torch.arange(
+            cap, device=mask.device)
+        sel = sel[:cap]
+        return (tuple(c[sel] for c in cols),
+                mask.sum(dtype=torch.int64))
+
+    del_cols, n_del = compact(del_mask, snap.cols)
+    ins_cols, n_ins = compact(ins_mask, cur.cols)
+    return del_cols, n_del, ins_cols, n_ins
+
+
+def pack_diff_plain(cur: SortedSideState, snap: SortedSideState):
+    """`diff_plain` in K17's output layout: (packed int64 [(Cs + Cc) *
+    K], counts int64 [2]); deletes' rows first, then inserts', row
+    major. Entries past the counted rows are 0."""
+    del_cols, n_del, ins_cols, n_ins = diff_plain(cur, snap)
+    Cs, Cc, K = snap.capacity, cur.capacity, len(cur.cols)
+    dev = cur.khash.device
+    R = Cs + Cc
+    rows = torch.zeros(R + 1, K, dtype=torch.int64, device=dev)
+    ar_s = torch.arange(Cs, device=dev)
+    ar_c = torch.arange(Cc, device=dev)
+    rows[torch.where(ar_s < n_del, ar_s, R)] = pack_rows(del_cols).view(Cs, K)
+    rows[torch.where(ar_c < n_ins, n_del + ar_c, R)] = \
+        pack_rows(ins_cols).view(Cc, K)
+    return rows[:R].reshape(-1), torch.stack([n_del, n_ins])
+
+
+def snapshot_diff(cur: SortedSideState, snap: SortedSideState):
+    """Kernel K17 on a CUDA device, the plain version on the CPU. Same
+    contract as `pack_diff_plain`, except that entries past the counted
+    rows are unspecified. Counts stay on the device."""
+    dev = cur.khash.device
+    if dev.type == "cpu":
+        return pack_diff_plain(cur, snap)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    K = len(cur.cols)
+    if not 1 <= K <= MAX_COLS or len(snap.cols) != K:
+        raise ValueError(f"K17 diffs two stores of 1..{MAX_COLS} like "
+                         "columns")
+    for a, b in zip(cur.cols, snap.cols):
+        if a.dtype != b.dtype or (a.is_floating_point()
+                                  and a.dtype != torch.float64):
+            raise ValueError("K17 takes integer, bool or float64 columns "
+                             "of one dtype a column on both sides")
+    for st in (cur, snap):
+        for t in (st.khash, *st.cols, *st.valids):
+            if not t.is_contiguous() or t.device != dev \
+                    or t.shape[0] != st.capacity:
+                raise ValueError("K17 store columns must be contiguous, "
+                                 "of the store's capacity, on one device")
+    Cs, Cc = snap.capacity, cur.capacity
+    widths = kernels.int_array(c.element_size() for c in cur.cols)
+    P = kernels.ptr_array
+    i64 = dict(dtype=torch.int64, device=dev)
+    rh_s, rh_c = torch.empty(Cs, **i64), torch.empty(Cc, **i64)
+    out = torch.empty((Cs + Cc) * K, **i64)
+    counts = torch.empty(2, **i64)
+    mask = torch.empty(Cs + Cc, dtype=torch.uint8, device=dev)
+    sums = torch.empty(K_DIFF.lib().rw_diff_sums(Cs, Cc), dtype=torch.int32,
+                       device=dev)
+    K_DIFF.launches += 1
+    stream = kernels.stream_of(cur.khash)
+    for st, rh in ((snap, rh_s), (cur, rh_c)):
+        K_DIFF.call("rw_diff_rowhash", kernels.ptr(st.khash), K, P(st.cols),
+                    P(st.valids), widths, kernels.ptr(st.n), st.capacity,
+                    kernels.ptr(rh), stream)
+    sorted_s, order_s = stable_sort(rh_s, HASH_BITS)
+    sorted_c, order_c = stable_sort(rh_c, HASH_BITS)
+    K_DIFF.call("rw_diff_compact", kernels.ptr(snap.khash), P(snap.cols),
+                P(snap.valids), kernels.ptr(snap.n), Cs,
+                kernels.ptr(cur.khash), P(cur.cols), P(cur.valids),
+                kernels.ptr(cur.n), Cc, K, widths, kernels.ptr(rh_s),
+                kernels.ptr(rh_c), kernels.ptr(sorted_s),
+                kernels.ptr(order_s), kernels.ptr(sorted_c),
+                kernels.ptr(order_c), kernels.ptr(mask), kernels.ptr(sums),
+                kernels.ptr(out), kernels.ptr(counts), stream)
+    return out, counts
+
+
+def copy_side(dst: Optional[SortedSideState],
+              src: SortedSideState) -> SortedSideState:
+    """A device copy of `src`, into `dst`'s tensors when it has the same
+    shapes (the checkpoint snapshot, which no apply writes)."""
+    if dst is None or dst.capacity != src.capacity:
+        return SortedSideState(src.khash.clone(),
+                               tuple(c.clone() for c in src.cols),
+                               tuple(v.clone() for v in src.valids),
+                               src.degree.clone(), src.n.clone())
+    for d, s_ in zip((dst.khash, *dst.cols, *dst.valids, dst.degree, dst.n),
+                     (src.khash, *src.cols, *src.valids, src.degree, src.n)):
+        d.copy_(s_)
+    return dst
+
+
 # ------------------------------------------------------------- executor
 
 class SortedJoinExecutor(Executor):
@@ -476,6 +645,7 @@ class SortedJoinExecutor(Executor):
                  append_only: tuple[bool, bool] = (False, False),
                  clean_watermark_cols: tuple = (None, None),
                  clean_specs: Optional[tuple] = None,
+                 state_tables: Optional[tuple] = None,
                  watchdog_interval: Optional[int] = 1,
                  device="cuda"):
         if join_type != "inner":
@@ -544,6 +714,14 @@ class SortedJoinExecutor(Executor):
         self.identity = (f"SortedJoin(l={self.key_indices[0]}, "
                          f"r={self.key_indices[1]})")
         self.sides = [self._empty(s) for s in (LEFT, RIGHT)]
+        self.state_tables = (tuple(state_tables) if state_tables
+                             else (None, None))
+        # device copy of each side as of the last durable flush (the diff
+        # base); a copy, not an alias, because K7 rewrites the stores in
+        # place through the spare swap
+        self._snap: list[Optional[SortedSideState]] = [None, None]
+        self._flush_dirty = [False, False]
+        self.persist_rows = 0        # rows the persists wrote
         # second stores K7 writes into (CUDA only; made at first use)
         self._spare: list[Optional[SortedSideState]] = [None, None]
         self._bufs = [_Buffers(self.device), _Buffers(self.device)]
@@ -583,12 +761,13 @@ class SortedJoinExecutor(Executor):
         return [int(x) for x in self._errs_dev.cpu()]
 
     # ------------------------------------------------------------- apply
-    def _apply(self, side: int, chunk: StreamChunk, wm: int):
+    def _apply(self, side: int, chunk: StreamChunk, wm: int,
+               match_factor: Optional[int] = None):
         """Probe the other side, emit matches, evict+update this side.
         Returns the match buffer's (columns, ops, emit)."""
         key_idx = self.key_indices[side]
         N = chunk.capacity
-        M = self.match_factors[side] * N
+        M = (match_factor or self.match_factors[side]) * N
         other = self.sides[1 - side]
         key_cols = [chunk.columns[i].data for i in key_idx]
         active = chunk.vis
@@ -655,6 +834,84 @@ class SortedJoinExecutor(Executor):
             if v is not None and v > self._pending_clean[t]:
                 self._pending_clean[t] = v
 
+    # ------------------------------------------------------- persistence
+    def _persist(self, barrier: Barrier) -> None:
+        for s in (LEFT, RIGHT):
+            st = self.state_tables[s]
+            if st is None:
+                continue
+            if self._flush_dirty[s]:
+                self._persist_diff_write(st, self.sides[s], self._snap[s])
+                self._snap[s] = copy_side(self._snap[s], self.sides[s])
+                self._flush_dirty[s] = False
+            st.commit(barrier.epoch.curr)
+
+    def _persist_diff_write(self, st, cur: SortedSideState,
+                            snap: SortedSideState) -> None:
+        """Diff one side against its snapshot (K17) and write the changed
+        rows: two fetches, the counts and then the packed rows. Deletes
+        go strictly before inserts: an updated row diffs as delete(old)
+        plus insert(new) on one key."""
+        packed, counts = snapshot_diff(cur, snap)
+        nd, ni = (int(x) for x in PendingFetch(counts).wait())
+        if not nd and not ni:
+            return
+        self.persist_rows += nd + ni
+        K = len(cur.cols)
+        host = PendingFetch(packed[:(nd + ni) * K]).wait()
+        rows = unpack_rows(host, nd + ni, [
+            torch.empty(0, dtype=c.dtype).numpy().dtype for c in cur.cols])
+        if nd:
+            st.write_chunk_columns(np.full(nd, OP_DELETE, dtype=np.int8),
+                                   [c[:nd] for c in rows],
+                                   np.ones(nd, dtype=bool))
+        if ni:
+            st.write_chunk_columns(np.full(ni, OP_INSERT, dtype=np.int8),
+                                   [c[nd:] for c in rows],
+                                   np.ones(ni, dtype=bool))
+
+    def _recover_reset(self, s: int, rows: list) -> None:
+        """Size a side for recovery and reset it to empty."""
+        n = len(rows)
+        while n > 0.7 * self.capacity[s]:
+            self.capacity[s] *= 2
+        self.sides[s] = self._empty(s)
+        self._spare[s] = None
+
+    def recover(self) -> None:
+        """Rebuild device state from the per-side state tables: replay the
+        RIGHT rows first (LEFT is empty, so nothing matches), then the
+        LEFT rows, whose probes of the restored RIGHT side run as in the
+        stream. Replay outputs are discarded."""
+        if all(st is None for st in self.state_tables):
+            return
+        rows_by_side = [
+            [] if st is None else [r for _, r in st.iter_all()]
+            for st in self.state_tables]
+        for s in (LEFT, RIGHT):
+            self._recover_reset(s, rows_by_side[s])
+        batch = 1 << 12
+        # generous match buffer: a replay batch probes the full restored
+        # other side; the watchdog fail-stops on an overflow
+        mf = max(self.match_factor, 64)
+        for s in (RIGHT, LEFT):
+            rows = rows_by_side[s]
+            sch = self.inputs[s].schema
+            for i in range(0, len(rows), batch):
+                part = rows[i:i + batch]
+                cap = 1 << max(1, (len(part) - 1).bit_length())
+                cols = []
+                for k, f in enumerate(sch):
+                    a = np.zeros(cap, dtype=f.data_type.np_dtype)
+                    a[:len(part)] = [r[k] for r in part]
+                    cols.append(Column(torch.from_numpy(a).to(self.device)))
+                chunk = StreamChunk(
+                    tuple(cols),
+                    torch.zeros(cap, dtype=torch.int8, device=self.device),
+                    torch.arange(cap, device=self.device) < len(part), sch)
+                self._apply(s, chunk, NO_WATERMARK, match_factor=mf)
+        self._snap = [copy_side(None, self.sides[s]) for s in (LEFT, RIGHT)]
+
     # --------------------------------------------------------- watchdog
     def _check_watchdog(self) -> None:
         vals = torch.cat([self._errs_dev, self.sides[LEFT].n.view(1),
@@ -681,12 +938,17 @@ class SortedJoinExecutor(Executor):
                 self._cleaned_to[s] = self._pending_clean[s]
                 cols, ops, vis = self._apply(s, msg, self._pending_clean[s])
                 self._dirty[s] = True
+                self._flush_dirty[s] = True
                 yield StreamChunk(tuple(cols[i] for i in self.output_indices),
                                   ops, vis, self.schema)
             elif kind == "barrier":
                 barrier: Barrier = msg
                 if first or barrier.kind is BarrierKind.INITIAL:
                     first = False
+                    for st in self.state_tables:
+                        if st is not None:
+                            st.init_epoch(barrier.epoch.curr)
+                    self.recover()
                     yield barrier
                     continue
                 stopping = (barrier.mutation is not None
@@ -701,11 +963,13 @@ class SortedJoinExecutor(Executor):
                             and not self._dirty[s2]):
                         self._evict(s2, self._pending_clean[s2])
                         self._cleaned_to[s2] = self._pending_clean[s2]
+                        self._flush_dirty[s2] = True
                     self._dirty[s2] = False
                 # watchdog before the barrier passes: errors fail-stop
                 # this epoch
                 if self.watchdog_interval and (stopping or dirty_any):
                     self._check_watchdog()
+                self._persist(barrier)
                 yield barrier
             else:
                 wm: Watermark = msg

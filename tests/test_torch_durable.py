@@ -1,0 +1,443 @@
+"""Durable q7 in the port against the JAX package.
+
+Kernels (plain versions on the CPU, inputs made from a seed with numpy):
+K17's `diff_plain` against JAX's `SortedJoinExecutor._diff_impl` and
+K18's `persist_view_plain` / `evict_keys_plain` against JAX's
+`HashAggExecutor._persist_view_impl` / `_evict_keys_impl`, exactly,
+duplicate identical rows and NULL lanes included; each packed layout
+unpacks to the same rows.
+
+Sessions (bench_q7_kill's statements at a small size: 128-bid chunks,
+two a barrier, one bid every 20 ms, so a barrier spans 5.12 s of event
+time, under the lag minus the window, where the join counts no delete
+miss): epochs come from a counter instead of the wall clock in both
+engines, so row ids, and with them every state table, are comparable.
+  * after every barrier each state table holds the same key/value bytes
+    in both engines, and the CATALOG object is the same bytes;
+  * a store the JAX session wrote for N barriers, then crashed, recovers
+    in the port's session, which runs M more: its MV equals a JAX run of
+    N + M barriers and the numpy recount;
+  * the port's own crash(), reopen and recover() gives the same MV.
+
+At bench_q7d's statements with four chunks a barrier, where the delete
+misses depend on how far the join is behind, the port's durable and
+volatile sessions count what JAX's durable and volatile sessions count.
+"""
+
+import asyncio
+import types
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+import risingwave_tpu.meta.barrier_manager as jax_bm
+from risingwave_tpu.frontend import Session as JaxSession
+from risingwave_tpu.ops.hash_table import HashTable as JaxHT
+from risingwave_tpu.state import HummockStateStore as JaxH
+from risingwave_tpu.state import LocalFsObjectStore as JaxLocalFs
+from risingwave_tpu.stream.hash_agg import AggState as JaxAggState
+from risingwave_tpu.stream.hash_agg import HashAggExecutor as JaxHashAgg
+from risingwave_tpu.stream.sorted_join import (
+    SortedJoinExecutor as JaxSJ, SortedSideState as JaxSide)
+from risingwave_tpu.stream.source import SourceExecutor as JaxSource
+
+W = 10_000_000
+CS, PER, INTER_US, N, M = 128, 256, 20_000, 4, 4
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _port():
+    """Import torch and the port when these tests run, not at
+    collection."""
+    global torch, chip_smoke, port_bm, sj, ha, d2h, PortSession, H, LocalFs
+    global PortSource, NexmarkConfig
+    import torch
+    import chip_smoke
+    import risingwave_tpu_torch.meta.barrier_manager as port_bm
+    from risingwave_tpu_torch.connectors.nexmark import NexmarkConfig
+    from risingwave_tpu_torch.frontend import Session as PortSession
+    from risingwave_tpu_torch.state import HummockStateStore as H
+    from risingwave_tpu_torch.state import LocalFsObjectStore as LocalFs
+    from risingwave_tpu_torch.stream import SourceExecutor as PortSource
+    from risingwave_tpu_torch.stream import hash_agg as ha
+    from risingwave_tpu_torch.stream import sorted_join as sj
+    from risingwave_tpu_torch.utils import d2h
+
+
+# ------------------------------------------------------------------ K17
+
+def _side_np(rng, C, n, kinds, null_p=0.0, dup=False):
+    kh = rng.integers(0, 1 << 62, C, dtype=np.int64)
+    cols, valids = [], []
+    for k in kinds:
+        if k == "f64":
+            cols.append(rng.normal(size=C) * 1e3)
+        elif k == "i32":
+            cols.append(rng.integers(-100, 100, C).astype(np.int32))
+        else:
+            cols.append(rng.integers(-50, 50, C, dtype=np.int64))
+        valids.append(rng.random(C) >= null_p)
+    if dup:                          # every other row repeats the one before
+        src = np.arange(C) - (np.arange(C) % 2)
+        kh, cols, valids = kh[src], [c[src] for c in cols], \
+            [v[src] for v in valids]
+    return kh, cols, valids, n
+
+
+def _mutated(rng, side, frac):
+    kh, cols, valids, n = side
+    C = kh.shape[0]
+    hit = rng.random(C) < frac
+    cols = [c.copy() for c in cols]
+    cols[0] = np.where(hit, cols[0] + 1, cols[0]).astype(cols[0].dtype)
+    roll = rng.integers(0, C)
+    return (np.roll(kh, roll), [np.roll(c, roll) for c in cols],
+            [np.roll(v, roll) for v in valids], n)
+
+
+def _jax_side(side):
+    kh, cols, valids, n = side
+    return JaxSide(jnp.asarray(kh), tuple(jnp.asarray(c) for c in cols),
+                   tuple(jnp.asarray(v) for v in valids),
+                   jnp.zeros(kh.shape[0], dtype=jnp.int32),
+                   jnp.asarray(n, dtype=jnp.int32))
+
+
+def _port_side(side):
+    kh, cols, valids, n = side
+    return sj.SortedSideState(
+        torch.from_numpy(kh), tuple(torch.from_numpy(c) for c in cols),
+        tuple(torch.from_numpy(v) for v in valids),
+        torch.zeros(kh.shape[0], dtype=torch.int32),
+        torch.tensor(n, dtype=torch.int32))
+
+
+DIFF_CASES = {
+    "mixed": dict(kinds=("i64", "i64", "i64"), frac=0.2),
+    "empty": dict(kinds=("i64", "i64"), frac=0.0),
+    "duplicates": dict(kinds=("i64", "i64"), frac=0.3, dup=True),
+    "nulls": dict(kinds=("i64", "i32", "i64"), frac=0.2, null_p=0.4),
+    "float64": dict(kinds=("i64", "f64"), frac=0.2),
+    "full": dict(kinds=("i64", "i64"), frac=0.1, full=True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DIFF_CASES))
+def test_k17_plain_matches_jax_diff(case):
+    p = DIFF_CASES[case]
+    rng = np.random.default_rng(sorted(DIFF_CASES).index(case))
+    C = 512
+    n = C if p.get("full") else 300
+    snap = _side_np(rng, C, n, p["kinds"], p.get("null_p", 0.0),
+                    p.get("dup", False))
+    cur = (_mutated(rng, snap, p["frac"]) if p["frac"] else snap)
+    ns = types.SimpleNamespace(_row_lanes=JaxSJ._row_lanes)
+    jd, jnd, ji, jni = JaxSJ._diff_impl(ns, _jax_side(cur), _jax_side(snap))
+    pd, pnd, pi, pni = sj.diff_plain(_port_side(cur), _port_side(snap))
+    assert int(pnd) == int(jnd) and int(pni) == int(jni)
+    for a, b in zip(pd + pi, jd + ji):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    if case == "empty":
+        assert int(pnd) == int(pni) == 0
+    else:
+        assert int(pnd) > 0 and int(pni) > 0
+    # the packed layout K17 writes: deletes' rows, then inserts'
+    packed, counts = sj.pack_diff_plain(_port_side(cur), _port_side(snap))
+    nd, ni = (int(x) for x in counts)
+    rows = d2h.unpack_rows(packed.numpy(), nd + ni,
+                           [c.dtype for c in cur[1]])
+    for r, a, b in zip(rows, jd, ji):
+        np.testing.assert_array_equal(
+            r, np.concatenate([np.asarray(a)[:nd], np.asarray(b)[:ni]]))
+
+
+# ------------------------------------------------------------------ K18
+
+def _agg_np(rng, C, n_keys=1):
+    occ = rng.random(C) < 0.6
+    keys = [np.where(occ, rng.integers(0, 40, C), 0).astype(np.int64)
+            for _ in range(n_keys)]
+    rc = np.where(occ, rng.integers(0, 3, C), 0).astype(np.int64)
+    return dict(keys=keys, occ=occ,
+                states=[rng.integers(-99, 99, C, dtype=np.int64),
+                        rng.normal(size=C)],
+                rc=rc, dirty=occ & (rng.random(C) < 0.5),
+                prev=occ & (rng.random(C) < 0.5))
+
+
+def _jax_agg(a):
+    return JaxAggState(
+        JaxHT(tuple(jnp.asarray(k) for k in a["keys"]),
+              jnp.asarray(a["occ"])),
+        tuple(jnp.asarray(s) for s in a["states"]), jnp.asarray(a["rc"]),
+        jnp.asarray(a["dirty"]), jnp.asarray(a["prev"]),
+        tuple(jnp.zeros_like(jnp.asarray(s)) for s in a["states"]))
+
+
+def _port_agg(a):
+    from risingwave_tpu_torch.ops.hash_table import HashTable
+    t = torch.from_numpy
+    return ha.AggState(
+        HashTable(tuple(t(k) for k in a["keys"]), t(a["occ"])),
+        tuple(t(s) for s in a["states"]), t(a["rc"]), t(a["dirty"]),
+        t(a["prev"]), tuple(torch.zeros_like(t(s)) for s in a["states"]))
+
+
+@pytest.mark.parametrize("wm", [20, -1, 1 << 40])
+def test_k18_plain_matches_jax_persist_and_evict(wm):
+    rng = np.random.default_rng(wm & 0xFFFF)
+    a = _agg_np(rng, 256, n_keys=2)
+    ns = types.SimpleNamespace(_retractable=(False, False), minput_k=32,
+                               cleaning_watermark_key=1)
+    ns._durable_cols_at = lambda st, sel: JaxHashAgg._durable_cols_at(
+        ns, st, sel)
+    jc, jops, jvis, jnd = JaxHashAgg._persist_view_impl(ns, _jax_agg(a))
+    pc, pops, pvis, pnd = ha.persist_view_plain(_port_agg(a))
+    assert int(pnd) == int(jnd) > 0
+    for x, y in zip([pops, pvis, *pc], [jops, jvis, *jc]):
+        np.testing.assert_array_equal(x.numpy(), np.asarray(y))
+    jk, jn = JaxHashAgg._evict_keys_impl(ns, _jax_agg(a), wm)
+    pk, pn = ha.evict_keys_plain(_port_agg(a), 1, wm)
+    assert int(pn) == int(jn)
+    assert (int(pn) == 0) == (wm < 0)
+    for x, y in zip(pk, jk):
+        np.testing.assert_array_equal(x.numpy(), np.asarray(y))
+    # the packed buffer: persist rows (ops, vis, keys, states, row count),
+    # then the evicted keys
+    buf, counts = ha.persist_pack_plain(_port_agg(a), 1, wm)
+    nd, nev = (int(x) for x in counts)
+    dts = [np.int8, bool, np.int64, np.int64, np.int64, np.float64,
+           np.int64]
+    rows = d2h.unpack_rows(buf.numpy(), nd, dts)
+    for r, y in zip(rows, [jops, jvis, *jc]):
+        np.testing.assert_array_equal(r, np.asarray(y)[:nd])
+    ev = d2h.unpack_rows(buf.numpy()[nd * len(dts):], nev,
+                         [np.int64, np.int64])
+    for r, y in zip(ev, jk):
+        np.testing.assert_array_equal(r, np.asarray(y)[:nev])
+
+
+# ------------------------------------------------------------- sessions
+
+def _ddl():
+    """bench_q7_kill's statements with CS-bid chunks, one bid every
+    INTER_US and a PER-row rate limit (the pacing rides the catalog into
+    a recovery)."""
+    return [st.replace("rate_limit=65536", f"rate_limit={PER}")
+            .replace("inter_event_us=250,", f"inter_event_us={INTER_US},")
+            for st in chip_smoke.with_chunk(
+                chip_smoke.Q7K_DDL, chip_smoke.Q7K_CHUNK, CS)]
+
+
+def _walk(dep, cls):
+    out = []
+    for roots in dep.roots.values():
+        for r in roots:
+            node = r
+            while node is not None:
+                if isinstance(node, cls):
+                    out.append(node)
+                node = getattr(node, "input", None)
+    return out
+
+
+async def _paced(s, source_cls, start, stop):
+    """Barriers start..stop-1, barrier r once the source emitted
+    r * PER bids (its rate limit is PER a barrier); a snapshot of the
+    whole store after each, uploads drained."""
+    dep = s.catalog.mvs["q7"].deployment
+    src = _walk(dep, source_cls)[0]
+    snaps = []
+    for r in range(start, stop):
+        while src.connector.offset < r * PER:
+            for t in dep.tasks:
+                if t.done():
+                    t.result()
+            await asyncio.sleep(0)
+        b = await s.coord.inject_barrier()
+        await s.coord.wait_collected(b)
+        await s.coord.drain_uploads()
+        snaps.append(list(s.store.iter_range(b"", b"")))
+    return snaps
+
+
+def _mv(s):
+    return sorted(r for _, r in s.catalog.mvs["q7"].table.iter_all())
+
+
+def _jax_session(path, rounds, crash=False):
+    async def go():
+        s = JaxSession(store=JaxH(JaxLocalFs(path)))
+        for st in _ddl():
+            await s.execute(st)
+        snaps = await _paced(s, JaxSource, 1, rounds + 1)
+        mv = _mv(s)
+        catalog = s.store.objects.read("CATALOG")
+        if crash:
+            await s.crash()
+        return snaps, mv, catalog
+    return asyncio.run(go())
+
+
+@pytest.fixture(scope="module")
+def det_epochs():
+    """Epochs from a counter in both engines (row ids derive from them)."""
+    with pytest.MonkeyPatch.context() as mp:
+        for mod in (jax_bm, port_bm):
+            mp.setattr(mod, "next_epoch", lambda prev: prev + (1 << 16))
+        yield
+
+
+@pytest.fixture(scope="module")
+def jax_runs(det_epochs, tmp_path_factory):
+    full = _jax_session(str(tmp_path_factory.mktemp("jfull")), N + M)
+    part_dir = str(tmp_path_factory.mktemp("jpart"))
+    _jax_session(part_dir, N, crash=True)
+    return dict(full=full, part_dir=part_dir)
+
+
+def _recount():
+    return chip_smoke.q7_recount((N + M) * PER,
+                                 NexmarkConfig(inter_event_us=INTER_US),
+                                 "cpu")
+
+
+def test_state_tables_equal_jax_after_every_barrier(jax_runs, tmp_path):
+    snaps, mv, catalog = jax_runs["full"]
+
+    async def go():
+        s = PortSession(device="cpu",
+                        store=H(LocalFs(str(tmp_path / "p"))))
+        for st in _ddl():
+            await s.execute(st)
+        got = await _paced(s, PortSource, 1, N + M + 1)
+        return got, _mv(s), s.store.objects.read("CATALOG"), \
+            s.catalog.mvs["q7"].deployment
+    got, pmv, pcat, dep = asyncio.run(go())
+    assert len(got) == len(snaps) == N + M
+    for r, (a, b) in enumerate(zip(got, snaps)):
+        tables = {int.from_bytes(k[:4], "big") for k, _ in b}
+        # source offsets, agg, both join sides, the MV
+        assert tables == {1, 2, 3, 4, 5}, tables
+        assert a == b, f"state differs after barrier {r + 1}"
+    assert pmv == mv and pcat == catalog
+    join = dep.executors(sj.SortedJoinExecutor)[0]
+    assert join.errs() == [0, 0, 0] and join.persist_rows > 0
+    assert chip_smoke.q7_delete_misses(
+        (N + M) * PER, PER, NexmarkConfig(inter_event_us=INTER_US),
+        "cpu") == 0
+
+
+def test_store_written_by_jax_recovers_in_port(jax_runs):
+    _, mv, _ = jax_runs["full"]
+
+    async def go():
+        s = PortSession(device="cpu",
+                        store=H.open(LocalFs(jax_runs["part_dir"])))
+        await s.recover()
+        await _paced(s, PortSource, N + 1, N + M + 1)
+        return _mv(s)
+    got = asyncio.run(go())
+    assert got == mv
+    assert chip_smoke.mv_counter(got) == _recount() and len(got) >= 3
+
+
+def test_port_crash_and_recover(jax_runs, tmp_path):
+    _, mv, _ = jax_runs["full"]
+    path = str(tmp_path / "p")
+
+    async def first():
+        s = PortSession(device="cpu", store=H(LocalFs(path)))
+        for st in _ddl():
+            await s.execute(st)
+        await _paced(s, PortSource, 1, N + 1)
+        await s.crash()
+
+    async def second():
+        s = PortSession(device="cpu", store=H.open(LocalFs(path)))
+        await s.recover()
+        await _paced(s, PortSource, N + 1, N + M + 1)
+        return _mv(s)
+
+    asyncio.run(first())
+    assert asyncio.run(second()) == mv
+
+
+def _short_barrier_ddl(per):
+    """bench_q7d's statements at 128-bid chunks that span as much event
+    time as q7d's 32768-bid ones (8.9 s), the source throttled to `per`
+    bids between barriers."""
+    out = []
+    for st in chip_smoke.with_chunk(chip_smoke.Q7D_DDL, chip_smoke.Q7D_CHUNK,
+                                    CS):
+        st = st.replace("inter_event_us=250,", "inter_event_us=64000,")
+        st = st.replace(f"streaming_join_capacity = {1 << 18}",
+                        "streaming_join_capacity = 4096")
+        if st.startswith("CREATE SOURCE"):
+            st = st[:-1] + f", rate_limit={per})"
+        out.append(st)
+    return out
+
+
+def _jax_join_errs(ddl, per, rounds, store):
+    """The JAX session's join error counters after `rounds` barriers
+    paced like chip_smoke.q7s_run (the last one the Stop barrier)."""
+    async def go():
+        s = JaxSession(store=store)
+        for st in ddl:
+            await s.execute(st)
+        dep = s.catalog.sinks["q7"].deployment
+        src = _walk(dep, JaxSource)[0]
+        join = _walk(dep, JaxSJ)[0]
+        for r in range(1, rounds + 1):
+            while src.connector.offset < r * per:
+                await asyncio.sleep(0)
+            if r < rounds:
+                b = await s.coord.inject_barrier()
+                await s.coord.wait_collected(b)
+            else:
+                await s.coord.stop_all({a.actor_id for a in dep.actors})
+        await asyncio.gather(*dep.tasks)
+        return [int(x) for x in np.asarray(join._errs_dev)]
+    return asyncio.run(go())
+
+
+def test_q7_misses_at_short_barriers_match_jax(tmp_path):
+    """Four 8.9 s chunks a barrier (35.6 s of event time, q7d's geometry
+    at 4 chunks): the join applies the agg's update for a straddling
+    window before it has read the epoch's last left watermarks, so
+    fewer deletes miss than straddling windows whose max rises, and
+    q7_delete_misses refuses to predict the count. The port's durable
+    session counts what its volatile session and the JAX package's
+    durable and volatile sessions count."""
+    per, rounds = 4 * CS, 8
+    ddl = _short_barrier_ddl(per)
+    port = [chip_smoke.q7s_run("cpu", d, rounds, per, store=st)["join"]
+            .errs() for d, st in (
+                (ddl, H(LocalFs(str(tmp_path / "p")))),
+                (chip_smoke.volatile(ddl), None))]
+    jax = [_jax_join_errs(ddl, per, rounds,
+                          JaxH(JaxLocalFs(str(tmp_path / "j")))),
+           _jax_join_errs(chip_smoke.volatile(ddl), per, rounds, None)]
+    assert port + jax == [port[0]] * 4 and port[0][0::2] == [0, 0]
+    cfg = NexmarkConfig(inter_event_us=64000)
+    assert port[0][1] < chip_smoke.q7_rising_straddles(per * rounds, per,
+                                                       cfg, "cpu")
+    with pytest.raises(ValueError, match="how far the join is behind"):
+        chip_smoke.q7_delete_misses(per * rounds, per, cfg, "cpu")
+
+
+def test_durable_varchar_table_raises(tmp_path):
+    """The string dictionary's durable log is not ported: a durable
+    table holding a VARCHAR column refuses to build rather than persist
+    dictionary ids no later incarnation could decode."""
+    async def go():
+        s = PortSession(device="cpu",
+                        store=H(LocalFs(str(tmp_path / "p"))))
+        await s.execute("CREATE SOURCE person WITH (connector='nexmark', "
+                        "table='person', chunk_size=64)")
+        with pytest.raises(NotImplementedError, match="VARCHAR"):
+            await s.execute("CREATE MATERIALIZED VIEW m AS "
+                            "SELECT id, name FROM person")
+    asyncio.run(go())

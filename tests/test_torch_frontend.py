@@ -51,12 +51,12 @@ def bench_ddl(func: str, **names) -> list:
     return eval(code, {"W": W, **names})
 
 
-def bench_q17_ddl() -> list:
+def bench_q17_ddl(func: str = "bench_q17") -> list:
     """bench_q17's statement list (the `for stmt in [...]` loop), with
-    the function's own CS."""
+    the function's own CS; or another function's such list."""
     tree = ast.parse((ROOT / "bench.py").read_text())
     fn = next(n for n in tree.body if isinstance(
-        n, ast.AsyncFunctionDef) and n.name == "bench_q17")
+        n, ast.AsyncFunctionDef) and n.name == func)
     names = {n.targets[0].id: ast.literal_eval(n.value)
              for n in fn.body if isinstance(n, ast.Assign)
              and isinstance(n.targets[0], ast.Name)
@@ -97,6 +97,8 @@ BENCH_DDL = {
     "q5": lambda: bench_ddl("_q5_ddl", cs=131072),
     "q5_mesh": lambda: bench_ddl("_q5_ddl", cs=32768),
     "q7": lambda: bench_ddl("_q7_ddl", cs=131072),
+    "q7d": lambda: bench_ddl("bench_q7d"),
+    "q7_kill": lambda: bench_q17_ddl("bench_q7_kill"),
     "q8": lambda: bench_ddl("bench_q8"),
 }
 
@@ -192,11 +194,14 @@ def _plans(ddl):
     return asyncio.run(jax_plan()), asyncio.run(port_plan())
 
 
-@pytest.mark.parametrize("query", ["q8", "q8_mv", "q1", "q17", "q17_mv"])
+@pytest.mark.parametrize("query", ["q8", "q8_mv", "q1", "q17", "q17_mv",
+                                   "q7", "q7d", "q7_kill"])
 def test_planner_gives_jax_fragments_and_arguments(query):
     ddl = {"q8": BENCH_DDL["q8"], "q8_mv": lambda: WM_Q8_DDL,
            "q1": BENCH_DDL["q1"], "q17": BENCH_DDL["q17"],
-           "q17_mv": lambda: BENCH_DDL["q17"]()[:-1] + [Q17_MV]}[query]()
+           "q17_mv": lambda: BENCH_DDL["q17"]()[:-1] + [Q17_MV],
+           "q7": BENCH_DDL["q7"], "q7d": BENCH_DDL["q7d"],
+           "q7_kill": BENCH_DDL["q7_kill"]}[query]()
     jp, pp = _plans(ddl)
     js = _graph_sig(jp.graph, JExchange, strip=JAX_ONLY_ARGS)
     ps = _graph_sig(pp.graph, PExchange)
@@ -242,12 +247,36 @@ def test_planner_gives_jax_fragments_and_arguments(query):
         assert repr(a["residue"]) == "less_than($2, $4)"
         assert a["capacity"] == 1 << 20 and a["dim_capacity"] == 1 << 16
         assert a["watchdog_interval"] is None and a["durable"] is False
+    if query.startswith("q7"):
+        # the source broadcast to the TUMBLE projection and the bids; the
+        # max agg (hash dispatch on window_end, cleaning on it) and the
+        # sorted join, durable unless q7's volatile statements say not
+        def node_of(kind):
+            for f in pp.graph.fragments.values():
+                n = f.root
+                while getattr(n, "kind", None) not in (kind, None):
+                    n = n.inputs[0] if n.inputs else None
+                if getattr(n, "kind", None) == kind:
+                    return f, n
+        frag, agg = node_of("hash_agg")
+        a = agg.args
+        assert frag.dispatch == "hash" and frag.parallelism == 1
+        assert a["cleaning_watermark_col"] == 0
+        assert a["durable"] is (query != "q7")
+        assert [c.kind.value for c in a["agg_calls"]] == ["max"]
+        assert a["capacity"] == 1 << 13
+        _, join = node_of("sorted_join")
+        assert join.args["durable"] is (query != "q7")
+        assert join.args["clean_specs"] == (("band", 3, 1, -W, None),
+                                            ("band", 1, 3, 0, 1))
 
 
 @pytest.mark.parametrize("sql", [
-    # aggregates / GROUP BY / HOP (q5), subquery join (q7)
+    # aggregates / GROUP BY / HOP (q5), a HOP window with GROUP BY
     lambda: BENCH_DDL["q5"]()[-1],
-    lambda: BENCH_DDL["q7"]()[-1],
+    lambda: ("CREATE MATERIALIZED VIEW m AS SELECT window_start, "
+             "max(price) AS p FROM HOP(bid, date_time, 2000000, 10000000) "
+             "GROUP BY window_start"),
     lambda: ("CREATE SINK s AS SELECT auction FROM bid WHERE price > 10 "
              "WITH (connector='blackhole_device')"),
     lambda: ("CREATE MATERIALIZED VIEW m AS SELECT auction, price FROM bid "
@@ -271,16 +300,21 @@ def test_unported_sql_raises_bind_error(sql):
 
 
 def test_durable_state_and_batch_select_raise():
+    """The default (durable) state plans and runs; batch SELECT and the
+    stuck-barrier watchdog's setting stay refused."""
     async def go():
         s = PortSession(device="cpu")
         await s.execute("CREATE SOURCE bid WITH (connector='nexmark', "
                         "table='bid', chunk_size=64)")
-        # the default is durable (JAX's), which the port will not fake
-        with pytest.raises(BindError, match="durable state not ported"):
-            await s.execute("CREATE SINK k AS SELECT auction FROM bid "
-                            "WITH (connector='blackhole_device')")
-        with pytest.raises(BindError, match="durable state not ported"):
-            await s.execute("SET streaming_durability = 1")
+        # the default is durable (JAX's): the plan carries state tables
+        assert s.config["streaming_durability"] == 1
+        assert await s.execute("SET streaming_durability = 1") == 1
+        await s.execute("CREATE SINK k AS SELECT auction FROM bid "
+                        "WITH (connector='blackhole_device')")
+        await s.tick(2)
+        assert s.coord.committed_epochs
+        assert s._ddl_log[-1]["kind"] == "sink"
+        assert s._ddl_log[-1]["config"]["streaming_durability"] == 1
         with pytest.raises(BindError, match="not ported yet"):
             await s.execute("SELECT * FROM bid")
         # bench_q17's stuck-barrier watchdog setting (ROADMAP A5): refused,
@@ -289,7 +323,31 @@ def test_durable_state_and_batch_select_raise():
             await s.execute("SET barrier_stall_threshold_ms = 15000")
         assert await s.execute("SET streaming_durability = 0") == 0
         assert await s.execute("SET streaming_agg_capacity = 64") == 64
+        assert await s.execute("SET checkpoint_max_inflight = 0") == 0
+        assert not s.coord.pipelined
+        await s.shutdown()
     asyncio.run(go())
+
+
+def test_config_defaults_are_jaxs():
+    """A session starts from the JAX package's variables and defaults, in
+    its order (each catalog entry records them); every variable the port
+    can SET is one of them."""
+    from risingwave_tpu_torch.frontend.session import JAX_CONFIG_DEFAULTS
+    jax_defaults = [(k, v) for k, (v, _) in JaxSession.CONFIG_VARS.items()]
+    assert list(JAX_CONFIG_DEFAULTS.items()) == jax_defaults
+    assert list(PortSession(device="cpu").config.items()) == jax_defaults
+    assert set(PortSession.CONFIG_VARS) <= set(JAX_CONFIG_DEFAULTS)
+
+
+def test_chip_smoke_q7_statements_are_bench_q7s():
+    """chip_smoke's q7 lists are bench.py's _q7_ddl(), bench_q7d and
+    bench_q7_kill statements (bench_q7_kill's watchdog SET stays out)."""
+    assert chip_smoke.Q7_DDL == BENCH_DDL["q7"]()
+    assert chip_smoke.Q7D_DDL == BENCH_DDL["q7d"]()
+    assert chip_smoke.Q7K_DDL == BENCH_DDL["q7_kill"]()
+    assert f"chunk_size={chip_smoke.Q7D_CHUNK}," in chip_smoke.Q7D_DDL[6]
+    assert f"chunk_size={chip_smoke.Q7K_CHUNK}," in chip_smoke.Q7K_DDL[6]
 
 
 def test_chip_smoke_q8_statements_are_bench_q8s():
@@ -362,7 +420,8 @@ def test_q1_statements_run_through_the_session():
                    ("price", "float64"), ("date_time", "timestamp")]
 
 
-@pytest.mark.parametrize("query", ["q8", "q8_mv", "q17"])
+@pytest.mark.parametrize("query", ["q8", "q8_mv", "q17", "q7d",
+                                   "q7_kill"])
 def test_plan_ids_and_schemas_match_jax(query):
     """The deterministic actor/table ids and the planner-level fragment
     schemas of a plan agree with the JAX package's."""
@@ -371,7 +430,8 @@ def test_plan_ids_and_schemas_match_jax(query):
     from risingwave_tpu_torch.plan.build import (
         assign_graph_ids, infer_fragment_schemas)
     ddl = {"q8": BENCH_DDL["q8"], "q8_mv": lambda: WM_Q8_DDL,
-           "q17": BENCH_DDL["q17"]}[query]()
+           "q17": BENCH_DDL["q17"], "q7d": BENCH_DDL["q7d"],
+           "q7_kill": BENCH_DDL["q7_kill"]}[query]()
     jp, pp = _plans(ddl)
     assert assign_graph_ids(pp.graph, 10, 100) == jax_ids(jp.graph, 10, 100)
 
@@ -381,3 +441,53 @@ def test_plan_ids_and_schemas_match_jax(query):
 
     assert sig(infer_fragment_schemas(pp.graph)) == \
         sig(jax_schemas(jp.graph))
+
+
+@pytest.mark.parametrize("query", ["q7d", "q7_kill"])
+def test_durable_q7_state_tables_match_jax(query):
+    """Durable q7's built state tables (ids, schemas, pks), as each
+    engine's builder makes them from its own plan, agree."""
+    from risingwave_tpu.plan.build import BuildEnv as JaxEnv
+    from risingwave_tpu.plan.build import build_graph as jax_build
+    from risingwave_tpu.meta import BarrierCoordinator as JaxCoord
+    from risingwave_tpu.state import MemoryStateStore as JaxStore
+    from risingwave_tpu_torch.meta import BarrierCoordinator
+    from risingwave_tpu_torch.plan.build import BuildEnv, build_graph
+    from risingwave_tpu_torch.state import MemoryStateStore
+    jp, pp = _plans(BENCH_DDL[query]())
+    js = JaxStore()
+    jdep = jax_build(jp.graph, JaxEnv(js, JaxCoord(js)))
+    ps = MemoryStateStore()
+    pdep = build_graph(pp.graph, BuildEnv(ps, BarrierCoordinator(ps), "cpu"))
+
+    def tables(dep):
+        out = {}
+
+        def walk(ex, seen):
+            if ex is None or id(ex) in seen:
+                return
+            seen.add(id(ex))
+            sts = list(getattr(ex, "state_tables", None) or ())
+            for attr in ("state_table", "table"):
+                if getattr(ex, attr, None) is not None:
+                    sts.append(getattr(ex, attr))
+            for t in sts:
+                if t is not None and hasattr(t, "table_id"):
+                    out[t.table_id] = (
+                        [(f.name, f.data_type.value) for f in t.schema],
+                        tuple(t.pk_indices), tuple(t.dist_key_indices))
+            for attr in ("input", "inputs"):
+                v = getattr(ex, attr, None)
+                for c in (v if isinstance(v, (list, tuple)) else [v]):
+                    if hasattr(c, "execute"):
+                        walk(c, seen)
+
+        seen = set()
+        for roots in dep.roots.values():
+            for r in roots:
+                walk(r, seen)
+        return out
+
+    want = tables(jdep)
+    assert tables(pdep) == want and len(want) == (5 if query == "q7_kill"
+                                                  else 4)

@@ -186,9 +186,10 @@ def test_every_kernel_is_registered_with_its_source():
     names = sorted(kernels.KERNELS)
     assert names == ["compact", "expr_eval", "hash_agg", "hash_table",
                      "hop_window", "nexmark_auction", "nexmark_bid",
-                     "nexmark_person", "radix_sort", "row_id",
-                     "segment_agg", "snapshot_append", "snapshot_final",
-                     "sorted_join_merge", "sorted_join_probe", "tpch"]
+                     "nexmark_person", "persist_view", "radix_sort",
+                     "row_id", "segment_agg", "snapshot_append",
+                     "snapshot_diff", "snapshot_final", "sorted_join_merge",
+                     "sorted_join_probe", "tpch"]
     for k in kernels.KERNELS.values():
         assert k.source.exists()
         src = k.source.read_text()

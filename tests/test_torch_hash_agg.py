@@ -30,7 +30,7 @@ def _port():
     an xdist worker then runs the JAX tests before them without torch
     (the sharded-join recovery tests abort more often with it loaded)."""
     global DataType, schema, EpochPair, pagg, agg_state_from_numpy
-    global chunk_from_numpy, pmsg, PortAgg
+    global chunk_from_numpy, pmsg, PortAgg, evict_keys_plain
     from risingwave_tpu_torch.common import DataType, schema
     from risingwave_tpu_torch.common.epoch import EpochPair
     from risingwave_tpu_torch.expr import agg as pagg
@@ -38,6 +38,7 @@ def _port():
         agg_state_from_numpy, chunk_from_numpy)
     from risingwave_tpu_torch.stream import message as pmsg
     from risingwave_tpu_torch.stream.hash_agg import HashAggExecutor as PortAgg
+    from risingwave_tpu_torch.stream.hash_agg import evict_keys_plain
 
 
 COLS = [("k", "INT64"), ("ws", "TIMESTAMP"), ("v", "INT64"),
@@ -215,7 +216,10 @@ def test_evict_keys_and_evict_match_jax(wm):
     port_agg.capacity = snap.pop("capacity")
     port_agg.state = agg_state_from_numpy(**snap, device="cpu")
     jkeys, jn = jax_agg._evict_keys_impl(jax_agg.state, wm)
-    pkeys, pn = port_agg._evict_keys_impl(port_agg.state, wm)
+    # the port's evict-keys program is K18's evict entry; its plain
+    # version takes the cleaning key's position
+    pkeys, pn = evict_keys_plain(port_agg.state,
+                                 port_agg.cleaning_watermark_key, wm)
     assert int(pn) == int(jn)
     for p, j in zip(pkeys, jkeys):
         np.testing.assert_array_equal(p.numpy()[:int(pn)],
