@@ -22,7 +22,12 @@ plain PyTorch version on the card:
   q7d — bench.py's bench_q7d statements, verbatim, through the Session
        on a Hummock store over a local-fs object store (durable state,
        two checkpoints in flight), and bench_q7_kill's as an MV with a
-       crash and a recovery.
+       crash and a recovery;
+  q5_topn — bench.py's _q5_topn_ddl() on one device through the Session:
+       count(*) per auction % 65536 -> ORDER BY n DESC LIMIT 10 (the
+       retractable top-N over the agg's changelog), also durable with a
+       crash and a recovery;
+  q2 — Nexmark q2 (a WHERE filter) through the Session.
 Phases, one JSON line each:
 
   1. device: the card, torch/CUDA versions, the kernels' build time;
@@ -106,9 +111,34 @@ Phases, one JSON line each:
  12. q1_full: bench_q1's statements through Session(device="cuda"), three
      runs (K1 and K5 launched), then a small run whose rows equal a
      numpy recount;
- 13. the kernels line: launches on the first run of each kernel's own
+ 13. kernels_topn: K19-K22 and K5's MOD_I/MOD_F against their plain
+     versions, exactly: K19 on a 2^17-slot store at a q5_topn run's end
+     state with a 2^19-row agg changelog chunk of 65536 U-/U+ pairs (and
+     pk runs, deletes that miss, an overfull insert); K20/K21 on q5_topn's
+     flush (ties at the limit, an empty old set) and on group keys, DESC
+     int and float keys, NULLs, offsets and an empty store; K22 at q2's
+     131072-row chunk with update pairs failing on either side and at
+     rows 0 and N-1; MOD with negative operands, zero divisors and
+     INT64_MIN % -1;
+ 14. q5_topn_full: bench.py's _q5_topn_ddl() on one device (Q5T_DDL)
+     through Session(device="cuda"), 8 chunks of 32768 bids a barrier,
+     16 barriers, five runs: every q5_topn kernel launched, the top-N's
+     errs and the agg's overflow 0; bids/s and barrier p50; then
+     q5_topn_profile, the device's idle share of a profiled run;
+ 15. q5_topn_check: the same statements as an MV, 12 barriers of 65536
+     bids: after every barrier the MV equals the host recount (count per
+     auction % 65536, ranked by n desc and the key hash of a), exactly;
+ 16. q2_full: Nexmark q2 (WHERE auction % 123 = 0) into the sink at
+     131072-bid chunks, three runs; as an MV its rows equal a numpy
+     recount; a WHERE over an aggregating subquery at 8192-bid barriers
+     (update pairs cross the filter) equals the recount;
+ 17. topn_recover: q5_topn as a durable MV on a Hummock store, 8
+     barriers, crash(), reopen, recover(), 8 more: the MV equals an
+     uninterrupted durable run's and the recount;
+ 18. the kernels line: launches on the first run of each kernel's own
      slice's path (q5 for K1-K4 and K12, q7 for K5-K8, q8 for K9-K11,
-     q17 for K13-K16, q7d for K17-K18), error, times, bounds.
+     q17 for K13-K16, q7d for K17-K18, q5_topn for K19-K21, q2 for K22),
+     error, times, bounds.
 With --host-profile, phase 4 also runs q5 under cProfile and lists the
 host functions with the most own time.
 The last line is {"ok": true, "device": {...}}. Any failed phase exits
@@ -133,6 +163,7 @@ import torch
 
 from risingwave_tpu_torch.common.chunk import Column, StreamChunk, op_sign
 from risingwave_tpu_torch.common.types import DataType
+from risingwave_tpu_torch.common.types import schema as make_schema
 from risingwave_tpu_torch.connectors import tpch
 from risingwave_tpu_torch.connectors.tpch import TpchGenerator
 from risingwave_tpu_torch.connectors.nexmark import (
@@ -165,8 +196,8 @@ from risingwave_tpu_torch.stream import (
     Actor, BroadcastDispatcher, Channel, ChannelInput,
     DeviceBlackholeSinkExecutor, Executor, HashAggExecutor,
     HopWindowExecutor, MaterializeExecutor, NoOpExecutor, ProjectExecutor,
-    RowIdGenExecutor, SimpleDispatcher, SnapshotJoinAggExecutor,
-    SortedJoinExecutor, SourceExecutor,
+    RetractableTopNExecutor, RowIdGenExecutor, SimpleDispatcher,
+    SnapshotJoinAggExecutor, SortedJoinExecutor, SourceExecutor,
 )
 from risingwave_tpu_torch.stream import snapshot_join_agg as sja
 from risingwave_tpu_torch.stream.hash_agg import (
@@ -179,7 +210,19 @@ from risingwave_tpu_torch.stream.row_id import row_ids, row_ids_plain
 from risingwave_tpu_torch.stream.sorted_join import (
     HSENTINEL, NO_WATERMARK, SortedSideState, _Buffers, copy_side,
     empty_sorted_side, key_hash, merge, merge_plain, net_pk_runs,
-    pack_diff_plain, probe, probe_plain, snapshot_diff, store_from_rows,
+    net_pk_runs_plain, pack_diff_plain, probe, probe_plain, snapshot_diff, store_from_rows,
+)
+from risingwave_tpu_torch.interop import chunk_from_numpy
+from risingwave_tpu_torch.stream.project import (
+    filter_fixup, filter_fixup_plain,
+)
+from risingwave_tpu_torch.stream.retract_top_n import (
+    topn_diff, topn_diff_plain, topn_flush, topn_flush_plain, topn_keys,
+    topn_keys_plain, topn_order, topn_rank, topn_rank_plain,
+)
+from risingwave_tpu_torch.stream.sorted_join import HASH_BITS
+from risingwave_tpu_torch.stream.sorted_store import (
+    sorted_store_apply, sorted_store_apply_plain,
 )
 from risingwave_tpu_torch.utils import d2h
 from risingwave_tpu_torch.stream.message import BarrierKind
@@ -1177,7 +1220,7 @@ def phase_kernels_q7(dev, n: int = 131072, join_cap: int = Q7_JOIN_CAPACITY,
                          uops[order],
                          torch.ones(3 * nrs, dtype=torch.bool, device=dev),
                          None)
-    is_ins, is_del = net_pk_runs(rchunk, rchunk.vis, (1,))
+    _, is_ins, is_del, _ = net_pk_runs(rchunk, rchunk.vis, (1,))
     rh = key_hash([rchunk.columns[0].data])
     rnh, rio = torch.sort(torch.where(is_ins, rh, HSENTINEL), stable=True)
     e2, rerrs = merge_case(rs, rnh, rio, is_ins.sum(dtype=torch.int32),
@@ -2875,7 +2918,9 @@ KERNEL_PATH = {"nexmark_bid": "q5", "hop_window": "q5", "hash_table": "q5",
                "nexmark_auction": "q8", "radix_sort": "q8", "tpch": "q17",
                "snapshot_append": "q17", "segment_agg": "q17",
                "snapshot_final": "q17", "snapshot_diff": "q7d",
-               "persist_view": "q7d"}
+               "persist_view": "q7d", "pk_net": "q5t",
+               "top_n_rank": "q5t", "top_n_diff": "q5t",
+               "filter_ops": "q2"}
 
 
 def phase_q5_full(dev, repeats: int = 5) -> dict:
@@ -3078,23 +3123,29 @@ def volatile(ddl: list) -> list:
                        "SET streaming_durability = 0") for st in ddl]
 
 
-def q7s_run(dev, ddl: list, rounds: int, per_barrier: int, store=None,
-            collect: int = 0, recover_to: int = 0, crash: bool = False,
-            on_flow=None) -> dict:
-    """q7's statements `ddl` through the port's Session on `dev` (over
-    `store`, a MemoryStateStore when None, or a function that opens the
-    store, called on the clock of recovery_ms). The source is throttled to
-    `per_barrier` rows between barriers (a build hook sets its rate
-    limit before it starts) and barriers are paced by rows: barrier k
-    follows the source's offset reaching base + k * per_barrier, for k
-    in 1..rounds (base 0); the last is the Stop barrier, or with `crash`
-    the session crashes there instead. With `recover_to`, the session
-    replays the store's catalog (`recover()`, timed from the store's
-    opening, or the session's construction, to its first collected
-    barrier) instead of running `ddl`, base is the recovered offset and
-    barriers run until the offset `recover_to`. Counts are set to 0 just
-    before the flow starts and read just after the last barrier.
-    `on_flow(session, deployment)` runs once the flow exists."""
+def session_run(dev, ddl: list, rounds: int, per_barrier: int,
+                name: str = "q7", store=None, collect: int = 0,
+                recover_to: int = 0, crash: bool = False, on_flow=None,
+                on_barrier=None) -> dict:
+    """The statements `ddl` through the port's Session on `dev`, flow
+    `name` (a sink or an MV; over `store`, a MemoryStateStore when None,
+    or a function that opens the store, called on the clock of
+    recovery_ms). The source is throttled to `per_barrier` rows between
+    barriers (a build hook sets its rate limit before it starts) and
+    barriers are paced by rows: barrier k follows the source's offset
+    reaching base + k * per_barrier, for k in 1..rounds (base 0); the
+    last is the Stop barrier, or with `crash` the session crashes there
+    instead. With `recover_to`, the session replays the store's catalog
+    (`recover()`, timed from the store's opening, or the session's
+    construction, to its first collected barrier) instead of running
+    `ddl`, base is the recovered offset and barriers run until the
+    offset `recover_to`. Counts are set to 0 just before the flow starts
+    and read just after the last barrier. `on_flow(session, deployment)`
+    runs once the flow exists; `on_barrier(k, session, rows)` after each
+    collected barrier, with the source rows before it. With `collect`,
+    a DeviceCollectSinkExecutor of that many rows replaces the flow's
+    root. The flow's first join, agg and top-N executor (None where it
+    has none) come back with the run's figures."""
     on_card = torch.device(dev).type == "cuda"
 
     async def go():
@@ -3105,7 +3156,7 @@ def q7s_run(dev, ddl: list, rounds: int, per_barrier: int, store=None,
         d2h.STATS.update(fetches=0, bytes=0)
         held = {}
 
-        def attach(name, dep, fid):
+        def attach(_name, dep, fid):
             for src_ in dep.executors(SourceExecutor):
                 src_.rate_limit = per_barrier
             if collect:
@@ -3127,7 +3178,7 @@ def q7s_run(dev, ddl: list, rounds: int, per_barrier: int, store=None,
             for stmt in ddl:
                 await s.execute(stmt)
         flows = {**s.catalog.sinks, **s.catalog.mvs}
-        dep = flows["q7"].deployment
+        dep = flows[name].deployment
         src = dep.executors(SourceExecutor)[0]
         gen = src.connector
         base = 0
@@ -3135,8 +3186,13 @@ def q7s_run(dev, ddl: list, rounds: int, per_barrier: int, store=None,
         if recover_to:
             base = src.state_table.get_row((0,))[1]
             n_rounds = (recover_to - base) // per_barrier
-        join = dep.executors(SortedJoinExecutor)[0]
-        agg = dep.executors(HashAggExecutor)[0]
+
+        def first(cls):
+            found = dep.executors(cls)
+            return found[0] if found else None
+
+        join, agg = first(SortedJoinExecutor), first(HashAggExecutor)
+        top = first(RetractableTopNExecutor)
         if on_flow is not None:
             on_flow(s, dep)
         coord = s.coord
@@ -3154,6 +3210,10 @@ def q7s_run(dev, ddl: list, rounds: int, per_barrier: int, store=None,
             if k < n_rounds or crash:
                 b = await coord.inject_barrier()
                 await coord.wait_collected(b)
+                if on_barrier is not None:
+                    # the rows before this barrier (the source may have
+                    # begun the next interval already)
+                    on_barrier(k, s, base + k * per_barrier)
             else:
                 await coord.stop_all({a.actor_id for a in dep.actors})
         wall = time.perf_counter() - t0
@@ -3165,20 +3225,21 @@ def q7s_run(dev, ddl: list, rounds: int, per_barrier: int, store=None,
         launches = {k.name: k.launches for k in kernels.KERNELS.values()}
         if on_card:
             torch.cuda.synchronize()
-        mv = s.catalog.mvs.get("q7")
+        mv = s.catalog.mvs.get(name)
         out = dict(
             bids=gen.offset, base=base, barriers=n_rounds, wall_s=wall,
-            inflight_at_end=inflight, join=join, agg=agg,
+            inflight_at_end=inflight, join=join, agg=agg, top=top,
             sink=held.get("sink"), coord=coord, session=s,
             launches=launches, recovery_s=recovery_s,
             mv=(sorted(mv.table.iter_committed()) if mv is not None
                 else None),
             d2h_fetches=d2h.STATS["fetches"], d2h_bytes=d2h.STATS["bytes"],
-            persist_rows=join.persist_rows + agg.persist_rows,
+            persist_rows=sum(e.persist_rows for e in (join, agg, top)
+                             if e is not None),
             mem_peak_bytes=(torch.cuda.max_memory_allocated(dev)
                             if on_card else None))
-        s.catalog.sinks.pop("q7", None)
-        s.catalog.mvs.pop("q7", None)
+        s.catalog.sinks.pop(name, None)
+        s.catalog.mvs.pop(name, None)
         return out
 
     return asyncio.run(go())
@@ -3196,8 +3257,8 @@ def q7d_full_run(dev, per_barrier: int, rounds: int, want_misses: int,
     local-fs object store in a temporary directory."""
     with tempfile.TemporaryDirectory(prefix="q7d_") as d:
         store = HummockStateStore(LocalFsObjectStore(d))
-        r = q7s_run(dev, with_chunk(Q7D_DDL, Q7D_CHUNK, chunk), rounds,
-                    per_barrier, store=store)
+        r = session_run(dev, with_chunk(Q7D_DDL, Q7D_CHUNK, chunk), rounds,
+                        per_barrier, store=store)
         coord, errs = r["coord"], r["join"].errs()
         ce = coord.committed_epochs
         drained = (coord._inflight == 0 and not store._sealed
@@ -3250,8 +3311,9 @@ def phase_q7d_full(dev, repeats: int = 5, chunk: int = Q7D_CHUNK,
     runs, vol = [], []
     for _ in range(repeats):
         runs.append(q7d_full_run(dev, per_barrier, rounds, want, chunk))
-        v = q7s_run(dev, volatile(with_chunk(Q7D_DDL, Q7D_CHUNK, chunk)),
-                    rounds, per_barrier)
+        v = session_run(dev,
+                        volatile(with_chunk(Q7D_DDL, Q7D_CHUNK, chunk)),
+                        rounds, per_barrier)
         if v["join"].errs() != [0, want, 0]:
             raise AssertionError(f"volatile q7 at q7d's chunking: join errs "
                                  f"{v['join'].errs()}")
@@ -3303,13 +3365,13 @@ def phase_q7d_recover(dev, r1: int = 30, r2: int = 30,
     model = q7_delete_misses(n, chunk, cfg, dev)
     with tempfile.TemporaryDirectory(prefix="q7k_") as d1, \
             tempfile.TemporaryDirectory(prefix="q7k_") as d2:
-        whole = q7s_run(dev, ddl, r1 + r2, chunk,
-                        store=HummockStateStore(LocalFsObjectStore(d1)))
-        a = q7s_run(dev, ddl, r1, chunk, crash=True,
-                    store=HummockStateStore(LocalFsObjectStore(d2)))
-        b = q7s_run(dev, ddl, 0, chunk, recover_to=n,
-                    store=lambda: HummockStateStore.open(
-                        LocalFsObjectStore(d2)))
+        whole = session_run(dev, ddl, r1 + r2, chunk,
+                            store=HummockStateStore(LocalFsObjectStore(d1)))
+        a = session_run(dev, ddl, r1, chunk, crash=True,
+                        store=HummockStateStore(LocalFsObjectStore(d2)))
+        b = session_run(dev, ddl, 0, chunk, recover_to=n,
+                        store=lambda: HummockStateStore.open(
+                            LocalFsObjectStore(d2)))
     want = q7_recount(n, cfg, dev)
     errs = [whole["join"].errs(), b["join"].errs()]
     if model != 0 or errs != [[0, 0, 0], [0, 0, 0]]:
@@ -3369,9 +3431,10 @@ def q7d_capture(dev, rounds: int = 6) -> dict:
         agg._persist = rec_persist
 
     with tempfile.TemporaryDirectory(prefix="q7d_") as d:
-        q7s_run(dev, Q7D_DDL, rounds, Q7D_CHUNKS_PER_BARRIER * Q7D_CHUNK,
-                store=HummockStateStore(LocalFsObjectStore(d)),
-                on_flow=on_flow)
+        session_run(dev, Q7D_DDL, rounds,
+                    Q7D_CHUNKS_PER_BARRIER * Q7D_CHUNK,
+                    store=HummockStateStore(LocalFsObjectStore(d)),
+                    on_flow=on_flow)
     return cap
 
 
@@ -3542,8 +3605,8 @@ def phase_q7_check(dev, chunk: int = 32768, rounds: int = 40) -> dict:
     arrives), into a device sink that keeps the output rows. Its net
     output must equal build_q7's hand wiring at the same geometry and a
     numpy recount; every error counter must be 0."""
-    r = q7s_run(dev, with_chunk(Q7_DDL, 131072, chunk), rounds, chunk,
-                collect=1 << 16)
+    r = session_run(dev, with_chunk(Q7_DDL, 131072, chunk), rounds, chunk,
+                    collect=1 << 16)
     got, dropped = r["sink"].rows()
     got = Counter({(x[0], x[1], x[2], x[3], x[5]): c
                    for x, c in got.items()})
@@ -3567,6 +3630,568 @@ def phase_q7_check(dev, chunk: int = 32768, rounds: int = 40) -> dict:
     return dict(bids=r["bids"], barriers=rounds, rows=len(want),
                 output_changes=int(r["sink"].count), join_errs=errs[0],
                 agg_overflow=overflow[0])
+
+
+# ------------------------------------------------------- q5_topn and q2
+
+# bench.py's _q5_topn_ddl() on one device: its mesh SET (8 devices)
+# becomes 1, the rest verbatim
+Q5T_DDL = [
+    "SET streaming_parallelism_devices = 1",
+    "SET streaming_durability = 0",
+    "SET streaming_watchdog = 0",
+    f"SET streaming_agg_capacity = {1 << 18}",
+    f"SET streaming_top_n_capacity = {1 << 17}",
+    ("CREATE SOURCE bid WITH (connector='nexmark', table='bid', "
+     "chunk_size=32768, inter_event_us=2, emit_watermarks=1)"),
+    ("CREATE SINK q5t AS SELECT auction % 65536 AS a, count(*) AS n "
+     "FROM bid GROUP BY auction % 65536 "
+     "ORDER BY n DESC LIMIT 10 "
+     "WITH (connector='blackhole_device')"),
+]
+Q5T_CHUNK = 32768
+Q5T_INTER_US = 2
+Q5T_KERNELS = ("nexmark_bid", "expr_eval", "hash_table", "hash_agg",
+               "compact", "radix_sort", "pk_net", "sorted_join_merge",
+               "top_n_rank", "top_n_diff")
+
+
+def q5_topn_recount(n_bids: int, modulus: int = 65536, limit: int = 10,
+                    device="cpu", inter_event_us: int = Q5T_INTER_US,
+                    auction=None) -> list:
+    """The top `limit` (a, n) of count(*) per auction % modulus over bids
+    [0, n_bids), ranked by (n desc, the port's key hash of a asc), as the
+    top-N ranks them; from the plain generator unless `auction` (the
+    bids' auction column) is given."""
+    if auction is None:
+        (auction,) = _bid_prefix(n_bids, NexmarkConfig(
+            inter_event_us=inter_event_us), device, [0])
+    a = np.remainder(np.asarray(auction[:n_bids]), modulus)
+    counts = np.bincount(a, minlength=modulus)
+    keys = np.flatnonzero(counts)
+    n = counts[keys]
+    kh = key_hash([torch.from_numpy(keys.astype(np.int64))]).numpy()
+    top = np.lexsort((kh, -n))[:limit]
+    return [(int(keys[i]), int(n[i])) for i in top]
+
+
+# Nexmark q2 in Beam's form, as a sink at q7's chunk size
+Q2_DDL = [
+    "SET streaming_durability = 0",
+    ("CREATE SOURCE bid WITH (connector='nexmark', table='bid', "
+     "chunk_size=131072, inter_event_us=250, emit_watermarks=1)"),
+    ("CREATE SINK q2 AS SELECT auction, price FROM bid "
+     "WHERE auction % 123 = 0 WITH (connector='blackhole_device')"),
+]
+Q2_CHUNK = 131072
+Q2_KERNELS = ("nexmark_bid", "expr_eval", "filter_ops")
+# a WHERE over an aggregating subquery: every count update crosses
+# `n % 2 = 0`, so update pairs reach the filter with one side failing
+Q2_AGG_MV = ("CREATE MATERIALIZED VIEW q2 AS SELECT auction, n FROM "
+             "(SELECT auction, count(*) AS n FROM bid GROUP BY auction) C "
+             "WHERE n % 2 = 0")
+
+
+def as_mv(ddl: list) -> list:
+    """A sink statement list as the same query into an MV."""
+    return [st.replace("CREATE SINK", "CREATE MATERIALIZED VIEW")
+              .replace(" WITH (connector='blackhole_device')", "")
+            for st in ddl]
+
+
+def durable(ddl: list) -> list:
+    return [st.replace("SET streaming_durability = 0",
+                       "SET streaming_durability = 1") for st in ddl]
+
+
+def mv_rows_now(s, name: str) -> list:
+    return sorted(r for _, r in s.catalog.mvs[name].table.iter_all())
+
+
+def q5t_store(dev, C: int = 1 << 17, groups: int = 65536, seed: int = 0):
+    """A top-N store as a q5_topn run holds it: `groups` rows (a, n),
+    a = 0..groups-1, counts with many ties, in C slots; and the chunk
+    schema."""
+    rng = np.random.default_rng(seed)
+    sch = make_schema(("a", DataType.INT64), ("n", DataType.INT64))
+    a = np.arange(groups, dtype=np.int64)
+    n = 1 + rng.geometric(0.05, groups).astype(np.int64)
+    ch = chunk_from_numpy(sch, [np.resize(a, C), np.resize(n, C)],
+                          np.zeros(C, np.int8), np.arange(C) < groups,
+                          device=dev)
+    st = empty_sorted_side(C, [torch.int64, torch.int64], dev)
+    errs = torch.zeros(3, dtype=torch.int32, device=dev)
+    st = sorted_store_apply_plain(st, errs, ch, (0,))
+    return st, sch, (a, n)
+
+
+def q5t_changelog(dev, sch, a, n, N: int = 1 << 19, pairs: int = 65536,
+                  seed: int = 1, runs: int = 0, misses: int = 0,
+                  inserts: int = 0):
+    """A hash agg's flush chunk at q5_topn's shape: `pairs` U-/U+ pairs
+    (rows 2j, 2j+1) of existing groups, in N rows; `runs` groups get a
+    second pair (a pk run), `misses` pairs retract absent groups, and
+    `inserts` new groups arrive as Inserts."""
+    rng = np.random.default_rng(seed)
+    pick = rng.choice(len(a), pairs, replace=False)
+    rows = []
+    for j, i in enumerate(pick):
+        new = n[i] + int(rng.integers(1, 4))
+        rows += [(2, a[i], n[i]), (3, a[i], new)]
+        if j < runs:
+            rows += [(2, a[i], new), (3, a[i], new + 1)]
+    for m in range(misses):
+        rows += [(2, 10**9 + m, 5), (3, 10**9 + m, 6)]
+    for m in range(inserts):
+        rows.append((0, 2 * 10**9 + m, 1))
+    if len(rows) > N:
+        raise ValueError("changelog larger than its chunk")
+    ops = np.zeros(N, np.int8)
+    ca = np.zeros(N, np.int64)
+    cn = np.zeros(N, np.int64)
+    arr = np.asarray(rows, dtype=np.int64)
+    ops[:len(rows)], ca[:len(rows)], cn[:len(rows)] = arr.T
+    return chunk_from_numpy(sch, [ca, cn], ops, np.arange(N) < len(rows),
+                            device=dev)
+
+
+def store_exact_err(a: SortedSideState, b: SortedSideState) -> int:
+    return exact_err([a.khash, *a.cols, *a.valids, a.n.view(1)],
+                     [b.khash, *b.cols, *b.valids, b.n.view(1)])
+
+
+def topn_random_store(dev, C: int, n_rows: int, seed: int):
+    """A store of (g, v, f, pk) rows for the edge cases: 4 groups, int
+    order values with ties, float values with NaN, -0.0, +0.0, a
+    subnormal and inf, NULL lanes."""
+    rng = np.random.default_rng(seed)
+    sch = make_schema(("g", DataType.INT64), ("v", DataType.INT64),
+                      ("f", DataType.FLOAT64), ("pk", DataType.INT64))
+    floats = np.array([np.nan, -0.0, 0.0, 1.5, -2.25, 1e-310, np.inf, 7.0])
+    g = rng.integers(0, 4, C)
+    v = rng.integers(0, 6, C)
+    f = floats[rng.integers(0, len(floats), C)]
+    pk = np.arange(C, dtype=np.int64)
+    ch = chunk_from_numpy(sch, [g, v, f, pk], np.zeros(C, np.int8),
+                          np.arange(C) < n_rows,
+                          [None, rng.random(C) < 0.9, rng.random(C) < 0.9,
+                           None], device=dev)
+    st = empty_sorted_side(C, [torch.int64, torch.int64, torch.float64,
+                               torch.int64], dev)
+    errs = torch.zeros(3, dtype=torch.int32, device=dev)
+    return sorted_store_apply_plain(st, errs, ch, (3,)), sch
+
+
+def empty_top(st: SortedSideState):
+    C = st.capacity
+    dev = st.khash.device
+    return (torch.full((C,), HSENTINEL, dtype=torch.int64, device=dev),
+            tuple(torch.zeros(C, dtype=c.dtype, device=dev)
+                  for c in st.cols),
+            tuple(torch.zeros(C, dtype=torch.bool, device=dev)
+                  for _ in st.cols),
+            torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def flush_err(st, specs, groups, offset, limit, top) -> tuple:
+    """(max error of the card flush against the plain one, rows deleted,
+    rows inserted, the card flush's new top set)."""
+    a = topn_flush(st, specs, groups, offset, limit, *top)
+    b = topn_flush_plain(st, specs, groups, offset, limit, *top)
+    err = exact_err([a[0], a[3].view(1), *a[1], *a[2], *a[4], *a[5], a[6],
+                     a[7]],
+                    [b[0], b[3].view(1), *b[1], *b[2], *b[4], *b[5], b[6],
+                     b[7]])
+    C = st.capacity
+    return err, int(a[7][:C].sum()), int(a[7][C:].sum()), a[:4]
+
+
+def phase_kernels_topn(dev) -> dict:
+    """K19-K22 and K5's MOD opcodes against their plain versions on the
+    card, exactly, at q5_topn's and q2's shapes and on edge cases."""
+    res = {}
+    smi = nvidia_smi_line()
+    i64 = torch.int64
+    # ---- K19 on a 2^17-slot store at a q5_topn run's end state, with a
+    # 2^19-row agg changelog chunk of 65536 U-/U+ pairs
+    st, sch, (a, n) = q5t_store(dev)
+    cl = q5t_changelog(dev, sch, a, n)
+    order = stable_lexsort([cl.columns[0].data, (~cl.vis).to(torch.uint8)],
+                           [64, 1])
+    got = [t.clone() for t in net_pk_runs(cl, cl.vis, (0,), order=order)]
+    want = net_pk_runs_plain(cl, cl.vis, (0,), order)
+    err19 = exact_err(got, want)
+    cases = {}
+    edge = {"q5t": cl,
+            "pk_runs": q5t_changelog(dev, sch, a, n, runs=4096, seed=2),
+            "misses": q5t_changelog(dev, sch, a, n, pairs=4096, misses=64,
+                                    seed=3),
+            "overfull": q5t_changelog(dev, sch, a, n, pairs=1024,
+                                      inserts=70000, seed=4)}
+    for name, ch in edge.items():
+        e_card = torch.zeros(3, dtype=torch.int32, device=dev)
+        e_plain = torch.zeros(3, dtype=torch.int32, device=dev)
+        spare = empty_sorted_side(st.capacity, [i64, i64], dev)
+        new_card = sorted_store_apply(st, e_card, ch, (0,), spare)
+        new_plain = sorted_store_apply_plain(st, e_plain, ch, (0,))
+        cases[name] = dict(err=max(store_exact_err(new_card, new_plain),
+                                   exact_err([e_card], [e_plain])),
+                           errs=e_card.tolist(), n=int(new_card.n))
+    if any(c["err"] for c in cases.values()) or err19:
+        raise AssertionError(f"K19 differs from plain: {err19}, {cases}")
+    if cases["misses"]["errs"][1] != 64 or cases["overfull"]["errs"][2] <= 0 \
+            or cases["q5t"]["errs"] != [0, 0, 0]:
+        raise AssertionError(f"K19 edge cases did not bite: {cases}")
+    N = cl.capacity
+    res["pk_net"] = dict(
+        max_abs_err=err19, cases=cases, rows=N,
+        **timings(lambda: net_pk_runs(cl, cl.vis, (0,), order=order),
+                  lambda: net_pk_runs_plain(cl, cl.vis, (0,), order)),
+        # order, vis, ops and the pk read, h, ins_h and two flags written
+        bound_ms=bytes_bound_ms(N * (8 + 1 + 1 + 8 + 8 + 8 + 2)),
+        bound_by="bytes")
+    emit({"phase": "kernel", "name": "pk_net", "nvidia_smi": smi,
+          **res["pk_net"]})
+
+    # ---- K20 / K21: q5_topn's flush on the store after that chunk, ties
+    # at the limit; the first flush runs against an empty old set
+    specs, limit = [(1, True)], 10
+    e = torch.zeros(3, dtype=torch.int32, device=dev)
+    st2 = sorted_store_apply_plain(st, e, cl, (0,))
+    fcases = {}
+    err, nd, ni, top = flush_err(st, specs, (), 0, limit, empty_top(st))
+    fcases["q5t_empty_old"] = dict(err=err, deletes=nd, inserts=ni)
+    err, nd, ni, top2 = flush_err(st2, specs, (), 0, limit, top)
+    fcases["q5t"] = dict(err=err, deletes=nd, inserts=ni)
+    rs, _ = topn_random_store(dev, 1 << 12, 3000, 5)
+    rs2, _ = topn_random_store(dev, 1 << 12, 2500, 6)
+    for name, sp, gk, off, lim in (
+            ("group_desc_int_float", [(1, True), (2, False)], (0,), 1, 3),
+            ("float_desc", [(2, True)], (), 0, 7),
+            ("group_float_asc_null", [(2, False), (1, True)], (0,), 2, 5)):
+        err, nd, ni, t = flush_err(rs, sp, gk, off, lim, empty_top(rs))
+        err2, nd2, ni2, _ = flush_err(rs2, sp, gk, off, lim, t)
+        fcases[name] = dict(err=max(err, err2), deletes=nd2, inserts=ni2)
+    es = empty_sorted_side(1 << 10, [i64, i64], dev)
+    err, nd, ni, _ = flush_err(es, specs, (), 0, limit, empty_top(es))
+    fcases["empty_store"] = dict(err=err, deletes=nd, inserts=ni)
+    if any(c["err"] for c in fcases.values()):
+        raise AssertionError(f"K20/K21 differ from plain: {fcases}")
+    if fcases["q5t_empty_old"]["inserts"] != limit \
+            or fcases["empty_store"]["inserts"] != 0:
+        raise AssertionError(f"K20/K21 edge cases did not bite: {fcases}")
+    C = st2.capacity
+    okeys, gkey, n_top = topn_keys(st2, specs, ())
+    order2 = topn_order(st2, okeys, gkey)
+    topk, n_top = topn_rank(st2, order2, gkey, 0, limit, n_top)
+    n_sel = int(n_top)
+
+    def k20():
+        ok, gk, nt = topn_keys(st2, specs, ())
+        return topn_rank(st2, order2, gk, 0, limit, nt)
+
+    def k20_plain():
+        ok, gk = topn_keys_plain(st2, specs, ())
+        return topn_rank_plain(st2, order2, gk, 0, limit)
+
+    res["top_n_rank"] = dict(
+        max_abs_err=max(c["err"] for c in fcases.values()),
+        cases=fcases, slots=C, selected=n_sel,
+        **timings(k20, k20_plain),
+        # keys: the order column read, the order key and the group key
+        # written; rank: the order and the group keys read, the selected
+        # rows' two columns read, topk written
+        bound_ms=bytes_bound_ms(C * (8 + 8 + 8) + C * (8 + 8 + 8)
+                                + n_sel * 16),
+        bound_by="bytes")
+    emit({"phase": "kernel", "name": "top_n_rank", "nvidia_smi": smi,
+          **res["top_n_rank"]})
+    new_hash, src = stable_sort(topk, HASH_BITS, order2)
+    th, tc, tv, tn = top
+    K = len(st2.cols)
+    res["top_n_diff"] = dict(
+        max_abs_err=max(c["err"] for c in fcases.values()), slots=C,
+        **timings(lambda: topn_diff(st2, new_hash, src, n_top, th, tc, tv,
+                                    tn),
+                  lambda: topn_diff_plain(st2, new_hash, src, n_top, th, tc,
+                                          tv, tn)),
+        # 2C output rows (K columns, K valid bytes, op, vis) written; the
+        # old set's C rows and the store's C gathered rows read with src;
+        # the visible candidates' hashes read for the searches
+        bound_ms=bytes_bound_ms(2 * C * (9 * K + 2) + 2 * C * 9 * K + 8 * C
+                                + 8 * (int(tn) + n_sel)),
+        bound_by="bytes")
+    emit({"phase": "kernel", "name": "top_n_diff", "nvidia_smi": smi,
+          **res["top_n_diff"]})
+
+    # ---- K22 at q2's chunk: update pairs with either or both sides
+    # failing, rows 0 and N-1
+    Nf = Q2_CHUNK
+    rng = np.random.default_rng(7)
+    ops = rng.choice([0, 1], Nf).astype(np.int8)
+    pair = rng.random(Nf // 2) < 0.6
+    for j in np.flatnonzero(pair):
+        ops[2 * j], ops[2 * j + 1] = 2, 3
+    ops[0], ops[Nf - 1] = 3, 2
+    cond = torch.from_numpy(rng.random(Nf) < 0.5).to(dev)
+    valid = torch.from_numpy(rng.random(Nf) < 0.9).to(dev)
+    ops_t = torch.from_numpy(ops).to(dev)
+    vis = torch.from_numpy(rng.random(Nf) < 0.95).to(dev)
+    err22 = 0
+    for v in (valid, None):
+        err22 = max(err22, exact_err(
+            filter_fixup(cond, v, ops_t, vis),
+            filter_fixup_plain(cond, v, ops_t, vis)))
+    fixed = int((filter_fixup(cond, valid, ops_t, vis)[0] != ops_t).sum())
+    if err22 or fixed == 0:
+        raise AssertionError(f"K22 differs from plain ({err22}) or fixed "
+                             f"no pair ({fixed})")
+    res["filter_ops"] = dict(
+        max_abs_err=err22, rows=Nf, ops_fixed=fixed,
+        **timings(lambda: filter_fixup(cond, valid, ops_t, vis),
+                  lambda: filter_fixup_plain(cond, valid, ops_t, vis)),
+        bound_ms=bytes_bound_ms(Nf * 6), bound_by="bytes")
+    emit({"phase": "kernel", "name": "filter_ops", "nvidia_smi": smi,
+          **res["filter_ops"]})
+
+    # ---- K5's MOD_I / MOD_F: negative operands, zero divisors,
+    # INT64_MIN % -1, floats of both signs
+    Nm = Q2_CHUNK
+    am = rng.integers(-10**6, 10**6, Nm)
+    am[::5] = np.iinfo(np.int64).min
+    zm = rng.integers(-3, 4, Nm)
+    fm = rng.integers(-4000, 4000, Nm) / 8.0
+    cols = [Column(torch.from_numpy(x).to(dev)) for x in (am, zm, fm)]
+    exprs = [call("modulus", col(0), col(1)),
+             call("modulus", col(2), col(1)),
+             call("modulus", col(2), lit(-2.5)),
+             call("equal", call("modulus", col(0), lit(123)), lit(0))]
+    prog = ExprProgram(exprs)
+    outs, plain = prog.eval(cols), prog.eval_plain(cols)
+    def lanes(c):      # floats compared by their bits
+        d = c.data
+        return [d.view(torch.int64) if d.is_floating_point() else d,
+                c.valid_mask()]
+
+    errm = max(exact_err(lanes(o), lanes(p)) for o, p in zip(outs, plain))
+    if errm:
+        raise AssertionError(f"K5 MOD opcodes differ from plain: {errm}")
+    one = ExprProgram([exprs[0]])
+    safe = torch.where(cols[1].data == 0, 1, cols[1].data)
+    emit({"phase": "k5_mod", "nvidia_smi": smi, "max_abs_err": errm,
+          "rows": Nm,
+          **timings(lambda: one.eval(cols), lambda: one.eval_plain(cols),
+                    library_fn=lambda: torch.remainder(cols[0].data, safe)),
+          "bound_ms": bytes_bound_ms(Nm * (8 + 8 + 8 + 1)),
+          "bound_by": "bytes"})
+    return res
+
+
+def q5t_summary(runs: list) -> dict:
+    med = statistics.median
+    return dict(
+        repeats=len(runs), bids=runs[0]["bids"],
+        wall_s=med(r["wall_s"] for r in runs),
+        bids_per_s=med(r["bids"] / r["wall_s"] for r in runs),
+        bids_per_s_min=min(r["bids"] / r["wall_s"] for r in runs),
+        bids_per_s_max=max(r["bids"] / r["wall_s"] for r in runs),
+        barrier_p50_s=med(r["coord"].barrier_latency_percentile(0.5)
+                          for r in runs),
+        barrier_p99_s=med(r["coord"].barrier_latency_percentile(0.99)
+                          for r in runs),
+        mem_peak_bytes=runs[0]["mem_peak_bytes"],
+        launches=runs[0]["launches"])
+
+
+def phase_q5_topn_full(dev, repeats: int = 5, per_chunks: int = 8,
+                       rounds: int = 16) -> dict:
+    """Q5T_DDL (bench's q5_topn on one device) into the device blackhole
+    sink, `per_chunks` 32768-bid chunks a barrier, `rounds` barriers,
+    `repeats` runs from fresh state: every q5_topn kernel launched, the
+    top-N's errs and the agg's overflow 0."""
+    per = per_chunks * Q5T_CHUNK
+    runs = []
+    for _ in range(repeats):
+        r = session_run(dev, Q5T_DDL, rounds, per, name="q5t")
+        errs, ovf = r["top"].errs(), r["agg"].overflow()
+        if errs != [0, 0] or ovf:
+            raise AssertionError(f"q5_topn: top-N errs {errs}, agg "
+                                 f"overflow {ovf}")
+        missing = [k for k in Q5T_KERNELS if r["launches"][k] == 0]
+        if missing and torch.device(dev).type == "cuda":
+            raise AssertionError(f"kernels never launched on q5_topn: "
+                                 f"{missing}")
+        r["live_groups"] = int(r["top"].store.n)
+        runs.append(r)
+    return dict(chunk=Q5T_CHUNK, chunks_per_barrier=per_chunks,
+                barriers=rounds, live_groups=runs[0]["live_groups"],
+                runs=[{"wall_s": r["wall_s"],
+                       "bids_per_s": r["bids"] / r["wall_s"]}
+                      for r in runs], **q5t_summary(runs))
+
+
+def phase_q5_topn_profile(dev, full: dict, rounds: int = 6) -> dict:
+    """Where q5_topn's time goes: a fresh run of a few barriers under
+    torch.profiler; the idle share against q5_topn_full's unprofiled
+    median wall per barrier."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    per = full["chunks_per_barrier"] * Q5T_CHUNK
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        r = session_run(dev, Q5T_DDL, rounds, per, name="q5t")
+        torch.cuda.synchronize()
+    kev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name: dict = {}
+    for e in kev:
+        name = e.name[:60]
+        t, c = by_name.get(name, (0.0, 0))
+        by_name[name] = (t + e.time_range.elapsed_us(), c + 1)
+    busy_s = sum(t for t, _ in by_name.values()) / 1e6
+    busy_per_barrier = busy_s / rounds
+    wall_per_barrier = full["wall_s"] / full["barriers"]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:16]
+    return dict(
+        rounds=rounds, wall_s=r["wall_s"], device_busy_s=busy_s,
+        device_busy_per_barrier_s=busy_per_barrier,
+        unprofiled_wall_per_barrier_s=wall_per_barrier,
+        device_idle_share=(1 - busy_per_barrier / wall_per_barrier)
+        if kev else None,
+        device_events=len(kev),
+        top_kernels=[{"name": nm, "ms": t / 1e3, "count": c}
+                     for nm, (t, c) in top])
+
+
+def phase_q5_topn_check(dev, per_chunks: int = 2, rounds: int = 12) -> dict:
+    """The correctness gate: Q5T_DDL as an MV; after every barrier the MV
+    must equal the host recount (count per auction % 65536 over the bids
+    the source emitted, ranked by (n desc, key hash of a asc), the first
+    10), exactly."""
+    per = per_chunks * Q5T_CHUNK
+    (auction,) = _bid_prefix(per * rounds, NexmarkConfig(
+        inter_event_us=Q5T_INTER_US), dev, [0])
+    checked = []
+
+    def on_barrier(k, s, bids):
+        got = mv_rows_now(s, "q5t")
+        want = sorted(q5_topn_recount(bids, auction=auction))
+        if got != want:
+            raise AssertionError(f"q5_topn_check: barrier {k}: MV {got} "
+                                 f"!= recount {want}")
+        checked.append(bids)
+
+    r = session_run(dev, as_mv(Q5T_DDL), rounds, per, name="q5t",
+                    on_barrier=on_barrier)
+    want = sorted(q5_topn_recount(r["bids"], auction=auction))
+    if r["mv"] != want or r["top"].errs() != [0, 0]:
+        raise AssertionError(f"q5_topn_check: final MV {r['mv']} != "
+                             f"{want}, errs {r['top'].errs()}")
+    # ties at the limit: how many groups share the 10th count
+    tenth = want[-1][1] if len(want) == 10 else None
+    counts = np.bincount(np.remainder(auction[:r["bids"]], 65536))
+    return dict(barriers_checked=len(checked), bids=r["bids"],
+                mv_rows=len(r["mv"]), live_groups=int(r["top"].store.n),
+                groups_tied_at_10th=(int((np.sort(counts)[::-1] ==
+                                          sorted(n for _, n in want)[0])
+                                         .sum()) if tenth else None),
+                top=r["mv"])
+
+
+def q2_recount(n_bids: int, dev) -> Counter:
+    auction, price = _bid_prefix(n_bids, NexmarkConfig(inter_event_us=250),
+                                 dev, [0, 2])
+    keep = np.remainder(auction, 123) == 0
+    return Counter(zip(auction[keep].tolist(), price[keep].tolist()))
+
+
+def phase_q2_full(dev, repeats: int = 3, per_chunks: int = 8,
+                  rounds: int = 8) -> dict:
+    """Nexmark q2 (Q2_DDL) into the device blackhole sink, `repeats`
+    runs: bids/s; then as an MV, whose rows must equal a numpy recount;
+    then a WHERE over an aggregating subquery (Q2_AGG_MV) at one 8192-bid
+    chunk a barrier, where count updates cross the predicate as U-/U+
+    pairs: its MV must equal the recount's groups with an even count."""
+    per = per_chunks * Q2_CHUNK
+    runs = []
+    for _ in range(repeats):
+        r = session_run(dev, Q2_DDL, rounds, per, name="q2")
+        missing = [k for k in Q2_KERNELS if r["launches"][k] == 0]
+        if missing and torch.device(dev).type == "cuda":
+            raise AssertionError(f"kernels never launched on q2: {missing}")
+        runs.append(r)
+    mv = session_run(dev, as_mv(Q2_DDL), 4, 2 * Q2_CHUNK, name="q2")
+    want = q2_recount(mv["bids"], dev)
+    got = Counter((a, p) for a, p, _rid in mv["mv"])
+    if got != want or not want:
+        raise AssertionError(f"q2 MV ({sum(got.values())} rows) differs "
+                             f"from the recount ({sum(want.values())})")
+    agg_ddl = [Q2_DDL[0], Q2_DDL[1].replace("chunk_size=131072",
+                                            "chunk_size=8192"), Q2_AGG_MV]
+    ag = session_run(dev, agg_ddl, 12, 8192, name="q2")
+    (auction,) = _bid_prefix(ag["bids"], NexmarkConfig(inter_event_us=250),
+                             dev, [0])
+    ids, counts = np.unique(auction, return_counts=True)
+    want_agg = sorted((int(i), int(c)) for i, c in zip(ids, counts)
+                      if c % 2 == 0)
+    if ag["mv"] != want_agg or ag["agg"].overflow():
+        raise AssertionError(f"q2 WHERE over an agg: MV "
+                             f"({len(ag['mv'])} rows) differs from the "
+                             f"recount ({len(want_agg)})")
+    med = statistics.median
+    return dict(
+        chunk=Q2_CHUNK, chunks_per_barrier=per_chunks, barriers=rounds,
+        repeats=repeats, bids=runs[0]["bids"],
+        wall_s=med(r["wall_s"] for r in runs),
+        bids_per_s=med(r["bids"] / r["wall_s"] for r in runs),
+        bids_per_s_min=min(r["bids"] / r["wall_s"] for r in runs),
+        bids_per_s_max=max(r["bids"] / r["wall_s"] for r in runs),
+        barrier_p50_s=med(r["coord"].barrier_latency_percentile(0.5)
+                          for r in runs),
+        mv_rows=sum(got.values()), agg_mv_rows=len(ag["mv"]),
+        agg_groups=len(ids), launches=runs[0]["launches"])
+
+
+def phase_topn_recover(dev, r1: int = 8, r2: int = 8) -> dict:
+    """Q5T_DDL as a durable MV on a Hummock store over a local-fs object
+    store, one 32768-bid chunk a barrier: r1 barriers, crash(),
+    HummockStateStore.open, a new Session, recover() (recovery_ms from
+    the opening to the first collected barrier), barriers to (r1 + r2)
+    chunks; the MV must equal an uninterrupted durable run's and the
+    recount. The uninterrupted run's wall over the same statements'
+    volatile wall (same chunking and pacing) is the flush tax; the
+    top-N's own persist (every input row, as the reference) is timed."""
+    ddl = durable(as_mv(Q5T_DDL))
+    n = (r1 + r2) * Q5T_CHUNK
+    with tempfile.TemporaryDirectory(prefix="q5t_") as d1, \
+            tempfile.TemporaryDirectory(prefix="q5t_") as d2:
+        whole = session_run(dev, ddl, r1 + r2, Q5T_CHUNK, name="q5t",
+                            store=HummockStateStore(LocalFsObjectStore(d1)))
+        a = session_run(dev, ddl, r1, Q5T_CHUNK, name="q5t", crash=True,
+                        store=HummockStateStore(LocalFsObjectStore(d2)))
+        b = session_run(dev, ddl, 0, Q5T_CHUNK, name="q5t", recover_to=n,
+                        store=lambda: HummockStateStore.open(
+                            LocalFsObjectStore(d2)))
+    vol = session_run(dev, as_mv(Q5T_DDL), r1 + r2, Q5T_CHUNK,
+                      name="q5t")
+    want = sorted(q5_topn_recount(n, device=dev))
+    if whole["bids"] != n or b["bids"] != n:
+        raise AssertionError(f"topn_recover: offsets {whole['bids']}, "
+                             f"{b['bids']} (want {n})")
+    if b["mv"] != whole["mv"] or b["mv"] != want or vol["mv"] != want:
+        raise AssertionError(f"topn_recover: recovered MV {b['mv']} != "
+                             f"uninterrupted {whole['mv']} / recount {want}")
+    return dict(
+        chunk=Q5T_CHUNK, barriers_before_crash=r1, bids=n,
+        recovered_offset=b["base"], barriers_after_recovery=b["barriers"],
+        recovery_ms=b["recovery_s"] * 1e3, mv_rows=len(b["mv"]),
+        durable_bids_per_s=whole["bids"] / whole["wall_s"],
+        durable_barrier_p50_s=whole["coord"].barrier_latency_percentile(
+            0.5),
+        volatile_bids_per_s=vol["bids"] / vol["wall_s"],
+        flush_tax=whole["wall_s"] / vol["wall_s"],
+        top_n_rows_persisted=whole["top"].persist_rows,
+        top_n_persist_s=whole["top"].persist_s,
+        launches=b["launches"])
 
 
 def main(argv) -> int:
@@ -3618,7 +4243,19 @@ def main(argv) -> int:
     emit({"phase": "q17_sf1", "nvidia_smi": smi, **phase_q17_sf1(dev)})
     emit({"phase": "q17_check", **phase_q17_check(dev)})
     emit({"phase": "q1_full", "nvidia_smi": smi, **phase_q1_full(dev)})
-    paths = {"q5": q5, "q7": q7, "q8": q8, "q17": q17, "q7d": q7d}
+    res.update(phase_kernels_topn(dev))
+    q5t = phase_q5_topn_full(dev)
+    emit({"phase": "q5_topn_full", "nvidia_smi": smi, **q5t})
+    emit({"phase": "q5_topn_profile", "nvidia_smi": smi,
+          **phase_q5_topn_profile(dev, q5t)})
+    emit({"phase": "q5_topn_check", "nvidia_smi": smi,
+          **phase_q5_topn_check(dev)})
+    q2 = phase_q2_full(dev)
+    emit({"phase": "q2_full", "nvidia_smi": smi, **q2})
+    emit({"phase": "topn_recover", "nvidia_smi": smi,
+          **phase_topn_recover(dev)})
+    paths = {"q5": q5, "q7": q7, "q8": q8, "q17": q17, "q7d": q7d,
+             "q5t": q5t, "q2": q2}
     rows = []
     for name, k in kernels.KERNELS.items():
         r = res[name]

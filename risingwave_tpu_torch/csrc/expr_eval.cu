@@ -2,9 +2,11 @@
 // list.
 //
 // Replaces risingwave_tpu/expr/ir.py:FuncCall.eval (94) over the
-// expr/functions.py entries, which XLA fused into the program of each
-// caller: stream/project.py:ProjectExecutor._step_impl (66) and the join
-// condition in stream/sorted_join.py:_apply_impl (438).
+// expr/functions.py entries (modulus, :76, as MOD_I / MOD_F), which XLA
+// fused into the program of each caller: stream/project.py:
+// ProjectExecutor._step_impl (66), FilterExecutor._step_impl's predicate
+// (103) and the join condition in stream/sorted_join.py:_apply_impl
+// (438).
 //
 // What bounds it on the H100: bytes. Each row reads the columns the
 // expressions name and writes each result once (q7's TUMBLE project:
@@ -44,6 +46,7 @@ enum Op {
   IS_NULL = 14, IS_NOT_NULL = 15,
   I2F = 16, F2I = 17, I2B = 18, F2B = 19, WRAP = 20,
   TSTART = 21, TEND = 22, OUT = 23, MASK = 24, DIV_I = 25, DIV_F = 26,
+  MOD_I = 27, MOD_F = 28,
 };
 // comparison codes (CMP_* arg)
 enum Cmp { EQ = 0, NE = 1, LT = 2, LE = 3, GT = 4, GE = 5 };
@@ -127,6 +130,22 @@ __device__ __forceinline__ i64 floor_div(i64 a, i64 b) {
 __device__ __forceinline__ i64 floor_mod(i64 a, i64 b) {
   const i64 r = a % b;
   return (r != 0 && ((r < 0) != (b < 0))) ? r + b : r;
+}
+
+// MOD_I: floor_mod with a zero divisor giving 0 (the caller marks the
+// row NULL); x % -1 is 0 for every x, INT64_MIN included, where C's
+// `%` is undefined
+__device__ __forceinline__ i64 int_mod(i64 a, i64 b) {
+  return (b == 0 || b == -1) ? 0 : floor_mod(a, b);
+}
+
+// MOD_F: jnp.remainder of float64 — the truncated remainder (fmod,
+// exact), plus the divisor where the signs differ; a zero divisor gives
+// +0 (NULL)
+__device__ __forceinline__ double float_mod(double a, double b) {
+  if (b == 0.0) return 0.0;
+  const double r = fmod(a, b);
+  return (r != 0.0 && ((r < 0.0) != (b < 0.0))) ? r + b : r;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -236,6 +255,11 @@ expr_eval_kernel(Prog p, long long n) {
             rv &= fb != 0.0;
             break;
           }
+          case MOD_I: r = int_mod(a, b); rv &= b != 0; break;
+          case MOD_F:
+            r = as_bits(float_mod(as_f(a), as_f(b)));
+            rv &= as_f(b) != 0.0;
+            break;
           case TSTART: r = a - floor_mod(a, b); break;
           default: r = a - floor_mod(a, b) + b;   // TEND
         }

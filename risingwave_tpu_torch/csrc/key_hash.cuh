@@ -24,3 +24,36 @@ __device__ __forceinline__ u64 rw_key_hash_step(u64 h, u64 lane) {
 __device__ __forceinline__ i64 rw_key_hash_finish(u64 h) {
   return static_cast<i64>(h >> 1);
 }
+
+// Column element types of the kernels' column tables (expr/program.py's
+// TYPE_CODES).
+enum RwType { RW_I64 = 0, RW_I32 = 1, RW_I16 = 2, RW_I8 = 3, RW_BOOL = 4,
+              RW_F64 = 5 };
+
+// Element i of a typed column as the lane `astype(uint64)` gives in the
+// JAX package: integers sign-extended, bools 0/1, float64 converted by
+// value with XLA's saturation (NaN and values below 1 give 0, values
+// from 2^64 up give 2^64 - 1).
+__device__ __forceinline__ u64 rw_lane_u64(const void* col, int type,
+                                           long long i) {
+  switch (type) {
+    case RW_I64: return static_cast<u64>(static_cast<const i64*>(col)[i]);
+    case RW_I32:
+      return static_cast<u64>(static_cast<i64>(
+          static_cast<const int*>(col)[i]));
+    case RW_I16:
+      return static_cast<u64>(static_cast<i64>(
+          static_cast<const short*>(col)[i]));
+    case RW_I8:
+      return static_cast<u64>(static_cast<i64>(
+          static_cast<const signed char*>(col)[i]));
+    case RW_BOOL:
+      return static_cast<const unsigned char*>(col)[i] != 0 ? 1ULL : 0ULL;
+    default: {
+      const double x = static_cast<const double*>(col)[i];
+      if (!(x >= 1.0)) return 0ULL;
+      if (x >= 18446744073709551616.0) return ~0ULL;
+      return static_cast<u64>(x);
+    }
+  }
+}

@@ -1,17 +1,17 @@
 """Scalar function bodies behind the registry (port of
-risingwave_tpu/expr/functions.py, the entries Nexmark q1/q7 and TPC-H
-q17 use).
+risingwave_tpu/expr/functions.py, the entries Nexmark q1/q2/q7, the
+q5 top-N and TPC-H q17 use).
 
 Each body is plain PyTorch over `Column`s with the JAX package's
 semantics: one entry covers every numeric width by dtype promotion, the
 result is cast to the node's return type, integer remainders and
-quotients floor (as jnp's `%` and `//` do: torch's `%` floors too,
-`fmod` and C's `/` would truncate), a zero divisor gives NULL, and
+quotients floor (as jnp's `%` and `//` do: `torch.remainder` floors
+too, `fmod` and C's `/` would truncate), a zero divisor gives NULL, and
 `and`/`or` follow Kleene three-valued logic. These bodies are the plain
 version of kernel K5 (expr/program.py), which lowers the same names to
 opcodes.
 
-Left out of this slice (ROADMAP A3): modulus, neg, abs,
+Left out of this slice (ROADMAP A3): neg, abs,
 greatest/least, case, coalesce, hll_estimate, extract/date_trunc, the
 math functions, bit ops and the string functions.
 """
@@ -61,6 +61,23 @@ def _div(node, cols):
     else:
         out = torch.where(zero, 0, torch.div(a, safe, rounding_mode="floor"))
     # a zero divisor gives NULL (the reference's per-row error -> NULL)
+    valid = (~zero) if valid is None else (valid & ~zero)
+    return Column(out.to(node.ret_type.torch_dtype), valid)
+
+
+@kernel("modulus", input_kinds=("num", "num"))
+def _mod(node, cols):
+    a, b = cols[0].data, cols[1].data
+    valid = and_valid(cols)
+    zero = b == 0
+    # x % -1 == x % 1 == 0 for integers: the substitution keeps
+    # INT64_MIN % -1 (which traps in C) out of the remainder
+    ints = not (a.is_floating_point() or b.is_floating_point())
+    unit = zero | (b == -1) if ints else zero
+    safe = torch.where(unit, torch.ones_like(b), b)
+    # jnp's `%`: the floor remainder, which takes the divisor's sign
+    # (numpy's `remainder`; `torch.fmod` would truncate)
+    out = torch.where(zero, 0, torch.remainder(a, safe))
     valid = (~zero) if valid is None else (valid & ~zero)
     return Column(out.to(node.ret_type.torch_dtype), valid)
 

@@ -53,7 +53,7 @@ MAX_CODE, MAX_IN, MAX_OUT, MAX_STACK = 48, 16, 8, 16   # csrc/expr_eval.cu
 # opcodes (csrc/expr_eval.cu keeps the same numbers)
 (LOAD, CONST, NUL, ADD_I, SUB_I, MUL_I, ADD_F, SUB_F, MUL_F, CMP_I, CMP_F,
  AND, OR, NOT, IS_NULL, IS_NOT_NULL, I2F, F2I, I2B, F2B, WRAP, TSTART, TEND,
- OUT, MASK, DIV_I, DIV_F) = range(27)
+ OUT, MASK, DIV_I, DIV_F, MOD_I, MOD_F) = range(29)
 CMP_CODES = {"equal": 0, "not_equal": 1, "less_than": 2,
              "less_than_or_equal": 3, "greater_than": 4,
              "greater_than_or_equal": 5}
@@ -103,7 +103,7 @@ class _Compiler:
             infos = [self.info(a) for a in e.args]
             if e.name in ("is_null", "is_not_null"):
                 nullable = False
-            elif e.name == "divide":
+            elif e.name in ("divide", "modulus"):
                 nullable = True         # a zero divisor gives NULL
             else:
                 nullable = any(n for _, n in infos)
@@ -180,6 +180,22 @@ class _Compiler:
             self._op(DIV_F if k == "f" else DIV_I, push=-1)
             if k == "i":
                 self._wrap(max(dts, key=lambda d: _BITS[d]))
+                self._wrap(out_dt)
+            return
+        if name == "modulus":
+            dts = [self.info(a)[0] for a in args]
+            if torch.bool in dts:
+                raise NotImplementedError("K5: arithmetic on booleans")
+            # jnp's `%` in the promoted operand type, then the cast
+            k = "f" if "f" in kinds else "i"
+            for a, ka in zip(args, kinds):
+                self.emit(a)
+                self._to(ka, k)
+            self._op(MOD_F if k == "f" else MOD_I, push=-1)
+            if k == "i":
+                self._wrap(max(dts, key=lambda d: _BITS[d]))
+            self._to(k, _kind(out_dt))
+            if _kind(out_dt) == "i":
                 self._wrap(out_dt)
             return
         if name in CMP_CODES:

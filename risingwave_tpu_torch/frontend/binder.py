@@ -25,14 +25,19 @@ and executor arguments:
                          -> one snapshot_join_agg fragment fed by the two
                             sources (TPC-H q17's shape, append-only
                             inputs; `_try_snapshot_join_agg`)
+  WHERE                  -> a filter node above the relation; over an
+                            inner join, the conjuncts of one side are
+                            pushed below the join first
+  ORDER BY ... LIMIT     -> a retract_top_n fragment (one actor) over the
+                            query's changelog
   plain SELECT           -> project (+ row_id for a keyless MV pk)
   CREATE SINK            -> the plan ends in a sink node
 
 What the JAX planner also plans raises `BindError("... not ported yet
-(ROADMAP A9)")` here, never a different plan: WHERE (filters and their
-pushdown, NOW() dynamic filters), global aggregates outside the q17
-fusion (simple_agg), AVG / bool_and / bool_or / approx_count_distinct,
-HOP, MV-on-MV scans, ORDER BY/LIMIT (top-N), window functions, outer and
+(ROADMAP A9)")` here, never a different plan: NOW() dynamic filters,
+global aggregates outside the q17 fusion (simple_agg), AVG / bool_and /
+bool_or / approx_count_distinct, HOP, MV-on-MV scans, the mesh top-N
+(`streaming_parallelism_devices` > 1), window functions, outer and
 temporal joins, non-integer join keys (hash join), parallelism > 1 and
 remote fragment placement.
 """
@@ -416,8 +421,14 @@ class StreamPlanner:
         out names, out DataTypes, pk_hint, append_only, watermark
         columns); pk_hint is None for a keyless append-only stream (the
         caller adds a row_id)."""
-        if sel.limit is not None or sel.order_by or sel.offset:
-            raise not_ported("streaming ORDER BY / LIMIT (top-N)")
+        top_spec = (list(sel.order_by), sel.limit, sel.offset)
+        want_top_n = sel.limit is not None
+        if (sel.order_by or sel.offset) and not want_top_n:
+            raise BindError(
+                "streaming ORDER BY needs a LIMIT (a TopN MV); unbounded "
+                "ORDER BY belongs in batch SELECTs over the MV")
+        if want_top_n and not sel.order_by:
+            raise BindError("streaming LIMIT needs ORDER BY (TopN)")
         if getattr(sel, "emit_on_close", False):
             raise not_ported("EMIT ON WINDOW CLOSE")
         # comma join: FROM a, b WHERE ... — the join condition lives in
@@ -435,8 +446,6 @@ class StreamPlanner:
             sel.limit, sel.offset))
         if fused is not None:
             return fused
-        if where is not None:
-            raise not_ported("WHERE (filters)")
         has_agg = bool(sel.group_by) or any(
             contains_agg(it.expr) for it in sel.items)
         if has_agg and not sel.group_by:
@@ -447,11 +456,21 @@ class StreamPlanner:
         fid, scope, info = self.plan_rel(rel)
         frag = self.graph.fragments[fid]
         sel = ast.Select(expand_star(sel.items, scope.schema), rel,
-                         None, sel.group_by, list(sel.order_by),
+                         where, sel.group_by, list(sel.order_by),
                          sel.limit, sel.offset)
         jinfo = self._join_frags.get(fid)
         if jinfo is not None and frag.root is jinfo["node"]:
             scope, info, sel = self._optimize_join(jinfo, scope, info, sel)
+
+        if sel.where is not None:
+            # `col > now()`-style conjuncts lower to a dynamic filter in
+            # the JAX planner
+            if any(_compares_with_now(c)
+                   for c in split_conjuncts(sel.where)):
+                raise not_ported("NOW() dynamic filters")
+            frag.root = Node("filter", dict(
+                predicate=bind_scalar(sel.where, scope)),
+                inputs=(frag.root,))
 
         def project_wm(exprs):
             """Watermarks survive a projection on InputRef columns."""
@@ -462,7 +481,15 @@ class StreamPlanner:
         if has_agg:
             afid, names, types, pk, wm_out = self._plan_agg(sel, fid, scope,
                                                             info)
-            return (afid, names, types, pk, False, wm_out)
+            out = (afid, names, types, pk, False, wm_out)
+        else:
+            out = self._plan_project(sel, frag, scope, info, project_wm)
+        if want_top_n:
+            out = self._plan_top_n(top_spec, out)
+        return out
+
+    def _plan_project(self, sel: ast.Select, frag: Fragment, scope: Scope,
+                      info: RelInfo, project_wm):
         exprs, names = [], []
         for j, it in enumerate(sel.items):
             exprs.append(bind_scalar(it.expr, scope))
@@ -470,8 +497,8 @@ class StreamPlanner:
         if info.append_only:
             frag.root = Node("project", dict(exprs=exprs, names=names),
                              inputs=(frag.root,))
-            return (fid, names, [e.ret_type for e in exprs], None, True,
-                    project_wm(exprs))
+            return (frag.fid, names, [e.ret_type for e in exprs], None,
+                    True, project_wm(exprs))
         # retracting input: its stream key must survive the projection so
         # deletes keep addressing the same rows
         assert info.stream_key is not None
@@ -489,8 +516,50 @@ class StreamPlanner:
             key_pos.append(found)
         frag.root = Node("project", dict(exprs=exprs, names=names),
                          inputs=(frag.root,))
-        return (fid, names, [e.ret_type for e in exprs], tuple(key_pos),
-                False, project_wm(exprs))
+        return (frag.fid, names, [e.ret_type for e in exprs],
+                tuple(key_pos), False, project_wm(exprs))
+
+    def _plan_top_n(self, top_spec, planned):
+        """Streaming ORDER BY + LIMIT -> a RetractableTopN over the
+        query's changelog, a singleton fragment (per-shard top-Ns would
+        union to wrong rows); no watermark survives it."""
+        order_by, limit, offset = top_spec
+        fid, names, types, pk_hint, append_only, _wm = planned
+        order_specs = []
+        for e, desc in order_by:
+            idx = None
+            if isinstance(e, ast.Lit) and isinstance(e.value, int):
+                idx = e.value - 1
+            elif isinstance(e, ast.ColRef) and e.qualifier is None \
+                    and e.name in names:
+                idx = names.index(e.name)
+            if idx is None or not 0 <= idx < len(names):
+                raise BindError(
+                    "streaming ORDER BY must name an output column")
+            if types[idx] is DataType.VARCHAR:
+                # dict ids order by insertion, not lexicographically
+                raise BindError(
+                    "streaming ORDER BY over VARCHAR is unsupported "
+                    "(dict encoding is not lexicographic); ORDER BY in "
+                    "a batch SELECT over the MV instead")
+            order_specs.append((idx, bool(desc)))
+        if pk_hint is None:
+            raise BindError(
+                "streaming TopN over a keyless stream is unsupported "
+                "(add GROUP BY or aggregate first)")
+        if self.cfg("streaming_parallelism_devices", 1) > 1:
+            raise not_ported("the mesh top-N (streaming_parallelism_"
+                             "devices > 1)")
+        wd = 1 if self.cfg("streaming_watchdog", 1) else None
+        top = self.graph.add(Fragment(self.fid(), Node(
+            "retract_top_n", dict(
+                group_key_indices=(), order_specs=order_specs,
+                limit=limit, offset=offset, durable=self.durable(),
+                pk_indices=list(pk_hint),
+                capacity=self.cfg("streaming_top_n_capacity", 1 << 14),
+                watchdog_interval=wd),
+            inputs=(Exchange(fid),)), dispatch="simple"))
+        return top.fid, names, types, pk_hint, False, frozenset()
 
     # ----------------------------------------------------------- GROUP BY
     def _plan_agg(self, sel: ast.Select, fid: int, scope: Scope,
@@ -911,11 +980,12 @@ class StreamPlanner:
     # ----------------------------------------------------- optimizer passes
     def _optimize_join(self, jinfo, scope: Scope, info: RelInfo,
                        sel: ast.Select):
-        """Join-input pruning on a SELECT directly over a join: each side
-        narrows to the columns the join or the SELECT uses, absorbed into
-        the upstream fragment where it has one consumer. (The JAX
-        planner's filter pushdown, the pass before it, needs a WHERE,
-        which `_plan_query` refuses.)"""
+        """Bind-time rewrites of a SELECT directly over a join, the JAX
+        planner's two passes: (1) predicate pushdown (inner joins): the
+        WHERE conjuncts touching one side move below the join, absorbed
+        into that side's upstream fragment where it has one consumer;
+        (2) join-input pruning: each side narrows to the columns the
+        join or the SELECT uses, absorbed likewise."""
         node, nl = jinfo["node"], jinfo["nl"]
         lsch, rsch = jinfo["lsch"], jinfo["rsch"]
         args = node.args
@@ -934,9 +1004,52 @@ class StreamPlanner:
                 return out
             return set()
 
+        # ---- 1. filter pushdown ----
+        if sel.where is not None and jinfo["jt"] == "inner":
+            def push_filter(side: int, pred) -> None:
+                inp = node.inputs[side]
+                if (isinstance(inp, Exchange) and
+                        len(self.graph.consumers(inp.upstream)) == 1):
+                    up = self.graph.fragments[inp.upstream]
+                    up.root = Node("filter", dict(predicate=pred),
+                                   inputs=(up.root,))
+                else:
+                    wrapped = Node("filter", dict(predicate=pred),
+                                   inputs=(inp,))
+                    node.inputs = tuple(
+                        wrapped if i == side else x
+                        for i, x in enumerate(node.inputs))
+
+            keep = []
+            for conj in split_conjuncts(sel.where):
+                cols = refs(conj)
+                if cols and max(cols) < nl:
+                    push_filter(0, bind_scalar(conj, scope))
+                elif cols and min(cols) >= nl:
+                    push_filter(1, remap_inputs(
+                        bind_scalar(conj, scope),
+                        {i: i - nl for i in cols}))
+                else:
+                    keep.append(conj)
+            w = None
+            for c in keep:
+                w = c if w is None else ast.BinOp("and", w, c)
+            sel = ast.Select(sel.items, sel.rel, w, sel.group_by,
+                             sel.order_by, sel.limit, sel.offset)
+
+        # ---- 2. join input pruning ----
         used = set(info.stream_key or ())
         for it in sel.items:
             used |= refs(it.expr)
+        if sel.where is not None:
+            used |= refs(sel.where)
+        for g in sel.group_by:
+            used |= refs(g)
+        for e, _ in sel.order_by:
+            try:
+                used |= refs(e)          # may be an output alias/ordinal
+            except BindError:
+                pass
         need_l = {i for i in used if i < nl}
         need_r = {i - nl for i in used if i >= nl}
         for side, need in (("left", need_l), ("right", need_r)):
@@ -1057,6 +1170,21 @@ class StreamPlanner:
         else:
             frag.root = graft(root, keep)
         return True
+
+
+def _compares_with_now(conj) -> bool:
+    """Whether the conjunct is `col OP now()` (either side, OP an order
+    comparison): what the JAX planner lowers to a dynamic filter."""
+    if not isinstance(conj, ast.BinOp) or conj.op not in (
+            "greater_than", "greater_than_or_equal", "less_than",
+            "less_than_or_equal"):
+        return False
+
+    def is_now(e):
+        return isinstance(e, ast.Func) and e.name == "now" and not e.args
+
+    return (isinstance(conj.left, ast.ColRef) and is_now(conj.right)) or \
+        (is_now(conj.left) and isinstance(conj.right, ast.ColRef))
 
 
 def split_conjuncts(e) -> list:

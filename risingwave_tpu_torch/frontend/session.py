@@ -47,7 +47,7 @@ from ..plan.build import BuildEnv, Deployment, build_graph
 from ..state import MemoryStateStore
 from ..state.sstable import frame_meta, unframe_meta
 from . import sql as ast
-from .binder import BindError, StreamPlanner
+from .binder import BindError, StreamPlanner, not_ported
 
 _NEXMARK_SCHEMAS = {"bid": BID_SCHEMA, "person": PERSON_SCHEMA,
                     "auction": AUCTION_SCHEMA}
@@ -165,6 +165,10 @@ class Session:
         "streaming_agg_capacity": int,
         "streaming_watchdog": int,      # 0 disables error fetches
         "streaming_parallelism": int,
+        # the top-N's store; 1 device only (the mesh top-N is not
+        # ported: above 1 the SET raises)
+        "streaming_top_n_capacity": int,
+        "streaming_parallelism_devices": int,
         # 0 disables the snapshot join-agg fusion; the port has no
         # generic plan for that shape, so it then raises BindError
         "streaming_snapshot_fuse": int,
@@ -255,6 +259,9 @@ class Session:
                 raise BindError(f"unknown session variable {stmt.name!r} "
                                 "(or not ported yet, ROADMAP A9)")
             value = self.CONFIG_VARS[stmt.name](stmt.value)
+            if stmt.name == "streaming_parallelism_devices" and value > 1:
+                raise not_ported("the mesh (streaming_parallelism_devices "
+                                 "> 1)")
             self.config[stmt.name] = value
             if stmt.name == "checkpoint_max_inflight":
                 # takes effect at the next barrier of the live coordinator

@@ -99,3 +99,47 @@ def sorted_side_to_numpy(st: SortedSideState) -> dict:
                 cols=[c.cpu().numpy() for c in st.cols],
                 valids=[v.cpu().numpy() for v in st.valids],
                 degree=st.degree.cpu().numpy(), n=int(st.n))
+
+
+def top_n_state_from_numpy(ex, khash: np.ndarray, cols: Sequence[np.ndarray],
+                           valids: Sequence[np.ndarray], n: int,
+                           top_hash: np.ndarray,
+                           top_cols: Sequence[np.ndarray],
+                           top_valids: Sequence[np.ndarray], top_n: int,
+                           errs: Optional[Sequence[int]] = None) -> None:
+    """Install a retractable top-N's state in the port's executor `ex`
+    (on its device): the sorted store (khash, cols, valids, n) and the
+    last emitted top set (top_hash, top_cols, top_valids, top_n), the
+    JAX package's `RetractableTopNExecutor` fields, same layout; `errs`
+    in the JAX package's [row overflow, delete miss] order."""
+    dev = ex.device
+    C = len(khash)
+    dts = [f.data_type.np_dtype for f in ex.schema]
+    ex.capacity = C
+    ex.store = sorted_side_from_numpy(
+        khash, [np.asarray(c, dtype=dt) for c, dt in zip(cols, dts)],
+        valids, np.zeros(C, dtype=np.int32), n, dev)
+    ex._spare = None
+    ex.top_hash = _t(np.asarray(top_hash, dtype=np.int64), dev)
+    ex.top_cols = tuple(_t(np.asarray(c, dtype=dt), dev)
+                        for c, dt in zip(top_cols, dts))
+    ex.top_valids = tuple(_t(np.asarray(v, dtype=bool), dev)
+                          for v in top_valids)
+    ex.top_n = _t(np.asarray(top_n, dtype=np.int32), dev)
+    if errs is not None:
+        ex._errs_dev = _t(np.asarray([0, errs[1], errs[0]], dtype=np.int32),
+                          dev)
+
+
+def top_n_state_to_numpy(ex) -> dict:
+    """A retractable top-N's store and last top set as numpy arrays,
+    with `errs` in the JAX package's [row overflow, delete miss]
+    order."""
+    st = ex.store
+    return dict(khash=st.khash.cpu().numpy(),
+                cols=[c.cpu().numpy() for c in st.cols],
+                valids=[v.cpu().numpy() for v in st.valids], n=int(st.n),
+                top_hash=ex.top_hash.cpu().numpy(),
+                top_cols=[c.cpu().numpy() for c in ex.top_cols],
+                top_valids=[v.cpu().numpy() for v in ex.top_valids],
+                top_n=int(ex.top_n), errs=ex.errs())

@@ -47,13 +47,29 @@ def umod(h: torch.Tensor, m: int) -> torch.Tensor:
     return ((srl(h, 32) % m) * r32 + (h & LOW32) % m) % m
 
 
+def u64_lane(c: torch.Tensor) -> torch.Tensor:
+    """The uint64 bits (in int64) that `c.astype(uint64)` gives in the
+    JAX package: integers sign-extended, bools 0/1, floats converted by
+    value with saturation (NaN and values below 1 give 0, values from
+    2^64 up give 2^64 - 1), as XLA converts them."""
+    if not c.is_floating_point():
+        return c.to(torch.int64)
+    x = c.to(torch.float64)
+    high = x >= 2.0 ** 63
+    low = torch.where(high, x - 2.0 ** 63, x)
+    low = torch.where(low >= 1.0, low, 0.0)       # NaN fails the compare
+    v = low.clamp(max=2.0 ** 63 - 1024).to(torch.int64)
+    v = torch.where(high, v | s64(1 << 63), v)
+    return torch.where(x >= 2.0 ** 64, -1, v)
+
+
 def key_hash(key_cols) -> torch.Tensor:
-    """splitmix64 chain over key columns (each widened to 64 bits with
-    sign extension, as `astype(uint64)` does), seeded like the JAX
-    package's `_bucket_pair` and `compute_vnodes`."""
+    """splitmix64 chain over key columns (each as its `astype(uint64)`
+    lane, `u64_lane`), seeded like the JAX package's `_bucket_pair` and
+    `compute_vnodes`."""
     h = torch.full((key_cols[0].shape[0],), s64(SEED), dtype=torch.int64,
                    device=key_cols[0].device)
     for c in key_cols:
-        x = h ^ (c.to(torch.int64) * GOLDEN)
+        x = h ^ (u64_lane(c) * GOLDEN)
         h = splitmix64(x)
     return h

@@ -89,6 +89,16 @@ def key_bits_of(t: torch.Tensor) -> int:
     return 64
 
 
+def lexsort_plain(keys: Sequence[torch.Tensor]) -> torch.Tensor:
+    """np.lexsort semantics (last key primary) by iterated
+    `torch.argsort(stable=True)`, on any device: the plain version of
+    `stable_lexsort`."""
+    order = torch.argsort(keys[0], stable=True)
+    for k in keys[1:]:
+        order = order[torch.argsort(k[order], stable=True)]
+    return order
+
+
 def stable_lexsort(keys: Sequence[torch.Tensor],
                    key_bits: Optional[Sequence[int]] = None) -> torch.Tensor:
     """np.lexsort semantics (last key primary) as iterated single-key
@@ -96,10 +106,7 @@ def stable_lexsort(keys: Sequence[torch.Tensor],
     True)` on the CPU. `key_bits` (per key) bounds each key's bits for
     the kernel, as in `stable_sort`."""
     if keys[0].device.type == "cpu":
-        order = torch.argsort(keys[0], stable=True)
-        for k in keys[1:]:
-            order = order[torch.argsort(k[order], stable=True)]
-        return order
+        return lexsort_plain(keys)
     bits = list(key_bits) if key_bits is not None \
         else [key_bits_of(k) for k in keys]
     order = None

@@ -19,9 +19,10 @@ placement (`build_partial_graph`, `cluster_remote_edges`,
 `_infer_fragment_schema`), per-fragment rebuild and channel replay,
 mesh-chain fusion, memory and stats registration, and the builders of
 node kinds the port cannot plan yet (hop_window, simple and the other
-aggregates, filter, joins other than sorted, top-N, over-window,
-stream_scan, dedup); durable snapshot join-agg state; sinks other than
-`blackhole_device`; connectors other than `nexmark` and `tpch`.
+aggregates, dynamic filters, joins other than sorted, the group and
+sharded top-Ns, over-window, stream_scan, dedup); durable snapshot
+join-agg state; sinks other than `blackhole_device`; connectors other
+than `nexmark` and `tpch`.
 """
 
 from __future__ import annotations
@@ -36,9 +37,9 @@ from ..state.state_table import StateTable
 from ..state.store import StateStore
 from ..stream import (
     Actor, BroadcastDispatcher, Channel, ChannelInput,
-    DeviceBlackholeSinkExecutor, HashAggExecutor, MaterializeExecutor,
-    NoOpExecutor,
-    ProjectExecutor, RowIdGenExecutor, SimpleDispatcher,
+    DeviceBlackholeSinkExecutor, FilterExecutor, HashAggExecutor,
+    MaterializeExecutor, NoOpExecutor, ProjectExecutor,
+    RetractableTopNExecutor, RowIdGenExecutor, SimpleDispatcher,
     SnapshotJoinAggExecutor, SortedJoinExecutor, SourceExecutor,
 )
 from ..stream.executor import Executor
@@ -298,6 +299,11 @@ def _build_project(args, inputs, ctx, key):
                                "watermark_transforms"))
 
 
+@register_builder("filter")
+def _build_filter(args, inputs, ctx, key):
+    return FilterExecutor(inputs[0], args["predicate"])
+
+
 @register_builder("no_op")
 def _build_no_op(args, inputs, ctx, key):
     return NoOpExecutor(inputs[0])
@@ -386,6 +392,27 @@ def _build_snapshot_join_agg(args, inputs, ctx: ActorCtx, key):
         dim_filter=args.get("dim_filter"),
         capacity=args.get("capacity", 1 << 17),
         dim_capacity=args.get("dim_capacity", 1 << 14),
+        watchdog_interval=args.get("watchdog_interval", 1),
+        device=ctx.env.device)
+
+
+@register_builder("retract_top_n")
+def _build_retract_top_n(args, inputs, ctx: ActorCtx, key):
+    pk = tuple(args.get("pk_indices")
+               or inputs[0].pk_indices
+               or range(len(inputs[0].schema)))
+    if args.get("mesh_devices", 1) > 1:
+        raise NotImplementedError(
+            "the sharded top-N is not ported yet (ROADMAP A9)")
+    st = None
+    if args.get("durable"):
+        st = ctx.env.state_table(ctx.table_id(key), inputs[0].schema, pk)
+    return RetractableTopNExecutor(
+        inputs[0], args.get("group_key_indices", ()),
+        order_specs=args["order_specs"],
+        limit=args["limit"], offset=args.get("offset", 0),
+        capacity=args.get("capacity", 1 << 14),
+        state_table=st, pk_indices=pk,
         watchdog_interval=args.get("watchdog_interval", 1),
         device=ctx.env.device)
 
@@ -503,7 +530,8 @@ def infer_fragment_schemas(graph: StreamGraph,
                                        for i in range(len(a["exprs"]))]
             return Schema(tuple(SchemaField(nm, e.ret_type)
                                 for nm, e in zip(names, a["exprs"])))
-        if k in ("no_op", "materialize", "sink"):
+        if k in ("filter", "no_op", "retract_top_n", "materialize",
+                 "sink"):
             return ins[0]
         if k == "hash_agg":
             gk = list(a["group_key_indices"])

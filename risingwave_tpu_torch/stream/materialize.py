@@ -2,7 +2,10 @@
 (port of risingwave_tpu/stream/materialize.py).
 
 Applies the changelog to the MV table with a ConflictBehavior and commits
-at barriers. The MV table is the queryable result.
+at barriers. The MV table is the queryable result. The visible rows are
+compacted on the device first (kernel K12 on the card) and only they
+cross to the host: a top-N's 2C-row output chunk holds at most 2 x
+limit visible rows.
 
 Left out of this slice (ROADMAP Queue A): the serving hook and the
 durable changelog log taps.
@@ -13,6 +16,7 @@ from __future__ import annotations
 import enum
 
 from ..common.chunk import StreamChunk, OP_INSERT, OP_UPDATE_INSERT
+from ..ops.hash_table import compact_mask
 from ..state.state_table import StateTable
 from .executor import Executor
 from .message import Barrier, BarrierKind
@@ -53,7 +57,7 @@ class MaterializeExecutor(Executor):
                 yield msg
 
     def _apply(self, chunk: StreamChunk) -> None:
-        rows = chunk.to_rows()
+        rows = visible_rows(chunk)
         if self.conflict is ConflictBehavior.NO_CHECK:
             self.table.write_chunk_rows(rows)
             return
@@ -70,3 +74,20 @@ class MaterializeExecutor(Executor):
                     self.table.insert(row)
             else:
                 self.table.delete(row)
+
+
+def visible_rows(chunk: StreamChunk) -> list[tuple]:
+    """`chunk.to_rows()`, with the visible rows gathered on the device
+    (K12's compaction) before the copy to the host."""
+    sel, n = compact_mask(chunk.vis)
+    m = int(n)
+    if m == 0:
+        return []
+    idx = sel[:m]
+    ops = chunk.ops[idx].cpu().numpy()
+    cols = [c.data[idx].cpu().numpy() for c in chunk.columns]
+    valids = [None if c.valid is None else c.valid[idx].cpu().numpy()
+              for c in chunk.columns]
+    return [(int(ops[r]), tuple(c[r].item() if v is None or v[r] else None
+                                for c, v in zip(cols, valids)))
+            for r in range(m)]

@@ -13,7 +13,8 @@ collision only costs a compare). One chunk's apply is:
 
   netting   within-chunk pk runs of a retracting side are netted to one
             delete and one insert per pk (a stable lexsort: passes of
-            kernel K11, ops/sort.py);
+            kernel K11, ops/sort.py; then kernel K19, `csrc/pk_net.cu`,
+            the run flags, which the sorted store shares);
   probe     kernel K6 (`csrc/sorted_join_probe.cu`): key hash, the
             contiguous hash range of each row in the other side, int64
             offsets, expansion into a fixed [M] match buffer (M =
@@ -49,7 +50,8 @@ once). On the CPU every apply allocates, as the reference does.
 
 Left out of this slice (ROADMAP Queue A, A7): outer joins and degree
 transitions, temporal joins, the memory manager (spill/reload),
-capacity growth (`_maybe_grow`) and the sharded subclass.
+capacity growth (`_maybe_grow`; `grow_sorted_arrays` serves the sorted
+store of the top-N) and the sharded subclass.
 """
 
 from __future__ import annotations
@@ -67,9 +69,9 @@ from ..common.chunk import (
 )
 from ..common.types import Field, Schema
 from ..device import resolve_device
-from ..expr.program import ExprProgram
+from ..expr.program import TYPE_CODES, ExprProgram
 from ..ops import kernels
-from ..ops.sort import stable_lexsort, stable_sort
+from ..ops.sort import lexsort_plain, stable_lexsort, stable_sort
 from ..ops.hashing import key_hash as _chain_hash, srl
 from ..utils.d2h import PendingFetch, as_i64_lanes, pack_rows, unpack_rows
 from .align import LEFT, RIGHT, barrier_align
@@ -124,6 +126,15 @@ K_DIFF = kernels.register(kernels.CudaKernel(
                             _P],
         "rw_diff_sums": [_L, _L]}))
 
+# K19. Replaces stream/sorted_store.py:sorted_store_apply's chunk side
+# (38-62) and the same netting in stream/sorted_join.py:_apply_impl
+# (386-406).
+K_NET = kernels.register(kernels.CudaKernel(
+    "pk_net",
+    replaces="risingwave_tpu/stream/sorted_store.py:28",
+    functions={"rw_pk_net": [_I, _PP, _PI, _P, _P, _P, _L, _P, _P, _P, _P,
+                             _P]}))
+
 
 def key_hash(key_cols: Sequence[torch.Tensor]) -> torch.Tensor:
     """63-bit nonnegative hash of the composite key (splitmix64 chain)."""
@@ -156,6 +167,25 @@ def empty_sorted_side(capacity: int, col_dtypes: Sequence[torch.dtype],
                      for _ in col_dtypes),
         degree=torch.zeros(capacity, dtype=torch.int32, device=device),
         n=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def grow_sorted_arrays(khash: torch.Tensor, cols: Sequence[torch.Tensor],
+                       valids: Sequence[torch.Tensor], new_capacity: int):
+    """A sorted dense store reallocated at a larger capacity: the live
+    prefix unchanged, the padding the hash sentinel and zeros."""
+    pad = new_capacity - khash.shape[0]
+    if pad <= 0:
+        raise ValueError(f"cannot grow {khash.shape[0]} slots to "
+                         f"{new_capacity}")
+    kh = torch.cat([khash, torch.full((pad,), HSENTINEL, dtype=khash.dtype,
+                                      device=khash.device)])
+    cols2 = tuple(torch.cat([c, torch.zeros(pad, dtype=c.dtype,
+                                            device=c.device)])
+                  for c in cols)
+    valids2 = tuple(torch.cat([v, torch.zeros(pad, dtype=torch.bool,
+                                              device=v.device)])
+                    for v in valids)
+    return kh, cols2, valids2
 
 
 def _count_le(sorted_arr: torch.Tensor, dead_cum: torch.Tensor,
@@ -195,19 +225,15 @@ class _Buffers:
         return t if t.shape[0] == n else t[:n]
 
 
-def net_pk_runs(chunk: StreamChunk, active: torch.Tensor,
-                pk_idx: Sequence[int]):
-    """Within-chunk pk-run netting of a retracting side: rows grouped by
-    pk (a stable lexsort, K11 on the card); per run the first delete and
-    the last insert survive. Returns (is_ins, is_del). The reference's
-    first lexsort key, the row index, is the order every stable pass
-    keeps anyway, so it is left out."""
+def net_pk_runs_plain(chunk: StreamChunk, active: torch.Tensor,
+                      pk_idx: Sequence[int],
+                      order: Optional[torch.Tensor] = None):
+    """Plain PyTorch version of `net_pk_runs` (with torch's lexsort
+    unless `order` is given)."""
     N = chunk.capacity
     dev = active.device
-    signs = op_sign(chunk.ops)
-    sort_keys = [chunk.columns[p].data for p in pk_idx]
-    sort_keys.append((~active).to(torch.uint8))
-    order = stable_lexsort(sort_keys, [64] * len(pk_idx) + [1])
+    if order is None:
+        order = lexsort_plain(_net_keys(chunk, active, pk_idx))
     s_act = active[order]
     same = s_act[1:] & s_act[:-1]
     for p in pk_idx:
@@ -216,12 +242,65 @@ def net_pk_runs(chunk: StreamChunk, active: torch.Tensor,
     one = torch.ones(1, dtype=torch.bool, device=dev)
     run_start = torch.cat([one, ~same])
     run_end = torch.cat([~same, one])
-    s_signs = signs[order]
+    s_signs = op_sign(chunk.ops)[order]
     is_del = torch.empty(N, dtype=torch.bool, device=dev)
     is_ins = torch.empty(N, dtype=torch.bool, device=dev)
     is_del[order] = run_start & (s_signs < 0) & s_act
     is_ins[order] = run_end & (s_signs > 0) & s_act
-    return is_ins, is_del
+    h = key_hash([chunk.columns[p].data for p in pk_idx])
+    return h, is_ins, is_del, torch.where(is_ins, h, HSENTINEL)
+
+
+def _net_keys(chunk: StreamChunk, active: torch.Tensor,
+              pk_idx: Sequence[int]) -> list[torch.Tensor]:
+    """The netting lexsort's keys: the pk columns, then inactive rows
+    last. The reference's first key, the row index, is the order every
+    stable pass keeps anyway, so it is left out."""
+    return [chunk.columns[p].data for p in pk_idx] \
+        + [(~active).to(torch.uint8)]
+
+
+def net_pk_runs(chunk: StreamChunk, active: torch.Tensor,
+                pk_idx: Sequence[int], bufs: Optional[_Buffers] = None,
+                order: Optional[torch.Tensor] = None):
+    """Within-chunk pk-run netting of a retracting input: rows grouped by
+    pk (a stable lexsort: K11 passes, unless `order` gives it); per run
+    the first delete and the last insert survive. Returns (h, is_ins,
+    is_del, ins_h): the pk hash of every row, the netted flags, and h
+    where is_ins else the sentinel. Kernel K19 on a CUDA device (the
+    outputs live in `bufs` until its next use), the plain version on the
+    CPU."""
+    dev = active.device
+    if dev.type == "cpu":
+        return net_pk_runs_plain(chunk, active, pk_idx, order)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    N = chunk.capacity
+    if not 1 <= len(pk_idx) <= MAX_KEYS:
+        raise ValueError(f"K19 takes 1..{MAX_KEYS} pk columns")
+    if order is None:
+        keys = _net_keys(chunk, active, pk_idx)
+        order = stable_lexsort(keys, [64] * len(pk_idx) + [1])
+    if order.dtype != torch.int64 or order.shape != (N,):
+        raise ValueError("K19 takes the chunk's int64 sort order")
+    if chunk.ops.dtype != torch.int8 or active.dtype != torch.bool:
+        raise ValueError("K19 takes int8 ops and a bool activity mask")
+    pk_cols = [chunk.columns[p].data.contiguous() for p in pk_idx]
+    ops, active, order = (t.contiguous() for t in (chunk.ops, active,
+                                                    order))
+    if bufs is None:
+        bufs = _Buffers(dev)
+    h = bufs.get("net_h", N, torch.int64)
+    ins_h = bufs.get("net_ins_h", N, torch.int64)
+    is_del = bufs.get("net_del", N, torch.bool)
+    is_ins = bufs.get("net_ins", N, torch.bool)
+    K_NET.launches += 1
+    K_NET.call("rw_pk_net", len(pk_cols), kernels.ptr_array(pk_cols),
+               kernels.int_array(TYPE_CODES[c.dtype] for c in pk_cols),
+               kernels.ptr(order), kernels.ptr(active), kernels.ptr(ops), N,
+               kernels.ptr(h), kernels.ptr(is_del), kernels.ptr(is_ins),
+               kernels.ptr(ins_h), kernels.stream_of(ops))
+    return h, is_ins, is_del, ins_h
 
 
 def store_from_rows(cols: Sequence[torch.Tensor],
@@ -774,12 +853,12 @@ class SortedJoinExecutor(Executor):
         for i in key_idx:      # NULL keys never join
             if chunk.columns[i].valid is not None:
                 active = active & chunk.columns[i].valid
+        bufs = self._bufs[side]
         if self.append_only[side]:
             is_ins, is_del = active, None
         else:
-            is_ins, is_del = net_pk_runs(chunk, active,
-                                         self.pk_indices_side[side])
-        bufs = self._bufs[side]
+            _, is_ins, is_del, _ = net_pk_runs(
+                chunk, active, self.pk_indices_side[side], bufs)
         h, ins_h, own_m, oth_m, ops, emit = probe(
             key_cols, active, is_ins, chunk.ops, other,
             self.key_indices[1 - side], chunk.columns, M, self._errs_dev,

@@ -382,7 +382,7 @@ def _short_barrier_ddl(per):
 
 def _jax_join_errs(ddl, per, rounds, store):
     """The JAX session's join error counters after `rounds` barriers
-    paced like chip_smoke.q7s_run (the last one the Stop barrier)."""
+    paced like chip_smoke.session_run (the last one the Stop barrier)."""
     async def go():
         s = JaxSession(store=store)
         for st in ddl:
@@ -413,7 +413,7 @@ def test_q7_misses_at_short_barriers_match_jax(tmp_path):
     durable and volatile sessions count."""
     per, rounds = 4 * CS, 8
     ddl = _short_barrier_ddl(per)
-    port = [chip_smoke.q7s_run("cpu", d, rounds, per, store=st)["join"]
+    port = [chip_smoke.session_run("cpu", d, rounds, per, store=st)["join"]
             .errs() for d, st in (
                 (ddl, H(LocalFs(str(tmp_path / "p")))),
                 (chip_smoke.volatile(ddl), None))]

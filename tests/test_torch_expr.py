@@ -40,7 +40,7 @@ def _port():
 def _inputs(seed=0):
     """(arrays, valids): a int64, b int64, c int32, d int32, f float64,
     p bool, q bool, ts timestamp, ts2 timestamp, z int64 (small, with
-    zeros)."""
+    zeros), m int64 (the int64 limits among small values)."""
     rng = np.random.default_rng(seed)
     a = rng.integers(-10**6, 10**6, N)
     b = rng.integers(-10**6, 10**6, N)
@@ -60,11 +60,17 @@ def _inputs(seed=0):
     z = rng.integers(-3, 4, N)
     arrays.append(z)
     valids.append(rng.random(N) < 0.9)
+    # dividends for modulus: INT64_MIN (% -1 traps in C) and INT64_MAX
+    m = rng.integers(-1000, 1000, N)
+    m[::4] = np.iinfo(np.int64).min
+    m[1::6] = np.iinfo(np.int64).max
+    arrays.append(m)
+    valids.append(None)
     return arrays, valids
 
 
 TYPES = ["INT64", "INT64", "INT32", "INT32", "FLOAT64", "BOOLEAN",
-         "BOOLEAN", "TIMESTAMP", "TIMESTAMP", "INT64"]
+         "BOOLEAN", "TIMESTAMP", "TIMESTAMP", "INT64", "INT64"]
 
 
 def _exprs(call, col, lit, DT, FC):
@@ -72,8 +78,19 @@ def _exprs(call, col, lit, DT, FC):
     a, b, c, d = (col(i, getattr(DT, TYPES[i])) for i in range(4))
     f, p, q, ts, ts2 = (col(i, getattr(DT, TYPES[i])) for i in range(4, 9))
     z = col(9, DT.INT64)
+    m = col(10, DT.INT64)
     W = 10_000_000
     return [
+        # modulus: jnp's floor remainder (the divisor's sign), zero ->
+        # NULL, INT64_MIN % -1 == 0, int32 operands, int/float promotion,
+        # negative float divisors, q5_topn's and q2's literals
+        call("modulus", a, z), call("modulus", m, z),
+        call("modulus", m, lit(-1)), call("modulus", c, d),
+        call("modulus", c, lit(-7)), call("modulus", f, z),
+        call("modulus", f, lit(-2.5)), call("modulus", a, lit(0.75)),
+        call("modulus", a, lit(65536)),
+        call("equal", call("modulus", a, lit(123)), lit(0)),
+        call("modulus", a, lit(None)), call("modulus", z, lit(0)),
         # divide: int floor (negative operands, zero -> NULL), int32
         # wrapping, int/float promotion, NULL inputs, q17's avg and
         # `sum / 7.0`, an explicitly float-typed division of ints
@@ -237,6 +254,20 @@ def _emulate(prog, columns, n, mask=None):
                     zero = f(b) == 0
                     r = bits(np.where(zero, 0.0, f(a) / np.where(
                         zero, 1.0, f(b))))
+                    rv = rv & ~zero
+                elif op == P.MOD_I:
+                    zero = b == 0
+                    unit = zero | (b == -1)
+                    r = np.where(unit, 0, np.remainder(
+                        a, np.where(unit, 1, b)))
+                    rv = rv & ~zero
+                elif op == P.MOD_F:
+                    zero = f(b) == 0
+                    den = np.where(zero, 1.0, f(b))
+                    t = np.fmod(f(a), den)
+                    t = np.where((t != 0) & ((t < 0) != (den < 0)),
+                                 t + den, t)
+                    r = bits(np.where(zero, 0.0, t))
                     rv = rv & ~zero
                 elif op == P.TSTART:
                     r = a - np.remainder(a, b)

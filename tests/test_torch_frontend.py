@@ -6,6 +6,11 @@ tests/test_tpch_q17.py's view (the fused snapshot join-agg), what the
 port cannot plan yet raises BindError, and chip_smoke.py's q8 and q17
 statements are bench.py's.
 
+WHERE (Nexmark q2, a filter over an aggregating subquery, the pushdown
+below an inner join) and ORDER BY ... LIMIT (bench.py's q5_topn on one
+device) plan as JAX's binder plans them, and q5_topn and q2 run through
+both sessions to the same MV.
+
 bench.py is read as source (its DDL lists evaluated from the syntax
 tree), never imported."""
 
@@ -49,6 +54,16 @@ def bench_ddl(func: str, **names) -> list:
                   and getattr(n.targets[0], "id", None) == "ddl")
     code = compile(ast.Expression(assign.value), "bench.py", "eval")
     return eval(code, {"W": W, **names})
+
+
+def bench_returned_ddl(func: str) -> list:
+    """The list literal bench.py's function `func` returns."""
+    tree = ast.parse((ROOT / "bench.py").read_text())
+    fn = next(n for n in tree.body if isinstance(n, ast.FunctionDef)
+              and n.name == func)
+    ret = next(n for n in ast.walk(fn) if isinstance(n, ast.Return))
+    return eval(compile(ast.Expression(ret.value), "bench.py", "eval"),
+                {"W": W})
 
 
 def bench_q17_ddl(func: str = "bench_q17") -> list:
@@ -100,7 +115,29 @@ BENCH_DDL = {
     "q7d": lambda: bench_ddl("bench_q7d"),
     "q7_kill": lambda: bench_q17_ddl("bench_q7_kill"),
     "q8": lambda: bench_ddl("bench_q8"),
+    "q5_topn": lambda: bench_returned_ddl("_q5_topn_ddl"),
 }
+
+BID_SOURCE = ("CREATE SOURCE bid WITH (connector='nexmark', table='bid', "
+              "chunk_size=131072, emit_watermarks=1)")
+# WHERE over an aggregating subquery: update pairs cross the filter
+WHERE_AGG_DDL = [
+    "SET streaming_durability = 0",
+    BID_SOURCE,
+    ("CREATE MATERIALIZED VIEW m AS SELECT auction, n FROM "
+     "(SELECT auction, count(*) AS n FROM bid GROUP BY auction) C "
+     "WHERE n % 2 = 0"),
+]
+# WHERE over an inner join: one conjunct a side is pushed below it, the
+# cross-side one stays above
+WHERE_JOIN_DDL = [
+    "SET streaming_durability = 0",
+    *(f"CREATE SOURCE {t} WITH (connector='nexmark', table='{t}', "
+      f"chunk_size=1024, primary_key='id')" for t in ("person", "auction")),
+    ("CREATE MATERIALIZED VIEW m AS SELECT P.id, A.id AS aid, A.reserve "
+     "FROM person P JOIN auction A ON P.id = A.seller "
+     "WHERE A.reserve % 7 = 1 AND P.id % 2 = 0 AND A.reserve > P.id"),
+]
 
 WM_Q8_DDL = [
     "SET streaming_durability = 0",
@@ -194,14 +231,33 @@ def _plans(ddl):
     return asyncio.run(jax_plan()), asyncio.run(port_plan())
 
 
-@pytest.mark.parametrize("query", ["q8", "q8_mv", "q1", "q17", "q17_mv",
-                                   "q7", "q7d", "q7_kill"])
+PLANNED_DDL = {
+    "q8": BENCH_DDL["q8"], "q8_mv": lambda: WM_Q8_DDL,
+    "q1": BENCH_DDL["q1"], "q17": BENCH_DDL["q17"],
+    "q17_mv": lambda: BENCH_DDL["q17"]()[:-1] + [Q17_MV],
+    "q7": BENCH_DDL["q7"], "q7d": BENCH_DDL["q7d"],
+    "q7_kill": BENCH_DDL["q7_kill"],
+    "q5_topn": lambda: chip_smoke.Q5T_DDL,
+    "q5_topn_durable_mv": lambda: [
+        st.replace("SET streaming_durability = 0",
+                   "SET streaming_durability = 1")
+          .replace("CREATE SINK", "CREATE MATERIALIZED VIEW")
+          .replace(" WITH (connector='blackhole_device')", "")
+        for st in chip_smoke.Q5T_DDL],
+    "q2": lambda: chip_smoke.Q2_DDL,
+    "where_agg": lambda: WHERE_AGG_DDL,
+    "where_join": lambda: WHERE_JOIN_DDL,
+    # the WHERE sink the port refused before it planned filters
+    "where_sink": lambda: [
+        "SET streaming_durability = 0", BID_SOURCE,
+        ("CREATE SINK s AS SELECT auction FROM bid WHERE price > 10 "
+         "WITH (connector='blackhole_device')")],
+}
+
+
+@pytest.mark.parametrize("query", list(PLANNED_DDL))
 def test_planner_gives_jax_fragments_and_arguments(query):
-    ddl = {"q8": BENCH_DDL["q8"], "q8_mv": lambda: WM_Q8_DDL,
-           "q1": BENCH_DDL["q1"], "q17": BENCH_DDL["q17"],
-           "q17_mv": lambda: BENCH_DDL["q17"]()[:-1] + [Q17_MV],
-           "q7": BENCH_DDL["q7"], "q7d": BENCH_DDL["q7d"],
-           "q7_kill": BENCH_DDL["q7_kill"]}[query]()
+    ddl = PLANNED_DDL[query]()
     jp, pp = _plans(ddl)
     js = _graph_sig(jp.graph, JExchange, strip=JAX_ONLY_ARGS)
     ps = _graph_sig(pp.graph, PExchange)
@@ -269,6 +325,45 @@ def test_planner_gives_jax_fragments_and_arguments(query):
         assert join.args["durable"] is (query != "q7")
         assert join.args["clean_specs"] == (("band", 3, 1, -W, None),
                                             ("band", 1, 3, 0, 1))
+    kinds = [n.kind for f in pp.graph.fragments.values()
+             for n in _nodes(f.root, PExchange)]
+    if query.startswith("q5_topn"):
+        # source -> project(auction % 65536) -> hash_agg -> the top-N, a
+        # singleton ranking n DESC over the agg's changelog
+        top = next(n for f in pp.graph.fragments.values()
+                   for n in _nodes(f.root, PExchange)
+                   if n.kind == "retract_top_n")
+        a = top.args
+        assert a["order_specs"] == [(1, True)] and a["limit"] == 10
+        assert a["pk_indices"] == [0] and a["group_key_indices"] == ()
+        assert a["capacity"] == 1 << 17
+        assert a["durable"] is (query != "q5_topn")
+        assert a["watchdog_interval"] is None
+    if query in ("q2", "where_agg", "where_sink"):
+        assert kinds.count("filter") == 1
+    if query == "where_join":
+        # one conjunct pushed to each side, the cross-side one above
+        join = next(n for f in pp.graph.fragments.values()
+                    for n in _nodes(f.root, PExchange)
+                    if n.kind == "sorted_join")
+        assert kinds.count("filter") == 3
+        assert "sorted_join" in [n.kind for n in _nodes(
+            next(f for f in pp.graph.fragments.values()
+                 if any(x.kind == "filter" and x.inputs
+                        and getattr(x.inputs[0], "kind", None)
+                        == "sorted_join"
+                        for x in _nodes(f.root, PExchange))).root,
+            PExchange)]
+        assert join.args["left_key_indices"] == [0]
+
+
+def _nodes(n, exchange_cls) -> list:
+    if isinstance(n, exchange_cls):
+        return []
+    out = [n]
+    for i in n.inputs:
+        out += _nodes(i, exchange_cls)
+    return out
 
 
 @pytest.mark.parametrize("sql", [
@@ -277,10 +372,10 @@ def test_planner_gives_jax_fragments_and_arguments(query):
     lambda: ("CREATE MATERIALIZED VIEW m AS SELECT window_start, "
              "max(price) AS p FROM HOP(bid, date_time, 2000000, 10000000) "
              "GROUP BY window_start"),
-    lambda: ("CREATE SINK s AS SELECT auction FROM bid WHERE price > 10 "
-             "WITH (connector='blackhole_device')"),
-    lambda: ("CREATE MATERIALIZED VIEW m AS SELECT auction, price FROM bid "
-             "ORDER BY price LIMIT 3"),
+    # NOW() dynamic filters and global aggregates: still not ported
+    lambda: ("CREATE MATERIALIZED VIEW m AS SELECT auction FROM bid "
+             "WHERE date_time < NOW()"),
+    lambda: "CREATE MATERIALIZED VIEW m AS SELECT max(price) AS p FROM bid",
     lambda: ("CREATE MATERIALIZED VIEW m AS SELECT window_start FROM "
              "HOP(bid, date_time, 2000000, 10000000)"),
     lambda: ("CREATE MATERIALIZED VIEW m AS SELECT P.id FROM person P "
@@ -296,6 +391,52 @@ def test_unported_sql_raises_bind_error(sql):
         with pytest.raises(BindError, match="not ported yet"):
             await s.execute(sql())
         assert not s.catalog.mvs and not s.catalog.sinks
+    asyncio.run(go())
+
+
+@pytest.mark.parametrize("case", ["keyless", "varchar", "no_limit",
+                                  "no_order"])
+def test_top_n_refusals_are_jaxs(case):
+    """The binder's own refusals, in JAX's words and in both engines: a
+    top-N over a keyless stream (bid has no stream key), streaming ORDER
+    BY over VARCHAR, ORDER BY without LIMIT and LIMIT without ORDER
+    BY."""
+    sql = {
+        "keyless": ("CREATE MATERIALIZED VIEW m AS SELECT auction, price "
+                    "FROM bid ORDER BY price LIMIT 3"),
+        "varchar": ("CREATE MATERIALIZED VIEW m AS SELECT channel, "
+                    "count(*) AS n FROM bid GROUP BY channel "
+                    "ORDER BY channel LIMIT 3"),
+        "no_limit": ("CREATE MATERIALIZED VIEW m AS SELECT auction, "
+                     "count(*) AS n FROM bid GROUP BY auction ORDER BY n"),
+        "no_order": ("CREATE MATERIALIZED VIEW m AS SELECT auction, "
+                     "count(*) AS n FROM bid GROUP BY auction LIMIT 3"),
+    }[case]
+    match = {"keyless": "keyless stream", "varchar": "over VARCHAR",
+             "no_limit": "needs a LIMIT", "no_order": "needs ORDER BY"}
+
+    async def go(session, err):
+        s = session()
+        await s.execute("SET streaming_durability = 0")
+        await s.execute("CREATE SOURCE bid WITH (connector='nexmark', "
+                        "table='bid', chunk_size=64)")
+        with pytest.raises(err, match=match[case]):
+            await s.execute(sql)
+    from risingwave_tpu.frontend.binder import BindError as JaxBindError
+    asyncio.run(go(JaxSession, JaxBindError))
+    asyncio.run(go(lambda: PortSession(device="cpu"), BindError))
+
+
+def test_mesh_top_n_raises():
+    """streaming_parallelism_devices: 1 is accepted, the mesh refused."""
+    async def go():
+        s = PortSession(device="cpu")
+        assert await s.execute("SET streaming_parallelism_devices = 1") == 1
+        assert await s.execute(
+            "SET streaming_top_n_capacity = 4096") == 4096
+        with pytest.raises(BindError, match="not ported yet"):
+            await s.execute("SET streaming_parallelism_devices = 8")
+        assert s.config["streaming_parallelism_devices"] == 1
     asyncio.run(go())
 
 
@@ -348,6 +489,53 @@ def test_chip_smoke_q7_statements_are_bench_q7s():
     assert chip_smoke.Q7K_DDL == BENCH_DDL["q7_kill"]()
     assert f"chunk_size={chip_smoke.Q7D_CHUNK}," in chip_smoke.Q7D_DDL[6]
     assert f"chunk_size={chip_smoke.Q7K_CHUNK}," in chip_smoke.Q7K_DDL[6]
+
+
+def test_chip_smoke_q5t_statements_are_bench_q5_topns():
+    """chip_smoke's q5_topn list is bench.py's _q5_topn_ddl() with one
+    line changed: the 8-device mesh SET becomes 1."""
+    bench = BENCH_DDL["q5_topn"]()
+    assert len(chip_smoke.Q5T_DDL) == len(bench)
+    diff = [(a, b) for a, b in zip(chip_smoke.Q5T_DDL, bench) if a != b]
+    assert diff == [("SET streaming_parallelism_devices = 1",
+                     "SET streaming_parallelism_devices = 8")]
+    assert f"chunk_size={chip_smoke.Q5T_CHUNK}," in chip_smoke.Q5T_DDL[5]
+    assert f"inter_event_us={chip_smoke.Q5T_INTER_US}," in \
+        chip_smoke.Q5T_DDL[5]
+
+
+def _mv_rows(engine: str, ddl: list, name: str, rounds: int) -> list:
+    async def go():
+        s = (JaxSession() if engine == "jax"
+             else PortSession(device="cpu"))
+        for stmt in ddl:
+            await s.execute(stmt)
+        await s.tick(rounds)
+        rows = sorted(r for _, r in s.catalog.mvs[name].table.iter_all())
+        await s.shutdown() if engine == "port" else None
+        return rows
+    return asyncio.run(go())
+
+
+def test_q5_topn_and_q2_runs_match_jax():
+    """q5_topn's statements as an MV (256-bid chunks, 4096-slot agg and
+    store) and q2's as an MV (row ids dropped) run through both sessions
+    to the same rows."""
+    q5t = [st.replace("CREATE SINK", "CREATE MATERIALIZED VIEW")
+             .replace(" WITH (connector='blackhole_device')", "")
+             .replace("chunk_size=32768", "chunk_size=256, rate_limit=256")
+             .replace(f"{1 << 18}", "4096").replace(f"{1 << 17}", "4096")
+           for st in chip_smoke.Q5T_DDL]
+    got, want = (_mv_rows(e, q5t, "q5t", 4) for e in ("port", "jax"))
+    # this early the hot auctions leave fewer than 10 groups
+    assert got == want and len(got) >= 5
+    q2 = [st.replace("CREATE SINK", "CREATE MATERIALIZED VIEW")
+            .replace(" WITH (connector='blackhole_device')", "")
+            .replace("chunk_size=131072", "chunk_size=4096, rate_limit=8192")
+          for st in chip_smoke.Q2_DDL]
+    got, want = (_mv_rows(e, q2, "q2", 4) for e in ("port", "jax"))
+    assert sorted(r[:2] for r in got) == sorted(r[:2] for r in want)
+    assert got and all(r[0] % 123 == 0 for r in got)
 
 
 def test_chip_smoke_q8_statements_are_bench_q8s():
@@ -421,7 +609,8 @@ def test_q1_statements_run_through_the_session():
 
 
 @pytest.mark.parametrize("query", ["q8", "q8_mv", "q17", "q7d",
-                                   "q7_kill"])
+                                   "q7_kill", "q5_topn_durable_mv",
+                                   "where_agg", "where_join"])
 def test_plan_ids_and_schemas_match_jax(query):
     """The deterministic actor/table ids and the planner-level fragment
     schemas of a plan agree with the JAX package's."""
@@ -429,10 +618,7 @@ def test_plan_ids_and_schemas_match_jax(query):
         assign_graph_ids as jax_ids, infer_fragment_schemas as jax_schemas)
     from risingwave_tpu_torch.plan.build import (
         assign_graph_ids, infer_fragment_schemas)
-    ddl = {"q8": BENCH_DDL["q8"], "q8_mv": lambda: WM_Q8_DDL,
-           "q17": BENCH_DDL["q17"], "q7d": BENCH_DDL["q7d"],
-           "q7_kill": BENCH_DDL["q7_kill"]}[query]()
-    jp, pp = _plans(ddl)
+    jp, pp = _plans(PLANNED_DDL[query]())
     assert assign_graph_ids(pp.graph, 10, 100) == jax_ids(jp.graph, 10, 100)
 
     def sig(schemas):

@@ -46,6 +46,9 @@ MODULES = [
     "risingwave_tpu_torch.plan.graph", "risingwave_tpu_torch.plan.build",
     "risingwave_tpu_torch.connectors.tpch",
     "risingwave_tpu_torch.stream.snapshot_join_agg",
+    "risingwave_tpu_torch.stream.sorted_store",
+    "risingwave_tpu_torch.stream.retract_top_n",
+    "risingwave_tpu_torch.state.storage_table",
 ]
 
 
@@ -103,12 +106,15 @@ def _entry_points():
     from risingwave_tpu_torch.stream.hash_agg import HashAggExecutor
     from risingwave_tpu_torch.stream.snapshot_join_agg import (
         SnapshotJoinAggExecutor)
+    from risingwave_tpu_torch.stream.retract_top_n import (
+        RetractableTopNExecutor)
     from risingwave_tpu_torch.stream.sorted_join import SortedJoinExecutor
     return [NexmarkGenerator.__init__, HashAggExecutor.__init__,
             SortedJoinExecutor.__init__, resolve_device, chunk_from_numpy,
             hash_table_from_numpy, agg_state_from_numpy,
             sorted_side_from_numpy, Session.__init__,
-            TpchGenerator.__init__, SnapshotJoinAggExecutor.__init__]
+            TpchGenerator.__init__, SnapshotJoinAggExecutor.__init__,
+            RetractableTopNExecutor.__init__]
 
 
 def test_entry_points_default_to_cuda():
@@ -131,6 +137,8 @@ def test_cuda_without_a_card_raises():
     from risingwave_tpu_torch.stream.hash_agg import HashAggExecutor
     from risingwave_tpu_torch.stream.snapshot_join_agg import (
         SnapshotJoinAggExecutor)
+    from risingwave_tpu_torch.stream.retract_top_n import (
+        RetractableTopNExecutor)
     from risingwave_tpu_torch.stream.sorted_join import SortedJoinExecutor
 
     class _In:
@@ -171,6 +179,8 @@ def test_cuda_without_a_card_raises():
             sub_items=[], residue=None, final_agg_calls=[count_star(True)],
             final_items=[lit(1)], out_names=["n"],
             out_types=[DataType.INT64], capacity=64).device,
+        lambda: RetractableTopNExecutor(_In(), (), order_col=0, limit=1,
+                                        capacity=64).device,
     ]
     for build in builders:
         if torch.cuda.is_available():
@@ -184,12 +194,13 @@ def test_every_kernel_is_registered_with_its_source():
     import chip_smoke  # noqa: F401  (imports every wrapper module)
     from risingwave_tpu_torch.ops import kernels
     names = sorted(kernels.KERNELS)
-    assert names == ["compact", "expr_eval", "hash_agg", "hash_table",
-                     "hop_window", "nexmark_auction", "nexmark_bid",
-                     "nexmark_person", "persist_view", "radix_sort",
-                     "row_id", "segment_agg", "snapshot_append",
-                     "snapshot_diff", "snapshot_final", "sorted_join_merge",
-                     "sorted_join_probe", "tpch"]
+    assert names == ["compact", "expr_eval", "filter_ops", "hash_agg",
+                     "hash_table", "hop_window", "nexmark_auction",
+                     "nexmark_bid", "nexmark_person", "persist_view",
+                     "pk_net", "radix_sort", "row_id", "segment_agg",
+                     "snapshot_append", "snapshot_diff", "snapshot_final",
+                     "sorted_join_merge", "sorted_join_probe",
+                     "top_n_diff", "top_n_rank", "tpch"]
     for k in kernels.KERNELS.values():
         assert k.source.exists()
         src = k.source.read_text()
@@ -208,6 +219,10 @@ def test_wrappers_refuse_other_devices():
     from risingwave_tpu_torch.expr.agg import count_star
     from risingwave_tpu_torch.stream import row_id, sorted_join as sj
     from risingwave_tpu_torch.stream import snapshot_join_agg as sja
+    from risingwave_tpu_torch.stream import project
+    from risingwave_tpu_torch.stream import retract_top_n as rtn
+    from risingwave_tpu_torch.common.chunk import StreamChunk
+    from risingwave_tpu_torch.common import DataType, schema
     t = ht.HashTable.empty(32, [torch.int64], "meta")
     with pytest.raises(ValueError, match="unsupported device"):
         ht.lookup_or_insert(t, [torch.zeros(4, dtype=torch.int64,
@@ -237,6 +252,14 @@ def test_wrappers_refuse_other_devices():
         lambda: sja.final_reduce(i64, i64, errs[0], i64, errs[0], None,
                                  errs, [], [count_star(True)], [], []),
         lambda: sja.final_diff([Column(i64[:1])], [i64[0]], [b[0]], b[0]),
+        lambda: project.filter_fixup(b, None, i64.to(torch.int8), b),
+        lambda: sj.net_pk_runs(StreamChunk(
+            (Column(i64),), i64.to(torch.int8), b,
+            schema(("k", DataType.INT64))), b, (0,)),
+        lambda: rtn.topn_keys(side, [(0, False)], ()),
+        lambda: rtn.topn_rank(side, i64, i64, 0, 1),
+        lambda: rtn.topn_diff(side, i64, i64, errs[0], i64, [i64], [b],
+                              errs[0]),
     ]
     for refuse in refusals:
         with pytest.raises(ValueError, match="unsupported device"):
