@@ -27,7 +27,12 @@ plain PyTorch version on the card:
        count(*) per auction % 65536 -> ORDER BY n DESC LIMIT 10 (the
        retractable top-N over the agg's changelog), also durable with a
        crash and a recovery;
-  q2 — Nexmark q2 (a WHERE filter) through the Session.
+  q2 — Nexmark q2 (a WHERE filter) through the Session;
+  q6 / q4 — Nexmark q6 (AVG of the last 10 final prices per seller, a
+       window function over the MAX agg's changelog of an auction x bid
+       band join) and q4 (AVG of the finals per category), as the JAX
+       package's goldens write them, through the Session; the EOWC body
+       of tests/test_eowc_over_window.py; global aggregates.
 Phases, one JSON line each:
 
   1. device: the card, torch/CUDA versions, the kernels' build time;
@@ -135,10 +140,39 @@ Phases, one JSON line each:
  17. topn_recover: q5_topn as a durable MV on a Hummock store, 8
      barriers, crash(), reopen, recover(), 8 more: the MV equals an
      uninterrupted durable run's and the recount;
- 18. the kernels line: launches on the first run of each kernel's own
+ 18. kernels_window: K23 (window scan), K24 (over-window diff) and K25
+     (global agg apply) against their plain versions: K23/K24 on a
+     q6-shaped store (270000 live rows in 2^19 slots) and on edge cases
+     (NaN, +-0, subnormal and DESC float order keys, duplicate order
+     keys, an all-NULL frame, lag/lead at partition edges, one partition
+     of the whole store, many small ones, NaN and +-inf sum arguments
+     kept in their partition), exact for integer arguments, float sums
+     within a relative 1e-9, two K23 launches bit-identical; K25 on a
+     131072-row chunk of retracting and append-only calls;
+ 19. q6_full: q6 into the device blackhole sink, 4 x 131072 bids and
+     the auctions of their event time a barrier, 53 barriers (the
+     over-window store past 2^18 live rows), two runs: every q6 kernel
+     launched, errs 0; events/s, barrier p50 and max, store and emitted
+     set rows and bytes, join sides' rows; q6_profile, the idle share;
+ 20. q6_check: q6 as an MV, one bid chunk a barrier, the store started
+     at 2^14 slots with the watchdog on (it grows): the MV equals a numpy
+     recount after every barrier; q4_full: q4 as an MV at q6_full's
+     geometry, equal to the recount after every barrier;
+ 21. eowc_full: the EOWC body over bids (131072-bid chunks, 10
+     barriers) into a sink that keeps the rows, beside the same body
+     without EOWC: each EOWC row once, equal to the general
+     over-window's rows up to the frontier and a numpy row_number and
+     running sum per auction;
+ 22. global_agg: count/sum/max over bids at q1's geometry, and the avg
+     and count of q6's finals (retracting input), each equal to the
+     recount after every barrier;
+ 23. q6_recover: durable q6 as an MV, one 131072-bid chunk (and its
+     auctions) a barrier, crash after 8 barriers, recover, on to 16:
+     the MV equals the recount; recovery_ms;
+ 24. the kernels line: launches on the first run of each kernel's own
      slice's path (q5 for K1-K4 and K12, q7 for K5-K8, q8 for K9-K11,
-     q17 for K13-K16, q7d for K17-K18, q5_topn for K19-K21, q2 for K22),
-     error, times, bounds.
+     q17 for K13-K16, q7d for K17-K18, q5_topn for K19-K21, q2 for K22,
+     q6 for K23-K24, the global agg for K25), error, times, bounds.
 With --host-profile, phase 4 also runs q5 under cProfile and lists the
 host functions with the most own time.
 The last line is {"ok": true, "device": {...}}. Any failed phase exits
@@ -196,8 +230,9 @@ from risingwave_tpu_torch.stream import (
     Actor, BroadcastDispatcher, Channel, ChannelInput,
     DeviceBlackholeSinkExecutor, Executor, HashAggExecutor,
     HopWindowExecutor, MaterializeExecutor, NoOpExecutor, ProjectExecutor,
-    RetractableTopNExecutor, RowIdGenExecutor, SimpleDispatcher,
-    SnapshotJoinAggExecutor, SortedJoinExecutor, SourceExecutor,
+    GeneralOverWindowExecutor, RetractableTopNExecutor, RowIdGenExecutor,
+    SimpleAggExecutor, SimpleDispatcher, SnapshotJoinAggExecutor,
+    SortedJoinExecutor, SourceExecutor,
 )
 from risingwave_tpu_torch.stream import snapshot_join_agg as sja
 from risingwave_tpu_torch.stream.hash_agg import (
@@ -221,6 +256,14 @@ from risingwave_tpu_torch.stream.retract_top_n import (
     topn_keys_plain, topn_order, topn_rank, topn_rank_plain,
 )
 from risingwave_tpu_torch.stream.sorted_join import HASH_BITS
+from risingwave_tpu_torch.stream.general_over_window import (
+    WindowSpec, _ret_dtype, over_window_flush, window_diff,
+    window_diff_plain, window_hash, window_hash_plain, window_keys,
+    window_order, window_scan, window_scan_plain,
+)
+from risingwave_tpu_torch.stream.simple_agg import (
+    simple_agg_apply, simple_agg_apply_plain,
+)
 from risingwave_tpu_torch.stream.sorted_store import (
     sorted_store_apply, sorted_store_apply_plain,
 )
@@ -2920,7 +2963,8 @@ KERNEL_PATH = {"nexmark_bid": "q5", "hop_window": "q5", "hash_table": "q5",
                "snapshot_final": "q17", "snapshot_diff": "q7d",
                "persist_view": "q7d", "pk_net": "q5t",
                "top_n_rank": "q5t", "top_n_diff": "q5t",
-               "filter_ops": "q2"}
+               "filter_ops": "q2", "window_scan": "q6",
+               "window_diff": "q6", "simple_agg": "gagg"}
 
 
 def phase_q5_full(dev, repeats: int = 5) -> dict:
@@ -3126,26 +3170,30 @@ def volatile(ddl: list) -> list:
 def session_run(dev, ddl: list, rounds: int, per_barrier: int,
                 name: str = "q7", store=None, collect: int = 0,
                 recover_to: int = 0, crash: bool = False, on_flow=None,
-                on_barrier=None) -> dict:
+                on_barrier=None, pace=None) -> dict:
     """The statements `ddl` through the port's Session on `dev`, flow
     `name` (a sink or an MV; over `store`, a MemoryStateStore when None,
     or a function that opens the store, called on the clock of
-    recovery_ms). The source is throttled to `per_barrier` rows between
-    barriers (a build hook sets its rate limit before it starts) and
-    barriers are paced by rows: barrier k follows the source's offset
-    reaching base + k * per_barrier, for k in 1..rounds (base 0); the
-    last is the Stop barrier, or with `crash` the session crashes there
-    instead. With `recover_to`, the session replays the store's catalog
-    (`recover()`, timed from the store's opening, or the session's
-    construction, to its first collected barrier) instead of running
-    `ddl`, base is the recovered offset and barriers run until the
-    offset `recover_to`. Counts are set to 0 just before the flow starts
-    and read just after the last barrier. `on_flow(session, deployment)`
-    runs once the flow exists; `on_barrier(k, session, rows)` after each
-    collected barrier, with the source rows before it. With `collect`,
-    a DeviceCollectSinkExecutor of that many rows replaces the flow's
-    root. The flow's first join, agg and top-N executor (None where it
-    has none) come back with the run's figures."""
+    recovery_ms). Each source is throttled to its rows a barrier, `pace`
+    ({nexmark table: rows}; equal event-time spans for two sources) or
+    else `per_barrier` (a build hook sets its rate limit before it
+    starts), and barriers are paced by rows: barrier k follows every
+    source's offset reaching base + k * its rows a barrier, for k in
+    1..rounds (base 0); the last is the Stop barrier, or with `crash`
+    the session crashes there instead. With `recover_to`, the session
+    replays the store's catalog (`recover()`, timed from the store's
+    opening, or the session's construction, to its first collected
+    barrier) instead of running `ddl`, base is the recovered offset and
+    barriers run on until barrier `recover_to` counted from the start.
+    Counts are set to 0 just before the flow starts and read just after
+    the last barrier. `on_flow(session, deployment)` runs once the flow
+    exists; `on_barrier(k, session, rows)` after each collected barrier,
+    with rows ({nexmark table: rows}) each source emitted before it.
+    With `collect`, a DeviceCollectSinkExecutor of that many rows
+    replaces the flow's root. The flow's first join, agg, top-N,
+    over-window and simple agg executor (None where it has none) come
+    back with the run's figures."""
+    pace = pace or {}
     on_card = torch.device(dev).type == "cuda"
 
     async def go():
@@ -3158,7 +3206,8 @@ def session_run(dev, ddl: list, rounds: int, per_barrier: int,
 
         def attach(_name, dep, fid):
             for src_ in dep.executors(SourceExecutor):
-                src_.rate_limit = per_barrier
+                src_.rate_limit = pace.get(src_.connector.table,
+                                           per_barrier)
             if collect:
                 root = dep.roots[fid][0]
                 actor = next(a for a in dep.actors if a.consumer is root)
@@ -3179,13 +3228,16 @@ def session_run(dev, ddl: list, rounds: int, per_barrier: int,
                 await s.execute(stmt)
         flows = {**s.catalog.sinks, **s.catalog.mvs}
         dep = flows[name].deployment
-        src = dep.executors(SourceExecutor)[0]
-        gen = src.connector
-        base = 0
+        srcs = dep.executors(SourceExecutor)
+        gen = srcs[0].connector
+        paced = [(x.connector, pace.get(x.connector.table, per_barrier))
+                 for x in srcs]
+        bases = [0] * len(srcs)
         n_rounds = rounds
         if recover_to:
-            base = src.state_table.get_row((0,))[1]
-            n_rounds = (recover_to - base) // per_barrier
+            bases = [x.state_table.get_row((0,))[1] for x in srcs]
+            n_rounds = recover_to - bases[0] // paced[0][1]
+        base = bases[0]
 
         def first(cls):
             found = dep.executors(cls)
@@ -3193,6 +3245,7 @@ def session_run(dev, ddl: list, rounds: int, per_barrier: int,
 
         join, agg = first(SortedJoinExecutor), first(HashAggExecutor)
         top = first(RetractableTopNExecutor)
+        ow, sagg = first(GeneralOverWindowExecutor), first(SimpleAggExecutor)
         if on_flow is not None:
             on_flow(s, dep)
         coord = s.coord
@@ -3204,16 +3257,18 @@ def session_run(dev, ddl: list, rounds: int, per_barrier: int,
 
         t0 = time.perf_counter()
         for k in range(1, n_rounds + 1):
-            while gen.offset < base + k * per_barrier:
+            while any(g.offset < b + k * p
+                      for (g, p), b in zip(paced, bases)):
                 check()
                 await asyncio.sleep(0)
             if k < n_rounds or crash:
                 b = await coord.inject_barrier()
                 await coord.wait_collected(b)
                 if on_barrier is not None:
-                    # the rows before this barrier (the source may have
+                    # the rows before this barrier (a source may have
                     # begun the next interval already)
-                    on_barrier(k, s, base + k * per_barrier)
+                    on_barrier(k, s, {g.table: b0 + k * p for (g, p), b0
+                                      in zip(paced, bases)})
             else:
                 await coord.stop_all({a.actor_id for a in dep.actors})
         wall = time.perf_counter() - t0
@@ -3228,13 +3283,15 @@ def session_run(dev, ddl: list, rounds: int, per_barrier: int,
         mv = s.catalog.mvs.get(name)
         out = dict(
             bids=gen.offset, base=base, barriers=n_rounds, wall_s=wall,
-            inflight_at_end=inflight, join=join, agg=agg, top=top,
+            offsets={g.table: g.offset for g, _ in paced},
+            inflight_at_end=inflight, join=join, agg=agg, top=top, ow=ow,
+            sagg=sagg,
             sink=held.get("sink"), coord=coord, session=s,
             launches=launches, recovery_s=recovery_s,
             mv=(sorted(mv.table.iter_committed()) if mv is not None
                 else None),
             d2h_fetches=d2h.STATS["fetches"], d2h_bytes=d2h.STATS["bytes"],
-            persist_rows=sum(e.persist_rows for e in (join, agg, top)
+            persist_rows=sum(e.persist_rows for e in (join, agg, top, ow)
                              if e is not None),
             mem_peak_bytes=(torch.cuda.max_memory_allocated(dev)
                             if on_card else None))
@@ -3369,7 +3426,7 @@ def phase_q7d_recover(dev, r1: int = 30, r2: int = 30,
                             store=HummockStateStore(LocalFsObjectStore(d1)))
         a = session_run(dev, ddl, r1, chunk, crash=True,
                         store=HummockStateStore(LocalFsObjectStore(d2)))
-        b = session_run(dev, ddl, 0, chunk, recover_to=n,
+        b = session_run(dev, ddl, 0, chunk, recover_to=r1 + r2,
                         store=lambda: HummockStateStore.open(
                             LocalFsObjectStore(d2)))
     want = q7_recount(n, cfg, dev)
@@ -4072,7 +4129,8 @@ def phase_q5_topn_check(dev, per_chunks: int = 2, rounds: int = 12) -> dict:
         inter_event_us=Q5T_INTER_US), dev, [0])
     checked = []
 
-    def on_barrier(k, s, bids):
+    def on_barrier(k, s, rows):
+        bids = rows["bid"]
         got = mv_rows_now(s, "q5t")
         want = sorted(q5_topn_recount(bids, auction=auction))
         if got != want:
@@ -4168,7 +4226,8 @@ def phase_topn_recover(dev, r1: int = 8, r2: int = 8) -> dict:
                             store=HummockStateStore(LocalFsObjectStore(d1)))
         a = session_run(dev, ddl, r1, Q5T_CHUNK, name="q5t", crash=True,
                         store=HummockStateStore(LocalFsObjectStore(d2)))
-        b = session_run(dev, ddl, 0, Q5T_CHUNK, name="q5t", recover_to=n,
+        b = session_run(dev, ddl, 0, Q5T_CHUNK, name="q5t",
+                        recover_to=r1 + r2,
                         store=lambda: HummockStateStore.open(
                             LocalFsObjectStore(d2)))
     vol = session_run(dev, as_mv(Q5T_DDL), r1 + r2, Q5T_CHUNK,
@@ -4192,6 +4251,892 @@ def phase_topn_recover(dev, r1: int = 8, r2: int = 8) -> dict:
         top_n_rows_persisted=whole["top"].persist_rows,
         top_n_persist_s=whole["top"].persist_s,
         launches=b["launches"])
+
+
+# ------------------------------------------- window functions, global aggs
+
+# Nexmark q6 and q4 as the JAX package's goldens write them
+# (tests/test_over_window_sql.py:48, tests/test_nexmark_queries.py:86)
+Q6_INNER = ("(SELECT max(B.price) AS final, A.seller, A.id "
+            "      FROM auction A JOIN bid B ON A.id = B.auction "
+            "        AND B.date_time BETWEEN A.date_time AND A.expires "
+            "      GROUP BY A.id, A.seller) Q")
+Q6_SELECT = ("SELECT Q.seller, Q.id, "
+             "avg(Q.final) OVER (PARTITION BY Q.seller ORDER BY Q.id "
+             "ROWS BETWEEN 9 PRECEDING AND CURRENT ROW) AS avgf "
+             f"FROM {Q6_INNER}")
+Q4_SELECT = ("SELECT Q.category, AVG(Q.final) AS avg "
+             "FROM (SELECT MAX(B.price) AS final, A.category "
+             "      FROM auction A, bid B "
+             "      WHERE A.id = B.auction "
+             "        AND B.date_time BETWEEN A.date_time AND A.expires "
+             "      GROUP BY A.id, A.category) Q "
+             "GROUP BY Q.category")
+# tests/test_eowc_over_window.py:15
+EOWC_BODY = (
+    "SELECT auction, date_time, price, "
+    "row_number() OVER (PARTITION BY auction ORDER BY date_time) AS rn, "
+    "sum(price) OVER (PARTITION BY auction ORDER BY date_time) AS sp "
+    "FROM bid")
+GAGG_SELECT = "SELECT count(*), sum(price), max(price) FROM bid"
+GAGG_Q6_SELECT = f"SELECT avg(Q.final), count(*) FROM {Q6_INNER}"
+Q6_CHUNK = 131072
+Q6_INTER_US = 250
+# auctions a barrier spanning the event time of one bid chunk (3 auction
+# and 46 bid events in every 50), rounded up: auctions run ahead
+Q6_AUCTIONS = -(-Q6_CHUNK * 3 // 46)
+Q6_KERNELS = ("nexmark_bid", "nexmark_auction", "row_id",
+              "sorted_join_probe", "sorted_join_merge", "radix_sort",
+              "pk_net", "expr_eval", "hash_table", "hash_agg", "compact",
+              "top_n_rank", "window_scan", "window_diff")
+Q4_KERNELS = ("nexmark_bid", "nexmark_auction", "row_id",
+              "sorted_join_probe", "sorted_join_merge", "radix_sort",
+              "expr_eval", "hash_table", "hash_agg", "compact")
+EOWC_KERNELS = ("nexmark_bid", "row_id", "radix_sort", "pk_net",
+                "sorted_join_merge", "top_n_rank", "window_scan")
+GAGG_KERNELS = ("nexmark_bid", "simple_agg")
+
+
+def window_ddl(select: str, name: str, *, bid_chunk: int = Q6_CHUNK,
+               chunks: int = 1, inter_us: int = Q6_INTER_US,
+               ow_cap: int = 1 << 19, join_cap: int = 1 << 20,
+               agg_cap: int = 1 << 20, watchdog: int = 0,
+               durable_: int = 0, sink: bool = True,
+               auction: bool = True) -> list:
+    """A two-source (auction, bid) statement list at q6's geometry:
+    `chunks` bid chunks a barrier and the auctions of the same event
+    time (one auction chunk), watermarks on both, the capacities
+    pre-sized; `select` into a device blackhole sink or an MV."""
+    a_chunk = -(-bid_chunk * chunks * 3 // 46)
+    ddl = [f"SET streaming_durability = {durable_}",
+           f"SET streaming_watchdog = {watchdog}",
+           f"SET streaming_join_capacity = {join_cap}",
+           f"SET streaming_agg_capacity = {agg_cap}",
+           f"SET streaming_over_window_capacity = {ow_cap}"]
+    if auction:
+        ddl.append("CREATE SOURCE auction WITH (connector='nexmark', "
+                   f"table='auction', chunk_size={a_chunk}, "
+                   f"inter_event_us={inter_us}, emit_watermarks=1)")
+    ddl.append("CREATE SOURCE bid WITH (connector='nexmark', table='bid', "
+               f"chunk_size={bid_chunk}, inter_event_us={inter_us}, "
+               "emit_watermarks=1)")
+    if sink:
+        ddl.append(f"CREATE SINK {name} AS {select} "
+                   "WITH (connector='blackhole_device')")
+    else:
+        ddl.append(f"CREATE MATERIALIZED VIEW {name} AS {select}")
+    return ddl
+
+
+def window_pace(bid_chunk: int, chunks: int) -> dict:
+    return {"bid": bid_chunk * chunks,
+            "auction": -(-bid_chunk * chunks * 3 // 46)}
+
+
+def _auction_prefix(n: int, cfg: NexmarkConfig, device, idx,
+                    batch: int = 1 << 20) -> list:
+    """Columns `idx` of auctions [0, n) from the plain generator."""
+    vocabs = {k: torch.tensor(v, dtype=torch.int32, device=device)
+              for k, v in vocab_ids().items()}
+    parts = []
+    for off in range(0, n, batch):
+        cols = gen_auction_columns_plain(off, min(batch, n - off), cfg,
+                                         vocabs, device)
+        parts.append([cols[i].cpu().numpy() for i in idx])
+    return [np.concatenate(x) for x in zip(*parts)]
+
+
+class WindowRecount:
+    """numpy recount of q6 / q4 / the global avg from the port's plain
+    generators, advanced barrier by barrier: the best (max) qualifying
+    price per auction over the bids so far (the band B.date_time in
+    [A.date_time, A.expires]; auctions run ahead in event time, so every
+    bid's auction is in the prefix)."""
+
+    def __init__(self, n_auctions: int, n_bids: int, device,
+                 inter_us: int = Q6_INTER_US):
+        cfg = NexmarkConfig(inter_event_us=inter_us)
+        (self.aid, self.adt, self.aexp, self.seller,
+         self.category) = _auction_prefix(n_auctions, cfg, device,
+                                          [0, 5, 6, 7, 8])
+        self.bauc, self.price, self.bdt = _bid_prefix(n_bids, cfg, device,
+                                                      [0, 2, 5])
+        self.best = np.full(n_auctions, -1, dtype=np.int64)
+        self.bids = 0
+        self.auctions = 0
+
+    def advance(self, n_bids: int, n_auctions: int) -> None:
+        ai = self.bauc[self.bids:n_bids] - 1000
+        ok = (ai >= 0) & (ai < n_auctions)
+        a = np.clip(ai, 0, len(self.aid) - 1)
+        dt = self.bdt[self.bids:n_bids]
+        ok &= (self.adt[a] <= dt) & (dt <= self.aexp[a])
+        np.maximum.at(self.best, ai[ok], self.price[self.bids:n_bids][ok])
+        self.bids, self.auctions = n_bids, n_auctions
+
+    def _finals(self):
+        ids = np.flatnonzero(self.best >= 0)
+        return ids, self.best[ids]
+
+    def q6(self) -> Counter:
+        """(seller, id, avg of the last 10 finals by id) rows."""
+        ids, fin = self._finals()
+        sel = self.seller[ids]
+        o = np.lexsort((self.aid[ids], sel))
+        s, f, aid = sel[o], fin[o], self.aid[ids][o]
+        n = len(s)
+        pos = np.arange(n)
+        start = np.zeros(n, dtype=np.int64)
+        if n:
+            new = np.r_[True, s[1:] != s[:-1]]
+            start = np.maximum.accumulate(np.where(new, pos, 0))
+        cs = np.cumsum(f)
+        lo = pos - 10
+        base = np.where(lo >= start, cs[np.maximum(lo, 0)],
+                        np.where(start > 0, cs[np.maximum(start - 1, 0)],
+                                 0))
+        cnt = np.minimum(pos - start + 1, 10)
+        avg = (cs - base) / cnt
+        return Counter(zip(s.tolist(), aid.tolist(), avg.tolist()))
+
+    def q4(self) -> list:
+        """(category, avg of finals) rows, sorted."""
+        ids, fin = self._finals()
+        cat = self.category[ids]
+        out = []
+        for c in np.unique(cat):
+            m = cat == c
+            out.append((int(c), float(fin[m].sum()) / int(m.sum())))
+        return sorted(out)
+
+    def avg_count(self) -> list:
+        ids, fin = self._finals()
+        if not len(ids):
+            return []
+        return [(float(fin.sum()) / len(ids), len(ids))]
+
+
+def window_store(dev, C: int, n_rows: int, seed: int, parts: int = 7,
+                 null_part: bool = True):
+    """An over-window store of (p, o, t, v, f, pk) rows for the edge
+    cases: `parts` partitions (partition 0 with v all NULL), a float
+    order column with NaN, -0.0, +0.0, a subnormal, inf and repeats, an
+    int order column of many duplicates, NULL lanes."""
+    rng = np.random.default_rng(seed)
+    sch = make_schema(("p", DataType.INT64), ("o", DataType.FLOAT64),
+                      ("t", DataType.INT64), ("v", DataType.INT64),
+                      ("f", DataType.FLOAT64), ("pk", DataType.INT64))
+    floats = np.array([np.nan, -0.0, 0.0, 1.5, -2.25, 1e-310, np.inf,
+                       7.0, -np.inf, 3.0])
+    p = rng.integers(0, parts, C)
+    o = floats[rng.integers(0, len(floats), C)]
+    t = rng.integers(0, 9, C)
+    v = rng.integers(-1000, 1000, C)
+    f = rng.integers(-4000, 4000, C) / 8.0 + rng.random(C) * 1e-3
+    pk = rng.permutation(C).astype(np.int64)
+    vv = rng.random(C) < 0.9
+    if null_part:
+        vv &= p != 0
+    ch = chunk_from_numpy(sch, [p, o, t, v, f, pk], np.zeros(C, np.int8),
+                          np.arange(C) < n_rows,
+                          [None, rng.random(C) < 0.95, None, vv,
+                           rng.random(C) < 0.9, None], device=dev)
+    st = empty_sorted_side(C, [torch.int64, torch.float64, torch.int64,
+                               torch.int64, torch.float64, torch.int64],
+                           dev)
+    errs = torch.zeros(3, dtype=torch.int32, device=dev)
+    return sorted_store_apply_plain(st, errs, ch, (5,)), sch
+
+
+def q6_store(dev, C: int, n_rows: int, seed: int = 0, sellers: int = 60000):
+    """A store as q6's over-window holds it: (final, seller, id) rows,
+    ids unique, sellers skewed, integer prices; pk (id, seller)."""
+    rng = np.random.default_rng(seed)
+    sch = make_schema(("final", DataType.INT64), ("seller", DataType.INT64),
+                      ("id", DataType.INT64))
+    fin = rng.integers(100, 1000, C) * 10 ** rng.integers(0, 5, C)
+    sel = 1000 + np.minimum(rng.geometric(2.0 / sellers, C), sellers)
+    aid = 1000 + rng.permutation(C).astype(np.int64)
+    ch = chunk_from_numpy(sch, [fin, sel, aid], np.zeros(C, np.int8),
+                          np.arange(C) < n_rows, device=dev)
+    st = empty_sorted_side(C, [torch.int64] * 3, dev)
+    errs = torch.zeros(3, dtype=torch.int32, device=dev)
+    return sorted_store_apply_plain(st, errs, ch, (2, 1)), sch
+
+
+def _lane_err(a: torch.Tensor, b: torch.Tensor, va, vb) -> float:
+    """Largest difference of two window columns where valid (floats by
+    value, NaN equal to NaN, an inf to itself; integers exactly), inf
+    where the valids differ."""
+    if not torch.equal(va, vb):
+        return math.inf
+    if a.is_floating_point():
+        same = (torch.isnan(a) & torch.isnan(b)) | (a == b)
+        d = torch.where(va & ~same, (a - b).abs(), 0.0)
+        d = torch.where(torch.isnan(d), math.inf, d)
+        return float(d.max()) if d.numel() else 0.0
+    return float(torch.where(va, (a.to(torch.int64) - b.to(torch.int64))
+                             .abs(), 0).max())
+
+
+def window_scan_err(st, order, gkey, specs, windows, ripe=None) -> dict:
+    """K23 against its plain version on the same order: the largest
+    error of the gathered columns (exact), of integer-valued windows
+    (exact) and of float-argument sums and avgs (relative to the
+    largest partial sum's magnitude); and whether two launches agree
+    bit for bit."""
+    a = window_scan(st, order, gkey, specs, windows, ripe)
+    b = window_scan_plain(st, order, gkey, specs, windows, ripe)
+    a2 = window_scan(st, order, gkey, specs, windows, ripe)
+    nin = len(st.cols)
+    exact = 0.0
+    for x, y, vx, vy in zip(a[0][:nin], b[0][:nin], a[1][:nin], b[1][:nin]):
+        xx = x.view(torch.int64) if x.dtype == torch.float64 else x
+        yy = y.view(torch.int64) if y.dtype == torch.float64 else y
+        exact = max(exact, float(exact_err([xx, vx], [yy, vy])))
+    rel = 0.0
+    for w, x, y, vx, vy in zip(windows, a[0][nin:], b[0][nin:], a[1][nin:],
+                               b[1][nin:]):
+        if w.kind in ("lag", "lead", "first_value") \
+                and x.dtype == torch.float64:
+            exact = max(exact, float(exact_err(
+                [torch.where(vx, x.view(torch.int64), 0), vx],
+                [torch.where(vy, y.view(torch.int64), 0), vy])))
+        elif x.is_floating_point() and st.cols[w.arg].is_floating_point():
+            scale = float(torch.where(vy, y.abs(), 0.0).nan_to_num(
+                posinf=0.0).max()) + 1.0
+            rel = max(rel, _lane_err(x, y, vx, vy) / scale)
+        else:
+            exact = max(exact, _lane_err(x, y, vx, vy))
+    if ripe is not None:
+        exact = max(exact, float(exact_err([a[2]], [b[2]])))
+    same = all(torch.equal(x.view(torch.int64) if x.dtype == torch.float64
+                           else x,
+                           y.view(torch.int64) if y.dtype == torch.float64
+                           else y)
+               for x, y in zip(a[0] + a[1], a2[0] + a2[1]))
+    return dict(exact_err=exact, float_rel_err=rel, deterministic=same)
+
+
+def flush_pair_err(st, parts, specs, windows, em) -> tuple:
+    """(max error of the card flush against the plain flush, exactly,
+    rows deleted, rows inserted, the card flush's new emitted set)."""
+    a = over_window_flush(st, parts, specs, windows, *em)
+    b = over_window_flush(st, parts, specs, windows, *em, plain=True)
+
+    def flat(r):
+        return ([r[0], r[3].view(1)]
+                + [c.view(torch.int64) if c.dtype == torch.float64 else c
+                   for c in r[4]] + list(r[5]) + [r[6], r[7]])
+    C = st.capacity
+    return (exact_err(flat(a), flat(b)), int(a[7][:C].sum()),
+            int(a[7][C:].sum()), a[:4])
+
+
+def empty_emitted(st, windows):
+    C = st.capacity
+    dev = st.khash.device
+    col_dtypes = [c.dtype for c in st.cols]
+    dts = col_dtypes + [_ret_dtype(w, col_dtypes) for w in windows]
+    return (torch.full((C,), HSENTINEL, dtype=torch.int64, device=dev),
+            tuple(torch.zeros(C, dtype=d, device=dev) for d in dts),
+            tuple(torch.zeros(C, dtype=torch.bool, device=dev) for _ in dts),
+            torch.zeros((), dtype=torch.int32, device=dev))
+
+
+W_EDGE_A = (WindowSpec("row_number"), WindowSpec("rank"),
+            WindowSpec("dense_rank"), WindowSpec("sum", 3),
+            WindowSpec("count", 3), WindowSpec("avg", 3),
+            WindowSpec("lag", 3, offset=2), WindowSpec("lead", 4))
+W_EDGE_B = (WindowSpec("sum", 4, preceding=3), WindowSpec("avg", 4),
+            WindowSpec("count", 4, preceding=4),
+            WindowSpec("sum", 3, preceding=2), WindowSpec("first_value", 1),
+            WindowSpec("lag", 4), WindowSpec("avg", 3, preceding=0),
+            WindowSpec("lead", 3, offset=3))
+# integer arguments only: the flush compares whole rows exactly
+W_EDGE_C = (WindowSpec("sum", 3, preceding=2),
+            WindowSpec("count", 4, preceding=4),
+            WindowSpec("avg", 3, preceding=0), WindowSpec("first_value", 1),
+            WindowSpec("lag", 4), WindowSpec("lead", 3, offset=3),
+            WindowSpec("dense_rank"))
+# sums over the float order column: NaN and +-inf arguments
+W_EDGE_D = (WindowSpec("sum", 1), WindowSpec("avg", 1, preceding=2),
+            WindowSpec("sum", 1, preceding=0), WindowSpec("count", 1),
+            WindowSpec("avg", 1))
+Q6_WINDOWS = (WindowSpec("avg", 0, preceding=9),)
+
+
+def phase_kernels_window(dev, C: int = 1 << 19,
+                         n_rows: int = 270000) -> dict:
+    """K23-K25 against their plain versions on the card: K23 and K24 on
+    a q6-shaped store of `n_rows` live rows in C slots (avg of the last
+    10 finals per seller) and on edge cases; K25 at a 131072-row chunk
+    of every call kind q1's and q6's global aggregates use."""
+    res = {}
+    smi = nvidia_smi_line()
+    st, _ = q6_store(dev, C, n_rows)
+    parts, specs = (1,), ((2, False),)
+    okeys, gkey = window_keys(st, specs, parts)
+    order = window_order(st, okeys, gkey)
+    q6e = window_scan_err(st, order, gkey, specs, Q6_WINDOWS)
+    cases = {"q6": q6e}
+    small, _ = window_store(dev, 1 << 13, 6000, 3)
+    edge = {
+        "float_keys_asc": ((0,), ((1, False),)),
+        "float_keys_desc_then_int": ((0,), ((1, True), (2, False))),
+        "dup_int_keys": ((0,), ((2, False),)),
+        "one_partition": ((), ((2, True), (1, False))),
+        "small_partitions": ((3,), ((2, False),)),
+    }
+    for name, (pb, sp) in edge.items():
+        ok_, gk_ = window_keys(small, sp, pb)
+        od_ = window_order(small, ok_, gk_)
+        for tag, ws in (("a", W_EDGE_A), ("b", W_EDGE_B), ("d", W_EDGE_D)):
+            cases[f"{name}_{tag}"] = window_scan_err(
+                small, od_, gk_, sp, ws, ripe=(2, 2, 6))
+    bad = {k: c for k, c in cases.items()
+           if c["exact_err"] or c["float_rel_err"] > 1e-9
+           or not c["deterministic"]}
+    if bad:
+        raise AssertionError(f"K23 differs from plain: {bad}")
+    # the all-NULL partition's sums really are NULL, lag/lead edges hit
+    ok_, gk_ = window_keys(small, ((2, False),), (0,))
+    full, valids, _ = window_scan(small, window_order(small, ok_, gk_), gk_,
+                                  ((2, False),), W_EDGE_A)
+    nin = len(small.cols)
+    live = torch.arange(small.capacity, device=dev) < small.n
+    p0 = full[0] == 0
+    if bool((valids[nin + 3] & p0).any()) or not bool(
+            (live & ~valids[nin + 6]).any()):
+        raise AssertionError("K23 edge cases did not bite")
+    # a NaN or inf argument stays in its partition: finite sums follow
+    # the first non-finite one in sorted order
+    ok_, gk_ = window_keys(small, ((2, False),), (3,))
+    full, valids, _ = window_scan(small, window_order(small, ok_, gk_), gk_,
+                                  ((2, False),), W_EDGE_D)
+    s0, v0 = full[nin], valids[nin]
+    bad = torch.nonzero(v0 & ~torch.isfinite(s0)).flatten()
+    if not len(bad) or not bool((v0 & torch.isfinite(s0))[bad[0]:].any()):
+        raise AssertionError("K23's non-finite sums did not bite")
+
+    L = 1 + 2 * sum(w.kind in ("sum", "avg") for w in Q6_WINDOWS)
+    K, n_live = len(st.cols), int(st.n)
+    # per live row (dead slots sort last, nothing reads their outputs):
+    # order and partition key read, K columns (8 B + valid) read and
+    # written sorted, each window column (8 B + valid) written
+    bytes23 = n_live * (8 + 8 + 2 * K * 9 + 9 * len(Q6_WINDOWS))
+    lane = torch.zeros(C, dtype=torch.int64, device=dev)
+    res["window_scan"] = dict(
+        max_abs_err=q6e["exact_err"], float_rel_err=max(
+            c["float_rel_err"] for c in cases.values()),
+        cases=cases, slots=C, live=n_live, scan_lanes=L,
+        **timings(lambda: window_scan(st, order, gkey, specs, Q6_WINDOWS),
+                  lambda: window_scan_plain(st, order, gkey, specs,
+                                            Q6_WINDOWS),
+                  library_fn=lambda: torch.cumsum(lane, 0)),
+        bound_ms=bytes_bound_ms(bytes23), bound_by="bytes")
+    emit({"phase": "kernel", "name": "window_scan", "nvidia_smi": smi,
+          **{k: v for k, v in res["window_scan"].items() if k != "cases"},
+          "cases": cases})
+
+    # ---- K24: q6's flush against an empty and then a changed emitted
+    # set; the edge stores likewise
+    fcases = {}
+    em0 = empty_emitted(st, Q6_WINDOWS)
+    err, nd, ni, em1 = flush_pair_err(st, parts, specs, Q6_WINDOWS, em0)
+    fcases["q6_first"] = dict(err=err, deletes=nd, inserts=ni)
+    st2 = mutate_finals(st, 0.02, seed=5)
+    err, nd2, ni2, em2 = flush_pair_err(st2, parts, specs, Q6_WINDOWS, em1)
+    fcases["q6_changed"] = dict(err=err, deletes=nd2, inserts=ni2)
+    err, nd3, ni3, _ = flush_pair_err(st2, parts, specs, Q6_WINDOWS, em2)
+    fcases["q6_unchanged"] = dict(err=err, deletes=nd3, inserts=ni3)
+    small2, _ = window_store(dev, 1 << 13, 5000, 4)
+    for name, (pb, sp) in edge.items():
+        for tag, ws in (("a", W_EDGE_A), ("c", W_EDGE_C)):
+            e0 = empty_emitted(small, ws)
+            err, _, _, e1 = flush_pair_err(small, pb, sp, ws, e0)
+            err2, nd_, ni_, _ = flush_pair_err(small2, pb, sp, ws, e1)
+            fcases[f"{name}_{tag}"] = dict(err=max(err, err2), deletes=nd_,
+                                           inserts=ni_)
+    if any(c["err"] for c in fcases.values()):
+        raise AssertionError(f"K24 differs from plain: {fcases}")
+    if ni != int(st.n) or nd != 0 or nd3 or ni3 or not nd2 or not ni2:
+        raise AssertionError(f"K24 cases did not bite: {fcases}")
+    okeys2, gkey2 = window_keys(st2, specs, parts)
+    order2 = window_order(st2, okeys2, gkey2)
+    full, fvalids, _ = window_scan(st2, order2, gkey2, specs, Q6_WINDOWS)
+    n2 = st2.n
+    rhash = window_hash(full, fvalids, order2, n2)
+    new_hash, rorder = stable_sort(rhash, HASH_BITS)
+    eh, ec, ev, en = em1
+
+    def k24():
+        window_hash(full, fvalids, order2, n2)
+        return window_diff(full, fvalids, new_hash, rorder, n2, eh, ec, ev,
+                           en)
+
+    def k24_plain():
+        window_hash_plain(full, fvalids, order2, n2)
+        return window_diff_plain(full, fvalids, new_hash, rorder, n2, eh,
+                                 ec, ev, en)
+
+    Kf, new_n, old_n = len(full), int(n2), int(en)
+    # over live rows: hash, the new rows (8 B + valid a column) and the
+    # order read, the hash written; diff, the new hashes, rorder and
+    # rows and the old set's hashes and rows read, the next set and the
+    # deleted rows written, an op and a vis byte for each of 2C rows
+    bytes24 = (new_n * (Kf * 9 + 8 + 8) + new_n * (8 + 8 + Kf * 9)
+               + old_n * (8 + Kf * 9) + (new_n + nd2) * Kf * 9
+               + 2 * C * 2)
+    res["window_diff"] = dict(
+        max_abs_err=max(c["err"] for c in fcases.values()), cases=fcases,
+        slots=C, live_new=new_n, live_old=old_n, deletes=nd2,
+        **timings(k24, k24_plain),
+        bound_ms=bytes_bound_ms(bytes24), bound_by="bytes")
+    emit({"phase": "kernel", "name": "window_diff", "nvidia_smi": smi,
+          **res["window_diff"]})
+
+    # ---- K25 at a 131072-row chunk: retracting ops, NULLs, every kind
+    N = Q6_CHUNK
+    rng = np.random.default_rng(9)
+    sch = make_schema(("v", DataType.INT64), ("w", DataType.INT32),
+                      ("f", DataType.FLOAT64), ("g", DataType.FLOAT64))
+    v = rng.integers(100, 10 ** 7, N)
+    w = rng.integers(-5, 5, N).astype(np.int32)
+    f = rng.integers(-10 ** 6, 10 ** 6, N).astype(np.float64)
+    g = rng.random(N) * 1e3 - 500.0
+    ops = rng.choice([0, 1, 2, 3], N).astype(np.int8)
+    ch = chunk_from_numpy(sch, [v, w, f, g], ops, rng.random(N) < 0.97,
+                          [None, rng.random(N) < 0.9, rng.random(N) < 0.9,
+                           None], device=dev)
+    ao = np.zeros(N, np.int8)                       # append-only inserts
+    ch_ao = chunk_from_numpy(sch, [v, w, f, g], ao, rng.random(N) < 0.97,
+                             [None, rng.random(N) < 0.9,
+                              rng.random(N) < 0.9, None], device=dev)
+    calls = [AggCall(AggKind.COUNT, None, DataType.INT64),
+             AggCall(AggKind.COUNT, 1, DataType.INT64),
+             AggCall(AggKind.SUM, 0, DataType.INT64),
+             AggCall(AggKind.SUM, 0, DataType.FLOAT64),
+             AggCall(AggKind.SUM, 1, DataType.INT64),
+             AggCall(AggKind.SUM, 2, DataType.FLOAT64),
+             AggCall(AggKind.SUM, 3, DataType.FLOAT64)]
+    ao_calls = [AggCall(AggKind.MAX, 0, DataType.INT64, True),
+                AggCall(AggKind.MIN, 1, DataType.INT32, True),
+                AggCall(AggKind.MAX, 2, DataType.FLOAT64, True),
+                AggCall(AggKind.MIN, 3, DataType.FLOAT64, True),
+                AggCall(AggKind.COUNT, 1, DataType.INT64, True)]
+    errs25 = {}
+    for tag, cl, chunk_ in (("retracting", calls, ch),
+                            ("append_only", ao_calls, ch_ao)):
+        specs_ = [c.spec() for c in cl]
+        init = [torch.full((), s.init, dtype=s.state_dtype, device=dev)
+                for s in specs_]
+        rc = torch.zeros((), dtype=torch.int64, device=dev)
+        pa, prc = simple_agg_apply_plain(specs_, init, rc, chunk_)
+        ka, krc = simple_agg_apply(specs_, [x.clone() for x in init],
+                                   rc.clone(), chunk_)
+        ka2, _ = simple_agg_apply(specs_, [x.clone() for x in init],
+                                  rc.clone(), chunk_)
+        e_int, e_rel = 0, 0.0
+        for x, y, x2 in zip(ka, pa, ka2):
+            if not torch.equal(x, x2):
+                raise AssertionError("K25 differs between two launches")
+            if x.is_floating_point():
+                e_rel = max(e_rel, float((x - y).abs())
+                            / (1.0 + float(y.abs())))
+            else:
+                e_int = max(e_int, int((x - y).abs()))
+        e_int = max(e_int, int((krc - prc).abs()))
+        errs25[tag] = dict(int_err=e_int, float_rel_err=e_rel,
+                           row_count=int(krc))
+    if any(e["int_err"] or e["float_rel_err"] > 1e-9
+           for e in errs25.values()):
+        raise AssertionError(f"K25 differs from plain: {errs25}")
+    specs_ = [c.spec() for c in calls]
+    st25 = [torch.full((), s.init, dtype=s.state_dtype, device=dev)
+            for s in specs_]
+    rc25 = torch.zeros((), dtype=torch.int64, device=dev)
+    sgn = torch.where(ch.vis, op_sign(ch.ops), 0).to(torch.int64)
+    vcol = ch.columns[0].data
+    res["simple_agg"] = dict(
+        max_abs_err=max(e["int_err"] for e in errs25.values()),
+        float_rel_err=max(e["float_rel_err"] for e in errs25.values()),
+        cases=errs25, rows=N, calls=len(calls),
+        **timings(lambda: simple_agg_apply(specs_, st25, rc25, ch),
+                  lambda: simple_agg_apply_plain(specs_, st25, rc25, ch),
+                  library_fn=lambda: torch.sum(vcol * sgn)),
+        # ops and vis read; three 8-byte argument columns, an int32 one
+        # and two valid masks
+        bound_ms=bytes_bound_ms(N * (2 + 8 * 3 + 4 + 2)), bound_by="bytes")
+    emit({"phase": "kernel", "name": "simple_agg", "nvidia_smi": smi,
+          **res["simple_agg"]})
+    return res
+
+
+def mutate_finals(st: SortedSideState, frac: float, seed: int):
+    """q6's store after some auctions' max price rose (the finals column
+    changed in place, ids and sellers kept)."""
+    rng = np.random.default_rng(seed)
+    n = int(st.n)
+    pick = torch.from_numpy(rng.choice(n, max(1, int(n * frac)),
+                                       replace=False)).to(st.khash.device)
+    fin = st.cols[0].clone()
+    fin[pick] += 1000
+    return SortedSideState(st.khash, (fin,) + tuple(st.cols[1:]), st.valids,
+                           st.degree, st.n)
+
+
+def window_summary(runs: list) -> dict:
+    """Medians over runs; events are every source's rows."""
+    med = statistics.median
+    rates = [sum(r["offsets"].values()) / r["wall_s"] for r in runs]
+    return dict(
+        repeats=len(runs), offsets=runs[0]["offsets"],
+        wall_s=med(r["wall_s"] for r in runs),
+        events_per_s=med(rates), events_per_s_min=min(rates),
+        events_per_s_max=max(rates),
+        barrier_p50_s=med(r["coord"].barrier_latency_percentile(0.5)
+                          for r in runs),
+        barrier_max_s=max(r["coord"].barrier_latency_percentile(1.0)
+                          for r in runs),
+        mem_peak_bytes=runs[0]["mem_peak_bytes"],
+        launches=runs[0]["launches"])
+
+
+def phase_q6_full(dev, repeats: int = 2, chunks: int = 4,
+                  rounds: int = 53, bid_chunk: int = Q6_CHUNK) -> dict:
+    """q6 through Session(device=...) into the device blackhole sink,
+    `chunks` bid chunks and the auctions of the same event time a
+    barrier, `rounds` barriers, `repeats` runs from fresh state: every
+    q6 kernel launched, the join's and the over-window's errs 0, the
+    over-window store at 2^18 live rows or more at the end on the card;
+    events (bids + auctions) / s, barrier p50 / max, the join sides' and
+    the store's and emitted set's rows and bytes."""
+    on_card = torch.device(dev).type == "cuda"
+    runs = []
+    for _ in range(repeats):
+        r = session_run(dev, window_ddl(Q6_SELECT, "q6", bid_chunk=bid_chunk,
+                                        chunks=chunks), rounds, 0,
+                        name="q6", pace=window_pace(bid_chunk, chunks))
+        ow, join = r["ow"], r["join"]
+        if ow.errs() != [0, 0] or join.errs()[1:] != [0, 0]:
+            raise AssertionError(f"q6: over-window errs {ow.errs()}, join "
+                                 f"errs {join.errs()}")
+        missing = [k for k in Q6_KERNELS if r["launches"][k] == 0]
+        if missing and on_card:
+            raise AssertionError(f"kernels never launched on q6: {missing}")
+        r["ow_live"] = int(ow.store.n)
+        r["join_live"] = [int(s_.n) for s_ in join.sides]
+        runs.append(r)
+    live = runs[0]["ow_live"]
+    if on_card and live < (1 << 18):
+        raise AssertionError(f"q6 store holds {live} rows, under 2^18")
+    ow = runs[0]["ow"]
+    return dict(
+        bid_chunk=bid_chunk, chunks_per_barrier=chunks, barriers=rounds,
+        inter_event_us=Q6_INTER_US, ow_live_rows=live,
+        ow_capacity=ow.capacity, ow_store_bytes=ow.capacity * _store_row_bytes(ow.store),
+        emitted_rows=int(ow.em_n),
+        emitted_bytes=ow.capacity * (8 + sum(c.element_size() + 1
+                                             for c in ow.em_cols)),
+        join_live_rows=runs[0]["join_live"],
+        join_errs=runs[0]["join"].errs(),
+        agg_groups=int((runs[0]["agg"].state.row_count > 0).sum()),
+        runs=[{"wall_s": r["wall_s"], "events_per_s":
+               sum(r["offsets"].values()) / r["wall_s"]} for r in runs],
+        **window_summary(runs))
+
+
+def phase_q6_profile(dev, full: dict, rounds: int = 6) -> dict:
+    """The device's idle share on q6: a short fresh run under
+    torch.profiler against q6_full's unprofiled wall per barrier."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    chunks = full["chunks_per_barrier"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        r = session_run(dev, window_ddl(Q6_SELECT, "q6", chunks=chunks),
+                        rounds, 0, name="q6",
+                        pace=window_pace(Q6_CHUNK, chunks))
+        torch.cuda.synchronize()
+    kev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name: dict = {}
+    for e in kev:
+        t, c = by_name.get(e.name[:60], (0.0, 0))
+        by_name[e.name[:60]] = (t + e.time_range.elapsed_us(), c + 1)
+    busy = sum(t for t, _ in by_name.values()) / 1e6 / rounds
+    wall = full["wall_s"] / full["barriers"]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:16]
+    return dict(rounds=rounds, wall_s=r["wall_s"],
+                device_busy_per_barrier_s=busy,
+                unprofiled_wall_per_barrier_s=wall,
+                device_idle_share=(1 - busy / wall) if kev else None,
+                top_kernels=[{"name": nm, "ms": t / 1e3, "count": c}
+                             for nm, (t, c) in top])
+
+
+def window_check_run(dev, select: str, name: str, rounds: int,
+                     check, chunks: int = 1, bid_chunk: int = Q6_CHUNK,
+                     **ddl_kw) -> dict:
+    """`select` as an MV at q6's geometry; after every barrier
+    `check(k, rows, recount)` holds the MV against a WindowRecount
+    advanced to the rows the sources emitted before it."""
+    pace = window_pace(bid_chunk, chunks)
+    rc = WindowRecount(pace["auction"] * rounds, pace["bid"] * rounds, dev)
+    checked = []
+
+    def on_barrier(k, s, rows):
+        rc.advance(rows["bid"], rows["auction"])
+        check(k, mv_rows_now(s, name), rc)
+        checked.append(k)
+
+    r = session_run(dev, window_ddl(select, name, bid_chunk=bid_chunk,
+                                    chunks=chunks, sink=False, **ddl_kw),
+                    rounds, 0, name=name, pace=pace, on_barrier=on_barrier)
+    r["checked"] = len(checked)
+    r["recount"] = rc
+    return r
+
+
+def _q6_check(k, rows, rc):
+    got = Counter((s_, i, a) for s_, i, a in rows)
+    want = rc.q6()
+    if got != want:
+        raise AssertionError(f"q6_check: barrier {k}: MV "
+                             f"({sum(got.values())} rows) != recount "
+                             f"({sum(want.values())}); "
+                             f"{list((got - want).items())[:3]} / "
+                             f"{list((want - got).items())[:3]}")
+
+
+def phase_q6_check(dev, rounds: int = 12) -> dict:
+    """q6 as an MV, one bid chunk (and its auctions) a barrier, the
+    over-window store started at 2^14 slots with the watchdog on: after
+    every barrier the MV equals the numpy recount exactly (integer
+    prices: the avgs compare exactly), and the store grew."""
+    r = window_check_run(dev, Q6_SELECT, "q6", rounds, _q6_check,
+                         ow_cap=1 << 14, watchdog=1)
+    ow = r["ow"]
+    if r["checked"] < rounds - 1 or ow.capacity <= (1 << 14) \
+            or ow.errs() != [0, 0]:
+        raise AssertionError(f"q6_check: {r['checked']} barriers checked, "
+                             f"capacity {ow.capacity}, errs {ow.errs()}")
+    return dict(barriers_checked=r["checked"], mv_rows=len(r["mv"]),
+                ow_live_rows=int(ow.store.n), ow_capacity=ow.capacity,
+                grew_from=1 << 14, offsets=r["offsets"])
+
+
+def phase_q4_full(dev, chunks: int = 4, rounds: int = 53) -> dict:
+    """q4 at q6_full's geometry as an MV: after every barrier the MV (one
+    row a category) equals the recount's AVG of the finals exactly."""
+    def check(k, rows, rc):
+        want = rc.q4()
+        if sorted(rows) != want:
+            raise AssertionError(f"q4: barrier {k}: MV {sorted(rows)} != "
+                                 f"recount {want}")
+
+    r = window_check_run(dev, Q4_SELECT, "q4", rounds, check, chunks=chunks)
+    missing = [k for k in Q4_KERNELS if r["launches"][k] == 0]
+    if missing and torch.device(dev).type == "cuda":
+        raise AssertionError(f"kernels never launched on q4: {missing}")
+    if r["checked"] < rounds - 1 or not r["mv"]:
+        raise AssertionError(f"q4: {r['checked']} barriers checked")
+    return dict(barriers_checked=r["checked"], categories=len(r["mv"]),
+                mv=r["mv"], auctions_with_bids=int(
+                    (r["recount"].best >= 0).sum()),
+                **window_summary([r]))
+
+
+def eowc_recount(auction, dt, price, upto=None) -> np.ndarray:
+    """(auction, date_time, price, row_number, running sum) rows of the
+    bids with date_time <= upto, ordered by (auction, date_time): bid
+    times are unique, so ROW order has no ties."""
+    keep = slice(None) if upto is None else dt <= upto
+    a, t, p = auction[keep], dt[keep], price[keep]
+    o = np.lexsort((t, a))
+    a, t, p = a[o], t[o], p[o]
+    n = len(a)
+    pos = np.arange(n)
+    new = np.r_[True, a[1:] != a[:-1]] if n else np.zeros(0, bool)
+    start = np.maximum.accumulate(np.where(new, pos, 0)) if n else pos
+    cs = np.cumsum(p)
+    base = np.where(start > 0, cs[np.maximum(start - 1, 0)], 0)
+    return np.stack([a, t, p, pos - start + 1, cs - base], axis=1)
+
+
+def _rows_sorted(cols) -> np.ndarray:
+    m = np.stack([np.asarray(c, dtype=np.int64) for c in cols], axis=1)
+    return m[np.lexsort(m.T[::-1])] if len(m) else m
+
+
+
+def phase_eowc_full(dev, rounds: int = 10, bid_chunk: int = Q6_CHUNK,
+                    cap: int = 1 << 21) -> dict:
+    """tests/test_eowc_over_window.py's SQL_BODY with EMIT ON WINDOW
+    CLOSE over bids at q1's chunking (131072-bid chunks, one a barrier,
+    `rounds` barriers, a watermark lag of a third of a chunk's event
+    time, 0.47 s, so rows stay open), into a
+    device sink that keeps the rows; beside it the same body without
+    EOWC (the general over-window). Every EOWC row is an Insert and
+    appears once; its rows equal the general's rows with date_time at
+    or below the emitted frontier, and both equal a numpy row_number and
+    running sum per auction."""
+    lag_us = bid_chunk * 50 // 46 * 10 // 3
+
+    def ddl(eowc: bool):
+        d = window_ddl(EOWC_BODY + (" EMIT ON WINDOW CLOSE" if eowc else ""),
+                       "ew", bid_chunk=bid_chunk, ow_cap=cap, auction=False,
+                       inter_us=10)
+        d[-2] = d[-2].replace("emit_watermarks=1",
+                              f"emit_watermarks=1, watermark_lag_us="
+                              f"{lag_us}")
+        return d
+
+    n = rounds * bid_chunk
+    runs = {}
+    for eowc in (True, False):
+        r = session_run(dev, ddl(eowc), rounds, bid_chunk, name="ew",
+                        collect=2 * n)
+        missing = [k for k in EOWC_KERNELS if r["launches"][k] == 0]
+        if missing and torch.device(dev).type == "cuda":
+            raise AssertionError(f"kernels never launched on EOWC: "
+                                 f"{missing}")
+        runs[eowc] = r
+    ew, gw = runs[True], runs[False]
+    cols, sign, dropped = ew["sink"].arrays()
+    gcols, gsign, gdropped = gw["sink"].arrays()
+    if not (gsign != 0).all():
+        raise AssertionError("general over-window: a row without a sign")
+    if dropped or gdropped or not (sign == 1).all():
+        raise AssertionError("EOWC: a Delete or dropped rows in the sink")
+    # exactly once: the row ids are unique
+    if len(np.unique(cols[5])) != len(cols[5]):
+        raise AssertionError("EOWC emitted a row twice")
+    ex = ew["ow"]
+    frontier = ex._emitted_to
+    auction, price, dt = _bid_prefix(n, NexmarkConfig(), dev, [0, 2, 5])
+    want = eowc_recount(auction, dt, price, frontier)
+    got = _rows_sorted(cols[:5])
+    # the general over-window's net output, restricted to the frontier
+    if (gsign == 1).all():
+        g_all = _rows_sorted(gcols[:5])
+    else:
+        net: Counter = Counter()
+        for r_, s_ in zip(map(tuple, np.stack(gcols[:6], axis=1).tolist()),
+                          gsign.tolist()):
+            net[r_] += s_
+        if any(c < 0 for c in net.values()):
+            raise AssertionError("general over-window: net negative rows")
+        g_rows = [r_ for r_, c in net.items() if c > 0 for _ in range(c)]
+        g_all = (_rows_sorted(list(zip(*g_rows))[:5]) if g_rows
+                 else np.zeros((0, 5), np.int64))
+    g_closed = g_all[g_all[:, 1] <= frontier]
+    if not (np.array_equal(got, want) and np.array_equal(g_closed, want)
+            and np.array_equal(g_all, eowc_recount(auction, dt, price))):
+        raise AssertionError(
+            f"EOWC: {len(got)} rows emitted, recount {len(want)}, general "
+            f"closed prefix {len(g_closed)}")
+    open_rows = int(ex.store.n) - len(got)
+    if open_rows <= 0 or len(got) == 0:
+        raise AssertionError("EOWC: the ripeness gate is vacuous")
+    return dict(bid_chunk=bid_chunk, barriers=rounds, bids=n,
+                emitted_rows=len(got), open_rows=open_rows,
+                store_rows=int(ex.store.n), store_capacity=ex.capacity,
+                store_bytes=ex.capacity * _store_row_bytes(ex.store),
+                general_rows=len(g_all),
+                eowc_bids_per_s=n / ew["wall_s"],
+                general_bids_per_s=n / gw["wall_s"],
+                eowc_barrier_p50_s=ew["coord"].barrier_latency_percentile(
+                    0.5),
+                general_barrier_p50_s=gw["coord"]
+                .barrier_latency_percentile(0.5),
+                launches=ew["launches"])
+
+
+def phase_global_agg(dev, per_chunks: int = 8, rounds: int = 8,
+                     q6_rounds: int = 8) -> dict:
+    """The global aggregates: GAGG_SELECT over bids at q1's geometry
+    (131072-bid chunks, `per_chunks` a barrier) as an MV, equal to the
+    recount (count, sum, max of the bids so far) after every barrier;
+    then GAGG_Q6_SELECT (avg and count of q6's finals, whose input
+    retracts) at q6's geometry, equal to the recount after every
+    barrier."""
+    per = per_chunks * Q6_CHUNK
+    (price,) = _bid_prefix(per * rounds, NexmarkConfig(), dev, [2])
+    cs, cm = np.cumsum(price), np.maximum.accumulate(price)
+    checked = []
+
+    def on_barrier(k, s, rows):
+        n = rows["bid"]
+        got = mv_rows_now(s, "g")
+        want = [(n, int(cs[n - 1]), int(cm[n - 1]))]
+        if got != want:
+            raise AssertionError(f"global agg: barrier {k}: {got} != {want}")
+        checked.append(k)
+
+    ddl = ["SET streaming_durability = 0", "SET streaming_watchdog = 0",
+           ("CREATE SOURCE bid WITH (connector='nexmark', table='bid', "
+            f"chunk_size={Q6_CHUNK})"),
+           f"CREATE MATERIALIZED VIEW g AS {GAGG_SELECT}"]
+    r = session_run(dev, ddl, rounds, per, name="g", on_barrier=on_barrier)
+    missing = [k for k in GAGG_KERNELS if r["launches"][k] == 0]
+    if missing and torch.device(dev).type == "cuda":
+        raise AssertionError(f"kernels never launched on the global agg: "
+                             f"{missing}")
+
+    def check(k, rows, rc):
+        want = rc.avg_count()
+        if rows != want:
+            raise AssertionError(f"global avg: barrier {k}: {rows} != "
+                                 f"{want}")
+
+    r2 = window_check_run(dev, GAGG_Q6_SELECT, "g2", q6_rounds, check)
+    return dict(bid_chunk=Q6_CHUNK, chunks_per_barrier=per_chunks,
+                barriers_checked=len(checked), bids=r["bids"],
+                bids_per_s=r["bids"] / r["wall_s"],
+                barrier_p50_s=r["coord"].barrier_latency_percentile(0.5),
+                mv=r["mv"], avg_barriers_checked=r2["checked"],
+                avg_mv=r2["mv"], launches=r["launches"])
+
+
+def phase_q6_recover(dev, r1: int = 8, r2: int = 8,
+                     bid_chunk: int = Q6_CHUNK) -> dict:
+    """Durable q6 as an MV on a Hummock store over a local-fs object
+    store, one `bid_chunk`-bid chunk (and its auctions) a barrier, q6's
+    capacities: r1 barriers, crash(), HummockStateStore.open, a new
+    Session, recover() (recovery_ms from the opening to the first
+    collected barrier), on to r1 + r2 barriers: the MV must equal the
+    numpy recount of the bids and auctions the sources emitted, as an
+    uninterrupted run's."""
+    pace = window_pace(bid_chunk, 1)
+    ddl = window_ddl(Q6_SELECT, "q6", bid_chunk=bid_chunk, sink=False,
+                     durable_=1)
+    with tempfile.TemporaryDirectory(prefix="q6r_") as d:
+        a = session_run(dev, ddl, r1, 0, name="q6", crash=True, pace=pace,
+                        store=HummockStateStore(LocalFsObjectStore(d)))
+        b = session_run(dev, ddl, 0, 0, name="q6", recover_to=r1 + r2,
+                        pace=pace, store=lambda: HummockStateStore.open(
+                            LocalFsObjectStore(d)))
+    n_b, n_a = b["offsets"]["bid"], b["offsets"]["auction"]
+    if n_b != (r1 + r2) * pace["bid"] or n_a != (r1 + r2) * pace["auction"]:
+        raise AssertionError(f"q6_recover: offsets {b['offsets']}")
+    rc = WindowRecount(n_a, n_b, dev)
+    rc.advance(n_b, n_a)
+    got = Counter(tuple(r_) for r_ in b["mv"])
+    want = rc.q6()
+    if got != want or not want:
+        raise AssertionError(f"q6_recover: recovered MV ({len(b['mv'])} "
+                             f"rows) != recount ({sum(want.values())})")
+    return dict(bid_chunk=bid_chunk, barriers_before_crash=r1,
+                barriers_after_recovery=b["barriers"],
+                recovered_base=b["base"],
+                recovery_ms=b["recovery_s"] * 1e3, mv_rows=len(b["mv"]),
+                ow_live_rows_at_crash=int(a["ow"].store.n),
+                ow_live_rows=int(b["ow"].store.n),
+                ow_rows_persisted=a["ow"].persist_rows,
+                ow_persist_s=a["ow"].persist_s,
+                wall_s_before_crash=a["wall_s"], wall_s_after=b["wall_s"],
+                launches=b["launches"])
 
 
 def main(argv) -> int:
@@ -4254,8 +5199,20 @@ def main(argv) -> int:
     emit({"phase": "q2_full", "nvidia_smi": smi, **q2})
     emit({"phase": "topn_recover", "nvidia_smi": smi,
           **phase_topn_recover(dev)})
+    res.update(phase_kernels_window(dev))
+    q6 = phase_q6_full(dev)
+    emit({"phase": "q6_full", "nvidia_smi": smi, **q6})
+    emit({"phase": "q6_profile", "nvidia_smi": smi,
+          **phase_q6_profile(dev, q6)})
+    emit({"phase": "q6_check", "nvidia_smi": smi, **phase_q6_check(dev)})
+    emit({"phase": "q4_full", "nvidia_smi": smi, **phase_q4_full(dev)})
+    emit({"phase": "eowc_full", "nvidia_smi": smi, **phase_eowc_full(dev)})
+    gagg = phase_global_agg(dev)
+    emit({"phase": "global_agg", "nvidia_smi": smi, **gagg})
+    emit({"phase": "q6_recover", "nvidia_smi": smi,
+          **phase_q6_recover(dev)})
     paths = {"q5": q5, "q7": q7, "q8": q8, "q17": q17, "q7d": q7d,
-             "q5t": q5t, "q2": q2}
+             "q5t": q5t, "q2": q2, "q6": q6, "gagg": gagg}
     rows = []
     for name, k in kernels.KERNELS.items():
         r = res[name]

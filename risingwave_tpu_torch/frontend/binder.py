@@ -10,11 +10,20 @@ and executor arguments:
   FROM (subquery) alias  -> the inner query's plan, unmaterialized
   TUMBLE(...)            -> project fragment appending window_start and
                             window_end, with their watermark transforms
-  GROUP BY keys, COUNT / SUM / MIN / MAX
+  GROUP BY keys, COUNT / SUM / MIN / MAX / AVG
                          -> pre-project (keys, then agg args), a
                             hash_agg fragment (hash dispatch on the keys,
                             one actor) with the first watermarked key as
-                            its state-cleaning column, post-project
+                            its state-cleaning column, post-project (AVG
+                            = FLOAT64 SUM / COUNT there)
+  aggregates without GROUP BY
+                         -> pre-project, a singleton simple_agg fragment,
+                            post-project
+  f(...) OVER (PARTITION BY ... ORDER BY ... [ROWS n PRECEDING])
+                         -> general_over_window (eowc_over_window under
+                            EMIT ON WINDOW CLOSE) over the relation, a
+                            row_id_gen first for a keyless input, then
+                            the final projection
   JOIN ... ON            -> sorted_join fragment (equi conjunctions are
                             key columns, the rest the non-equi
                             condition), watermark-derived state cleaning
@@ -35,11 +44,10 @@ and executor arguments:
 
 What the JAX planner also plans raises `BindError("... not ported yet
 (ROADMAP A9)")` here, never a different plan: NOW() dynamic filters,
-global aggregates outside the q17 fusion (simple_agg), AVG / bool_and /
-bool_or / approx_count_distinct, HOP, MV-on-MV scans, the mesh top-N
-(`streaming_parallelism_devices` > 1), window functions, outer and
-temporal joins, non-integer join keys (hash join), parallelism > 1 and
-remote fragment placement.
+bool_and / bool_or / approx_count_distinct, HOP, MV-on-MV scans, the
+mesh top-N and the sharded over-window (`streaming_parallelism_devices`
+> 1), outer and temporal joins, non-integer join keys (hash join),
+parallelism > 1 and remote fragment placement.
 """
 
 from __future__ import annotations
@@ -429,8 +437,6 @@ class StreamPlanner:
                 "ORDER BY belongs in batch SELECTs over the MV")
         if want_top_n and not sel.order_by:
             raise BindError("streaming LIMIT needs ORDER BY (TopN)")
-        if getattr(sel, "emit_on_close", False):
-            raise not_ported("EMIT ON WINDOW CLOSE")
         # comma join: FROM a, b WHERE ... — the join condition lives in
         # WHERE; hoist it into ON (one 2-way comma join)
         rel, where = sel.rel, sel.where
@@ -446,18 +452,13 @@ class StreamPlanner:
             sel.limit, sel.offset))
         if fused is not None:
             return fused
-        has_agg = bool(sel.group_by) or any(
-            contains_agg(it.expr) for it in sel.items)
-        if has_agg and not sel.group_by:
-            raise not_ported("global aggregates (simple_agg)")
-        if any(isinstance(it.expr, ast.WindowFunc) for it in sel.items):
-            raise not_ported("window functions (over-window)")
-
         fid, scope, info = self.plan_rel(rel)
         frag = self.graph.fragments[fid]
         sel = ast.Select(expand_star(sel.items, scope.schema), rel,
                          where, sel.group_by, list(sel.order_by),
-                         sel.limit, sel.offset)
+                         sel.limit, sel.offset,
+                         emit_on_close=getattr(sel, "emit_on_close",
+                                               False))
         jinfo = self._join_frags.get(fid)
         if jinfo is not None and frag.root is jinfo["node"]:
             scope, info, sel = self._optimize_join(jinfo, scope, info, sel)
@@ -471,6 +472,15 @@ class StreamPlanner:
             frag.root = Node("filter", dict(
                 predicate=bind_scalar(sel.where, scope)),
                 inputs=(frag.root,))
+
+        if any(isinstance(it.expr, ast.WindowFunc) for it in sel.items):
+            out = self._plan_over_window(sel, fid, scope, info)
+            if want_top_n:
+                out = self._plan_top_n(top_spec, out)
+            return out
+
+        has_agg = bool(sel.group_by) or any(
+            contains_agg(it.expr) for it in sel.items)
 
         def project_wm(exprs):
             """Watermarks survive a projection on InputRef columns."""
@@ -561,15 +571,189 @@ class StreamPlanner:
             inputs=(Exchange(fid),)), dispatch="simple"))
         return top.fid, names, types, pk_hint, False, frozenset()
 
+    # ------------------------------------------------------- over-window
+    def _plan_over_window(self, sel: ast.Select, fid: int, scope: Scope,
+                          info: RelInfo):
+        """SELECT items with OVER clauses -> a general_over_window node
+        (eowc_over_window under EMIT ON WINDOW CLOSE) computing every
+        window function in one pass, then the final projection; all
+        calls must share one window definition, as the JAX planner
+        requires."""
+        from ..stream.general_over_window import WindowSpec
+        frag = self.graph.fragments[fid]
+        if sel.group_by:
+            raise BindError(
+                "window functions cannot be combined with GROUP BY in "
+                "one SELECT; aggregate in a subquery first")
+        wfs = [it.expr for it in sel.items
+               if isinstance(it.expr, ast.WindowFunc)]
+        over0 = (tuple(map(repr, wfs[0].partition_by)),
+                 tuple((repr(e), d) for e, d in wfs[0].order_by))
+        for w in wfs[1:]:
+            if (tuple(map(repr, w.partition_by)),
+                    tuple((repr(e), d) for e, d in w.order_by)) != over0:
+                raise BindError(
+                    "all window functions in one SELECT must share the "
+                    "same OVER (PARTITION BY ... ORDER BY ...) clause")
+
+        def col_of(e) -> int:
+            if not isinstance(e, ast.ColRef):
+                raise BindError(
+                    "window PARTITION BY / ORDER BY / arguments must be "
+                    "plain columns")
+            return scope.resolve(e)[0]
+
+        partition_by = [col_of(e) for e in wfs[0].partition_by]
+        order_specs = []
+        for e, desc in wfs[0].order_by:
+            i = col_of(e)
+            if scope.schema[i].data_type is DataType.VARCHAR:
+                raise BindError(
+                    "window ORDER BY over VARCHAR is unsupported (dict "
+                    "encoding is not lexicographic)")
+            order_specs.append((i, bool(desc)))
+        if not order_specs:
+            raise BindError("window functions need ORDER BY in OVER()")
+
+        # retractions address rows by the stream key; keyless append-only
+        # inputs get a generated row id (as join inputs do)
+        sk = info.stream_key
+        if sk is None:
+            if not info.append_only:
+                raise BindError("keyless retracting over-window input")
+            frag.root = Node("row_id_gen", {}, inputs=(frag.root,))
+            sch2 = Schema(tuple(scope.schema)
+                          + (Field("_row_id", DataType.SERIAL),))
+            scope = Scope(sch2, dict(scope.names))
+            sk = (len(sch2) - 1,)
+
+        windows = []
+        for j, w in enumerate(wfs):
+            name = w.func.name
+            if name in ("row_number", "rank", "dense_rank"):
+                windows.append(WindowSpec(name, name=f"w{j}"))
+            elif name in ("lag", "lead"):
+                if not w.func.args:
+                    raise BindError(f"window {name}() needs an argument")
+                ai = col_of(w.func.args[0])
+                off = 1
+                if len(w.func.args) > 1:
+                    a1 = w.func.args[1]
+                    if not (isinstance(a1, ast.Lit)
+                            and isinstance(a1.value, int)
+                            and a1.value >= 1):
+                        raise BindError(
+                            f"{name}() offset must be a positive "
+                            "integer literal")
+                    off = a1.value
+                windows.append(WindowSpec(
+                    name, arg=ai, offset=off, name=f"w{j}"))
+            elif name == "first_value":
+                if not w.func.args:
+                    raise BindError("first_value() needs an argument")
+                windows.append(WindowSpec(
+                    name, arg=col_of(w.func.args[0]), name=f"w{j}"))
+            elif name in ("sum", "count", "avg"):
+                if not w.func.args:
+                    raise BindError(f"window {name}() needs an argument")
+                ai = col_of(w.func.args[0])
+                if (name in ("sum", "avg")
+                        and scope.schema[ai].data_type
+                        is DataType.VARCHAR):
+                    raise BindError(
+                        f"window {name}() over VARCHAR is meaningless "
+                        "(dict ids are not numbers)")
+                windows.append(WindowSpec(
+                    name, arg=ai, preceding=w.preceding, name=f"w{j}"))
+            else:
+                raise BindError(
+                    f"unsupported window function {name!r} (have: "
+                    "row_number, rank, dense_rank, lag, lead, "
+                    "first_value, sum, count, avg)")
+
+        eowc = getattr(sel, "emit_on_close", False)
+        if eowc:
+            # the leading ORDER BY column must be watermarked ascending,
+            # so that a row's finality is decidable
+            oc, odesc = order_specs[0]
+            if odesc or oc not in info.wm_cols:
+                raise BindError(
+                    "EMIT ON WINDOW CLOSE needs the leading window "
+                    "ORDER BY column ascending and watermarked")
+            if any(w.kind == "lead" for w in windows):
+                raise BindError(
+                    "EMIT ON WINDOW CLOSE cannot finalize lead()")
+        ow_args = dict(
+            partition_by=partition_by, order_specs=order_specs,
+            windows=windows, pk_indices=list(sk),
+            capacity=self.cfg("streaming_over_window_capacity", 1 << 14),
+            durable=self.durable())
+        if not eowc:
+            # the JAX planner shards partitions over a device mesh here
+            if (self.cfg("streaming_parallelism_devices", 1) > 1
+                    and partition_by):
+                raise not_ported("the sharded over-window "
+                                 "(streaming_parallelism_devices > 1)")
+            ow_args["watchdog_interval"] = (
+                1 if self.cfg("streaming_watchdog", 1) else None)
+        frag.root = Node(
+            "eowc_over_window" if eowc else "general_over_window",
+            ow_args, inputs=(frag.root,))
+        in_width = len(scope.schema)
+        win_fields = []
+        out_sch = list(scope.schema)
+        for w2 in windows:
+            t = w2.ret_type(scope.schema)
+            out_sch.append(Field(w2.name, t))
+            win_fields.append(t)
+        ext_scope = Scope(Schema(tuple(out_sch)), dict(scope.names))
+
+        # final projection: SELECT order + hidden stream-key columns
+        exprs, names = [], []
+        wj = 0
+        for j, it in enumerate(sel.items):
+            if isinstance(it.expr, ast.WindowFunc):
+                exprs.append(col(in_width + wj, win_fields[wj]))
+                names.append(it.alias or f"w{wj}")
+                wj += 1
+            else:
+                exprs.append(bind_scalar(it.expr, ext_scope))
+                names.append(it.alias or auto_name(it.expr, j))
+        key_pos = []
+        for ki in sk:
+            found = None
+            for j2, e2 in enumerate(exprs):
+                if isinstance(e2, InputRef) and e2.index == ki:
+                    found = j2
+                    break
+            if found is None:
+                exprs.append(col(ki, ext_scope.schema[ki].data_type))
+                names.append(f"_sk{ki}")
+                found = len(exprs) - 1
+            key_pos.append(found)
+        frag.root = Node("project", dict(exprs=exprs, names=names),
+                         inputs=(frag.root,))
+        # EOWC output is append-only (final rows, exactly once) and
+        # carries the watermark on the order column where selected
+        wm_out = frozenset()
+        if eowc:
+            oc = order_specs[0][0]
+            wm_out = frozenset(
+                j2 for j2, e2 in enumerate(exprs)
+                if isinstance(e2, InputRef) and e2.index == oc)
+        return (fid, names, [e.ret_type for e in exprs], tuple(key_pos),
+                eowc, wm_out)
+
     # ----------------------------------------------------------- GROUP BY
     def _plan_agg(self, sel: ast.Select, fid: int, scope: Scope,
                   info: RelInfo):
-        """GROUP BY with COUNT / SUM / MIN / MAX, as the JAX binder's
-        `_plan_agg` plans it: a pre-project of the group keys then the
-        agg arguments grafted onto `fid`, a hash_agg fragment (hash
-        dispatch on the keys), a post-project of the SELECT items over
-        [keys..., agg outputs...]. Returns (agg fragment id, names,
-        types, pk positions, watermark columns)."""
+        """COUNT / SUM / MIN / MAX / AVG, as the JAX binder's `_plan_agg`
+        plans them: a pre-project of the group keys then the agg
+        arguments grafted onto `fid`, a hash_agg fragment (hash dispatch
+        on the keys; a singleton simple_agg without GROUP BY), a
+        post-project of the SELECT items over [keys..., agg outputs...].
+        Returns (agg fragment id, names, types, pk positions, watermark
+        columns)."""
         frag = self.graph.fragments[fid]
         keys = [bind_scalar(g, scope) for g in sel.group_by]
         key_names = [auto_name(g, j) for j, g in enumerate(sel.group_by)]
@@ -606,6 +790,13 @@ class StreamPlanner:
                        if at in (DataType.FLOAT64, DataType.FLOAT32)
                        else DataType.INT64)
                 return col(nk + add_call(AggKind.SUM, a, ret), ret)
+            if e.name == "avg":
+                # SUM as FLOAT64 and COUNT, divided in the post-project
+                a = add_arg(e.args[0])
+                s_ = add_call(AggKind.SUM, a, DataType.FLOAT64)
+                c_ = add_call(AggKind.COUNT, a, DataType.INT64)
+                return call("divide", col(nk + s_, DataType.FLOAT64),
+                            col(nk + c_, DataType.INT64))
             if e.name in ("min", "max"):
                 a = add_arg(e.args[0])
                 at = pre_exprs[a].ret_type
@@ -662,18 +853,28 @@ class StreamPlanner:
         wm_keys = [kj for kj, ke in enumerate(keys)
                    if isinstance(ke, InputRef) and ke.index in info.wm_cols]
         wd = 1 if self.cfg("streaming_watchdog", 1) else None
-        frag.dispatch = "hash"
-        frag.dist_key_indices = tuple(range(nk))
-        agg = self.graph.add(Fragment(self.fid(), Node(
-            "hash_agg", dict(
-                group_key_indices=list(range(nk)),
-                agg_calls=agg_calls, durable=self.durable(),
-                capacity=self.cfg("streaming_agg_capacity", 1 << 16),
-                cleaning_watermark_col=(wm_keys[0] if wm_keys else None),
-                watchdog_interval=wd),
-            inputs=(Exchange(fid),)),
-            dispatch="hash", dist_key_indices=tuple(range(nk)),
-            parallelism=self.parallelism))
+        if keys:
+            frag.dispatch = "hash"
+            frag.dist_key_indices = tuple(range(nk))
+            agg = self.graph.add(Fragment(self.fid(), Node(
+                "hash_agg", dict(
+                    group_key_indices=list(range(nk)),
+                    agg_calls=agg_calls, durable=self.durable(),
+                    capacity=self.cfg("streaming_agg_capacity", 1 << 16),
+                    cleaning_watermark_col=(wm_keys[0] if wm_keys
+                                            else None),
+                    watchdog_interval=wd),
+                inputs=(Exchange(fid),)),
+                dispatch="hash", dist_key_indices=tuple(range(nk)),
+                parallelism=self.parallelism))
+        else:
+            # global aggregation: a singleton SimpleAgg fragment
+            frag.dispatch = "simple"
+            agg = self.graph.add(Fragment(self.fid(), Node(
+                "simple_agg", dict(agg_calls=agg_calls,
+                                   durable=self.durable()),
+                inputs=(Exchange(fid),)),
+                dispatch="simple"))
         # MV pk = the group keys, which must survive the projection:
         # append any key not already selected
         pk = []
@@ -706,7 +907,8 @@ class StreamPlanner:
         snapshot executor (stream/snapshot_join_agg.py) when every input
         is append-only. Returns a `_plan_query` result tuple, or None
         when the shape does not match (SET streaming_snapshot_fuse = 0
-        forces None); the caller then raises, having no generic plan."""
+        forces None); the caller then plans the changelog join cascade
+        under a simple agg, as the JAX planner does."""
         if not self.cfg("streaming_snapshot_fuse", 1):
             return None
         if (sel.group_by or sel.order_by or sel.limit is not None

@@ -168,9 +168,11 @@ class Session:
         # the top-N's store; 1 device only (the mesh top-N is not
         # ported: above 1 the SET raises)
         "streaming_top_n_capacity": int,
+        # the over-window's store (it grows at 0.7 occupancy)
+        "streaming_over_window_capacity": int,
         "streaming_parallelism_devices": int,
-        # 0 disables the snapshot join-agg fusion; the port has no
-        # generic plan for that shape, so it then raises BindError
+        # 0 disables the snapshot join-agg fusion (the shape then plans
+        # as a changelog join cascade under a simple agg)
         "streaming_snapshot_fuse": int,
         # 1 = durable state tables, persisted at every checkpoint; 0 =
         # device-resident state only

@@ -143,3 +143,87 @@ def top_n_state_to_numpy(ex) -> dict:
                 top_cols=[c.cpu().numpy() for c in ex.top_cols],
                 top_valids=[v.cpu().numpy() for v in ex.top_valids],
                 top_n=int(ex.top_n), errs=ex.errs())
+
+
+def over_window_state_from_numpy(ex, khash: np.ndarray,
+                                 cols: Sequence[np.ndarray],
+                                 valids: Sequence[np.ndarray], n: int,
+                                 em_hash: np.ndarray,
+                                 em_cols: Sequence[np.ndarray],
+                                 em_valids: Sequence[np.ndarray], em_n: int,
+                                 errs: Optional[Sequence[int]] = None
+                                 ) -> None:
+    """Install a general over-window's state in the port's executor `ex`
+    (on its device): the sorted store (khash, cols, valids, n) and the
+    last emitted rows (em_hash, em_cols, em_valids, em_n), the JAX
+    package's `GeneralOverWindowExecutor` fields, same layout; `errs` in
+    the JAX package's [row overflow, delete miss] order."""
+    dev = ex.device
+    C = len(khash)
+    dts = [f.data_type.np_dtype for f in ex.schema]
+    ex.capacity = C
+    ex.store = sorted_side_from_numpy(
+        khash, [np.asarray(c, dtype=dt) for c, dt in zip(cols, dts)],
+        valids, np.zeros(C, dtype=np.int32), n, dev)
+    ex._spare = None
+    ex.em_hash = _t(np.asarray(em_hash, dtype=np.int64), dev)
+    ex.em_cols = tuple(_t(np.asarray(c, dtype=dt), dev)
+                       for c, dt in zip(em_cols, dts))
+    ex.em_valids = tuple(_t(np.asarray(v, dtype=bool), dev)
+                         for v in em_valids)
+    ex.em_n = _t(np.asarray(em_n, dtype=np.int32), dev)
+    if errs is not None:
+        ex._errs_dev = _t(np.asarray([0, errs[1], errs[0]], dtype=np.int32),
+                          dev)
+
+
+def over_window_state_to_numpy(ex) -> dict:
+    """A general over-window's store and last emitted rows as numpy
+    arrays, with `errs` in the JAX package's [row overflow, delete miss]
+    order."""
+    st = ex.store
+    return dict(khash=st.khash.cpu().numpy(),
+                cols=[c.cpu().numpy() for c in st.cols],
+                valids=[v.cpu().numpy() for v in st.valids], n=int(st.n),
+                em_hash=ex.em_hash.cpu().numpy(),
+                em_cols=[c.cpu().numpy() for c in ex.em_cols],
+                em_valids=[v.cpu().numpy() for v in ex.em_valids],
+                em_n=int(ex.em_n), errs=ex.errs())
+
+
+def eowc_frontier_from_numpy(ex, emitted_to: int, wm_pending: int) -> None:
+    """Install an EOWC over-window's emission frontier and pending
+    watermark (the JAX package's `_emitted_to`, `_wm_pending`)."""
+    ex._emitted_to = int(emitted_to)
+    ex._wm_pending = int(wm_pending)
+
+
+def eowc_frontier_to_numpy(ex) -> dict:
+    return dict(emitted_to=int(ex._emitted_to),
+                wm_pending=int(ex._wm_pending))
+
+
+def simple_agg_state_from_numpy(ex, states: Sequence[np.ndarray],
+                                row_count: int,
+                                prev_emit: Optional[Sequence[np.ndarray]],
+                                emitted: bool) -> None:
+    """Install a SimpleAgg's state in the port's executor `ex`: one
+    scalar a call, the row count, and the last emission (the JAX
+    package's `states`, `row_count`, `_prev_emit`, `_emitted`)."""
+    dev = ex.device
+    ex.states = tuple(
+        torch.tensor(np.asarray(v).item(), dtype=s.state_dtype, device=dev)
+        for v, s in zip(states, ex.specs))
+    ex.row_count = torch.tensor(int(row_count), dtype=torch.int64,
+                                device=dev)
+    ex._prev_emit = (None if prev_emit is None
+                     else tuple(np.asarray(v) for v in prev_emit))
+    ex._emitted = bool(emitted)
+
+
+def simple_agg_state_to_numpy(ex) -> dict:
+    return dict(states=[st.cpu().numpy() for st in ex.states],
+                row_count=int(ex.row_count),
+                prev_emit=(None if ex._prev_emit is None
+                           else [np.asarray(v) for v in ex._prev_emit]),
+                emitted=bool(ex._emitted))

@@ -18,11 +18,11 @@ hash dispatch, vnode bitmaps, merge executors), remote and cluster
 placement (`build_partial_graph`, `cluster_remote_edges`,
 `_infer_fragment_schema`), per-fragment rebuild and channel replay,
 mesh-chain fusion, memory and stats registration, and the builders of
-node kinds the port cannot plan yet (hop_window, simple and the other
-aggregates, dynamic filters, joins other than sorted, the group and
-sharded top-Ns, over-window, stream_scan, dedup); durable snapshot
-join-agg state; sinks other than `blackhole_device`; connectors other
-than `nexmark` and `tpch`.
+node kinds the port cannot plan yet (hop_window, the stateless simple
+and the other aggregates, dynamic filters, joins other than sorted, the
+group and sharded top-Ns, the sharded over-window, stream_scan, dedup);
+durable snapshot join-agg state; sinks other than `blackhole_device`;
+connectors other than `nexmark` and `tpch`.
 """
 
 from __future__ import annotations
@@ -37,9 +37,10 @@ from ..state.state_table import StateTable
 from ..state.store import StateStore
 from ..stream import (
     Actor, BroadcastDispatcher, Channel, ChannelInput,
-    DeviceBlackholeSinkExecutor, FilterExecutor, HashAggExecutor,
-    MaterializeExecutor, NoOpExecutor, ProjectExecutor,
-    RetractableTopNExecutor, RowIdGenExecutor, SimpleDispatcher,
+    DeviceBlackholeSinkExecutor, EowcOverWindowExecutor, FilterExecutor,
+    GeneralOverWindowExecutor, HashAggExecutor, MaterializeExecutor,
+    NoOpExecutor, ProjectExecutor, RetractableTopNExecutor,
+    RowIdGenExecutor, SimpleAggExecutor, SimpleDispatcher,
     SnapshotJoinAggExecutor, SortedJoinExecutor, SourceExecutor,
 )
 from ..stream.executor import Executor
@@ -417,6 +418,56 @@ def _build_retract_top_n(args, inputs, ctx: ActorCtx, key):
         device=ctx.env.device)
 
 
+@register_builder("general_over_window")
+def _build_general_over_window(args, inputs, ctx: ActorCtx, key):
+    pk = tuple(args["pk_indices"])
+    st = None
+    if args.get("durable"):
+        st = ctx.env.state_table(ctx.table_id(key), inputs[0].schema, pk)
+    return GeneralOverWindowExecutor(
+        inputs[0], args["partition_by"], args["order_specs"],
+        args["windows"], capacity=args.get("capacity", 1 << 14),
+        state_table=st, pk_indices=pk,
+        watchdog_interval=args.get("watchdog_interval", 1),
+        device=ctx.env.device)
+
+
+@register_builder("eowc_over_window")
+def _build_eowc_over_window(args, inputs, ctx: ActorCtx, key):
+    pk = tuple(args["pk_indices"])
+    st = ft = None
+    if args.get("durable"):
+        st = ctx.env.state_table(ctx.table_id((key, 0)), inputs[0].schema,
+                                 pk)
+        ft = ctx.env.state_table(
+            ctx.table_id((key, 1)),
+            Schema((SchemaField("slot", DataType.INT64),
+                    SchemaField("emitted_to", DataType.INT64))), (0,))
+    return EowcOverWindowExecutor(
+        inputs[0], args["partition_by"], args["order_specs"],
+        args["windows"], capacity=args.get("capacity", 1 << 14),
+        state_table=st, frontier_table=ft, pk_indices=pk,
+        watchdog_interval=args.get("watchdog_interval", 1),
+        device=ctx.env.device)
+
+
+@register_builder("simple_agg")
+def _build_simple_agg(args, inputs, ctx: ActorCtx, key):
+    st = None
+    if args.get("durable"):
+        calls = args["agg_calls"]
+        fields = [SchemaField("slot", DataType.INT64)]
+        fields += [SchemaField(f"state{j}", c.ret_type)
+                   for j, c in enumerate(calls)]
+        fields.append(SchemaField("_row_count", DataType.INT64))
+        st = ctx.env.state_table(ctx.table_id(key), Schema(tuple(fields)),
+                                 (0,))
+    return SimpleAggExecutor(inputs[0], args["agg_calls"], state_table=st,
+                             combine_partials=args.get("combine_partials",
+                                                       False),
+                             device=ctx.env.device)
+
+
 @register_builder("row_id_gen")
 def _build_row_id(args, inputs, ctx: ActorCtx, key):
     return RowIdGenExecutor(inputs[0], instance=ctx.actor_id)
@@ -554,6 +605,13 @@ def infer_fragment_schemas(graph: StreamGraph,
         if k == "snapshot_join_agg":
             return Schema(tuple(SchemaField(nm, t) for nm, t in
                                 zip(a["out_names"], a["out_types"])))
+        if k == "simple_agg":
+            return Schema(tuple(SchemaField(f"agg{j}", c.ret_type)
+                                for j, c in enumerate(a["agg_calls"])))
+        if k in ("general_over_window", "eowc_over_window"):
+            return Schema(tuple(ins[0]) + tuple(
+                SchemaField(w.name or f"w{j}", w.ret_type(ins[0]))
+                for j, w in enumerate(a["windows"])))
         raise NotImplementedError(
             f"no schema rule for node kind {k!r} (ROADMAP A9)")
 

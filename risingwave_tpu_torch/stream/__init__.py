@@ -3,9 +3,11 @@ from .align import barrier_align
 from .exchange import (
     BroadcastDispatcher, Channel, ChannelInput, Dispatcher, SimpleDispatcher,
 )
+from .eowc_over_window import EowcOverWindowExecutor
 from .executor import (
     Executor, StatefulUnaryExecutor, StatelessUnaryExecutor,
 )
+from .general_over_window import GeneralOverWindowExecutor, WindowSpec
 from .hash_agg import HashAggExecutor
 from .hop_window import HopWindowExecutor
 from .materialize import ConflictBehavior, MaterializeExecutor
@@ -14,6 +16,7 @@ from .misc import NoOpExecutor
 from .project import FilterExecutor, ProjectExecutor
 from .retract_top_n import RetractableTopNExecutor
 from .row_id import RowIdGenExecutor
+from .simple_agg import SimpleAggExecutor
 from .sink import DeviceBlackholeSinkExecutor
 from .snapshot_join_agg import SnapshotJoinAggExecutor
 from .sorted_join import SortedJoinExecutor
@@ -22,6 +25,8 @@ from .source import SourceExecutor
 __all__ = ["Actor", "barrier_align", "BroadcastDispatcher", "Channel",
            "ChannelInput", "Dispatcher", "SimpleDispatcher", "Executor",
            "StatefulUnaryExecutor", "StatelessUnaryExecutor",
+           "EowcOverWindowExecutor", "GeneralOverWindowExecutor",
+           "SimpleAggExecutor", "WindowSpec",
            "FilterExecutor", "RetractableTopNExecutor",
            "HashAggExecutor", "HopWindowExecutor",
            "ConflictBehavior", "MaterializeExecutor", "Barrier",

@@ -49,6 +49,9 @@ MODULES = [
     "risingwave_tpu_torch.stream.sorted_store",
     "risingwave_tpu_torch.stream.retract_top_n",
     "risingwave_tpu_torch.state.storage_table",
+    "risingwave_tpu_torch.stream.general_over_window",
+    "risingwave_tpu_torch.stream.eowc_over_window",
+    "risingwave_tpu_torch.stream.simple_agg",
 ]
 
 
@@ -109,12 +112,17 @@ def _entry_points():
     from risingwave_tpu_torch.stream.retract_top_n import (
         RetractableTopNExecutor)
     from risingwave_tpu_torch.stream.sorted_join import SortedJoinExecutor
+    from risingwave_tpu_torch.stream import (
+        EowcOverWindowExecutor, GeneralOverWindowExecutor,
+        SimpleAggExecutor)
     return [NexmarkGenerator.__init__, HashAggExecutor.__init__,
             SortedJoinExecutor.__init__, resolve_device, chunk_from_numpy,
             hash_table_from_numpy, agg_state_from_numpy,
             sorted_side_from_numpy, Session.__init__,
             TpchGenerator.__init__, SnapshotJoinAggExecutor.__init__,
-            RetractableTopNExecutor.__init__]
+            RetractableTopNExecutor.__init__,
+            GeneralOverWindowExecutor.__init__,
+            EowcOverWindowExecutor.__init__, SimpleAggExecutor.__init__]
 
 
 def test_entry_points_default_to_cuda():
@@ -140,6 +148,9 @@ def test_cuda_without_a_card_raises():
     from risingwave_tpu_torch.stream.retract_top_n import (
         RetractableTopNExecutor)
     from risingwave_tpu_torch.stream.sorted_join import SortedJoinExecutor
+    from risingwave_tpu_torch.stream import (
+        EowcOverWindowExecutor, GeneralOverWindowExecutor,
+        SimpleAggExecutor, WindowSpec)
 
     class _In:
         schema = make_schema(("k", DataType.INT64))
@@ -181,6 +192,13 @@ def test_cuda_without_a_card_raises():
             out_types=[DataType.INT64], capacity=64).device,
         lambda: RetractableTopNExecutor(_In(), (), order_col=0, limit=1,
                                         capacity=64).device,
+        lambda: GeneralOverWindowExecutor(
+            _In(), (), [(0, False)], [WindowSpec("row_number")],
+            capacity=64).device,
+        lambda: EowcOverWindowExecutor(
+            _In(), (), [(0, False)], [WindowSpec("row_number")],
+            capacity=64).device,
+        lambda: SimpleAggExecutor(_In(), [count_star()]).device,
     ]
     for build in builders:
         if torch.cuda.is_available():
@@ -198,9 +216,10 @@ def test_every_kernel_is_registered_with_its_source():
                      "hash_table", "hop_window", "nexmark_auction",
                      "nexmark_bid", "nexmark_person", "persist_view",
                      "pk_net", "radix_sort", "row_id", "segment_agg",
-                     "snapshot_append", "snapshot_diff", "snapshot_final",
-                     "sorted_join_merge", "sorted_join_probe",
-                     "top_n_diff", "top_n_rank", "tpch"]
+                     "simple_agg", "snapshot_append", "snapshot_diff",
+                     "snapshot_final", "sorted_join_merge",
+                     "sorted_join_probe", "top_n_diff", "top_n_rank",
+                     "tpch", "window_diff", "window_scan"]
     for k in kernels.KERNELS.values():
         assert k.source.exists()
         src = k.source.read_text()
@@ -221,6 +240,8 @@ def test_wrappers_refuse_other_devices():
     from risingwave_tpu_torch.stream import snapshot_join_agg as sja
     from risingwave_tpu_torch.stream import project
     from risingwave_tpu_torch.stream import retract_top_n as rtn
+    from risingwave_tpu_torch.stream import general_over_window as gow
+    from risingwave_tpu_torch.stream import simple_agg as sagg
     from risingwave_tpu_torch.common.chunk import StreamChunk
     from risingwave_tpu_torch.common import DataType, schema
     t = ht.HashTable.empty(32, [torch.int64], "meta")
@@ -260,6 +281,15 @@ def test_wrappers_refuse_other_devices():
         lambda: rtn.topn_rank(side, i64, i64, 0, 1),
         lambda: rtn.topn_diff(side, i64, i64, errs[0], i64, [i64], [b],
                               errs[0]),
+        lambda: gow.window_scan(side, i64, i64, [(0, False)],
+                                [gow.WindowSpec("row_number")]),
+        lambda: gow.window_hash([i64], [b], i64, errs[0]),
+        lambda: gow.window_diff([i64], [b], i64, i64, errs[0], i64, [i64],
+                                [b], errs[0]),
+        lambda: sagg.simple_agg_apply(
+            [count_star().spec()], [i64[0]], i64[0], StreamChunk(
+                (Column(i64),), i64.to(torch.int8), b,
+                schema(("k", DataType.INT64)))),
     ]
     for refuse in refusals:
         with pytest.raises(ValueError, match="unsupported device"):
