@@ -32,7 +32,12 @@ plain PyTorch version on the card:
        window function over the MAX agg's changelog of an auction x bid
        band join) and q4 (AVG of the finals per category), as the JAX
        package's goldens write them, through the Session; the EOWC body
-       of tests/test_eowc_over_window.py; global aggregates.
+       of tests/test_eowc_over_window.py; global aggregates;
+  q5c — RisingWave's own Nexmark q5 (Q5C_SELECT) through the Session:
+       count(*) per (auction, HOP window), the max of a second such
+       count per window over its changelog (a retractable MAX: top-K
+       value buffers), the two joined on the window with num >= maxn;
+       and bench.py's _q5_ddl() verbatim (HOP through SQL).
 Phases, one JSON line each:
 
   1. device: the card, torch/CUDA versions, the kernels' build time;
@@ -169,10 +174,34 @@ Phases, one JSON line each:
  23. q6_recover: durable q6 as an MV, one 131072-bid chunk (and its
      auctions) a barrier, crash after 8 barriers, recover, on to 16:
      the MV equals the recount; recovery_ms;
- 24. the kernels line: launches on the first run of each kernel's own
+ 24. kernels_extrema: K26 (the retractable extremum's update, after two
+     K11 passes) against its plain version on the MaxBids agg's shapes
+     (a 2^21-row flush chunk of 300000 U-/U+ count pairs into 17 window
+     groups of a 2^20-slot, K = 32 agg; int64 and float64) and on
+     tests/test_torch_extrema.py's hazard chunks (NaN, +-0, subnormals,
+     NULLs, deletes that miss, K = 2 spills and an emptied buffer);
+     K27 (the hash agg's barrier flush after K12) on q5's, q7's and the
+     MaxBids agg's flush shapes, every output row and the refreshed
+     state; K18 on a COUNT and a retractable MAX's buffers (65 lanes),
+     int64 and float64; all exact;
+ 25. q5c_full: the canonical q5 as an MV at 8 x 131072 bids a barrier,
+     12 barriers (12.58 M bids, ~620k live groups in each 2^20-slot
+     COUNT agg: no growth; a 2^20-row join), every q5c kernel launched,
+     the join's errs [0, 0, 0], no agg overflow, the MV equal to a numpy
+     recount (counts per (auction, window), the max per window, the
+     rows at it); events/s, barrier p50/max, peak memory, the join's
+     match slots; q5c_profile, the idle share of a short profiled run;
+ 26. q5c_check: one 131072-bid chunk a barrier, the MV equal to the
+     recount after every barrier; q5c_recover: durable, crash after 8
+     barriers, recover, on to 16, the MV equal to the recount; q5_sql:
+     bench.py's _q5_ddl() verbatim through the Session beside the
+     hand-wired q5, the live groups equal;
+ 27. the kernels line: launches on the first run of each kernel's own
      slice's path (q5 for K1-K4 and K12, q7 for K5-K8, q8 for K9-K11,
      q17 for K13-K16, q7d for K17-K18, q5_topn for K19-K21, q2 for K22,
-     q6 for K23-K24, the global agg for K25), error, times, bounds.
+     q6 for K23-K24, the global agg for K25, q5c for K26-K27), error,
+     times, bounds. K27 runs in every hash agg's flush, so every earlier
+     path drives it too.
 With --host-profile, phase 4 also runs q5 under cProfile and lists the
 host functions with the most own time.
 The last line is {"ok": true, "device": {...}}. Any failed phase exits
@@ -208,7 +237,7 @@ from risingwave_tpu_torch.connectors.nexmark import (
 )
 from risingwave_tpu_torch.expr import ExprProgram, FuncCall, call, col, lit
 from risingwave_tpu_torch.expr.agg import (
-    AggCall, AggKind, agg_max, count_star,
+    AggCall, AggKind, agg_max, agg_min, agg_sum, count_star,
 )
 from risingwave_tpu_torch.expr.transforms import (
     TumbleEndTransform, TumbleStartTransform,
@@ -236,7 +265,11 @@ from risingwave_tpu_torch.stream import (
 )
 from risingwave_tpu_torch.stream import snapshot_join_agg as sja
 from risingwave_tpu_torch.stream.hash_agg import (
-    AggState, agg_apply, agg_apply_plain, persist_pack, persist_pack_plain,
+    AggState, agg_apply, agg_apply_plain, agg_flush, agg_flush_plain,
+    persist_pack, persist_pack_plain,
+)
+from risingwave_tpu_torch.ops.extrema import (
+    extrema_apply, extrema_apply_plain, extrema_empty,
 )
 from risingwave_tpu_torch.stream.hop_window import (
     hop_expand, hop_expand_plain,
@@ -2964,7 +2997,8 @@ KERNEL_PATH = {"nexmark_bid": "q5", "hop_window": "q5", "hash_table": "q5",
                "persist_view": "q7d", "pk_net": "q5t",
                "top_n_rank": "q5t", "top_n_diff": "q5t",
                "filter_ops": "q2", "window_scan": "q6",
-               "window_diff": "q6", "simple_agg": "gagg"}
+               "window_diff": "q6", "simple_agg": "gagg",
+               "extrema_update": "q5c", "agg_flush": "q5c"}
 
 
 def phase_q5_full(dev, repeats: int = 5) -> dict:
@@ -5139,6 +5173,630 @@ def phase_q6_recover(dev, r1: int = 8, r2: int = 8,
                 launches=b["launches"])
 
 
+# ------------------------------------ canonical q5 and the extrema (SQL)
+
+# RisingWave's own Nexmark q5 (ci/scripts/sql/nexmark/q5.sql), HOP in
+# integer microseconds as the JAX binder and bench.py write it: count
+# per (auction, window), the max of a second such count per window over
+# its changelog (a retractable MAX), joined on the window with num >=
+# maxn
+Q5C_SELECT = (
+    "SELECT AuctionBids.auction, AuctionBids.num FROM ("
+    " SELECT auction, count(*) AS num, window_start AS starttime"
+    " FROM HOP(bid, date_time, 2000000, 10000000)"
+    " GROUP BY window_start, auction) AS AuctionBids "
+    "JOIN ("
+    " SELECT max(CountBids.num) AS maxn, CountBids.starttime_c"
+    " FROM (SELECT count(*) AS num, window_start AS starttime_c"
+    " FROM HOP(bid, date_time, 2000000, 10000000)"
+    " GROUP BY auction, window_start) AS CountBids"
+    " GROUP BY CountBids.starttime_c) AS MaxBids "
+    "ON AuctionBids.starttime = MaxBids.starttime_c"
+    " AND AuctionBids.num >= MaxBids.maxn")
+Q5C_CHUNK = 131072
+Q5C_PER_BARRIER = 8 * Q5C_CHUNK
+Q5C_ROUNDS = 12
+# bench's _q5_ddl() SETs; the join is sized to hold AuctionBids' live
+# groups (~620k at 12 barriers) without growth, as transfer-free mode
+# (streaming_watchdog = 0) never grows it
+Q5C_JOIN_CAPACITY = 1 << 20
+Q5C_KERNELS = ("nexmark_bid", "hop_window", "hash_table", "hash_agg",
+               "compact", "extrema_update", "agg_flush", "radix_sort",
+               "pk_net", "sorted_join_probe", "sorted_join_merge",
+               "expr_eval")
+# bench.py's _q5_ddl() statements, verbatim (cs = 131072)
+Q5_SQL_DDL = [
+    "SET streaming_durability = 0",
+    "SET streaming_watchdog = 0",
+    f"SET streaming_agg_capacity = {1 << 20}",
+    ("CREATE SOURCE bid WITH (connector='nexmark', table='bid', "
+     "chunk_size=131072, inter_event_us=2, emit_watermarks=1)"),
+    ("CREATE SINK q5 AS SELECT auction, window_start, count(*) AS n "
+     "FROM HOP(bid, date_time, 2000000, 10000000) "
+     "GROUP BY auction, window_start "
+     "WITH (connector='blackhole_device')"),
+]
+
+
+def q5c_ddl(chunk: int = Q5C_CHUNK, durable_: int = 0,
+            agg_cap: int = 1 << 20,
+            join_cap: int = Q5C_JOIN_CAPACITY) -> list:
+    return [
+        f"SET streaming_durability = {durable_}",
+        "SET streaming_watchdog = 0",
+        f"SET streaming_agg_capacity = {agg_cap}",
+        f"SET streaming_join_capacity = {join_cap}",
+        ("CREATE SOURCE bid WITH (connector='nexmark', table='bid', "
+         f"chunk_size={chunk}, inter_event_us=2)"),
+        "CREATE MATERIALIZED VIEW q5c AS " + Q5C_SELECT,
+    ]
+
+
+class Q5cRecount:
+    """The canonical q5's MV from the generator's prefix in numpy: counts
+    per (auction, window) (recount_windows), the max per window, the
+    rows (auction, num, window, window) with num >= the max."""
+
+    def __init__(self, dev, cfg: NexmarkConfig):
+        self.dev, self.cfg = dev, cfg
+        self.n = 0
+        self.counts: Counter = Counter()
+
+    def advance(self, n: int) -> None:
+        if n > self.n:
+            self.counts.update(recount_windows(self.n, n, self.cfg,
+                                               -(1 << 62), self.dev))
+            self.n = n
+
+    def rows(self) -> Counter:
+        best: dict = {}
+        for (a, w), c in self.counts.items():
+            best[w] = max(best.get(w, 0), c)
+        return Counter((a, c, w, w) for (a, w), c in self.counts.items()
+                       if c >= best[w])
+
+
+def _q5c_mv(rows) -> Counter:
+    return Counter(tuple(r) for r in rows)
+
+
+def extrema_edge_chunks(rng, dtype: str, C: int, n_chunks: int, N: int,
+                        is_max: bool):
+    """Seeded hazard chunks for a retractable MIN/MAX of C groups, as
+    (values, valid, ops, slots): inserts, deletes of values inserted
+    earlier (tracked or not), deletes of values never inserted, invisible
+    rows (slot -1), NULLs, float values at the edges of XLA's CPU compare
+    (NaN, +-0, subnormals, +-inf), and one group that gets many distinct
+    values in one chunk. The last group gets three distinct values, then
+    loses the best two: at K = 2 its buffer empties with a row left
+    (underflow). The CPU tests and kernels_extrema share them."""
+    pool = (np.array([np.nan, -0.0, 0.0, 5e-324, -5e-324, 2.2e-308, 1.0,
+                      -1.0, 2.5, -2.5, np.inf, -np.inf, 7.0, 3.0])
+            if dtype == "float64" else
+            np.array([-(1 << 63), (1 << 63) - 1, -1, 0, 1, 2, 3, 5, 8, 13,
+                      21, 34], dtype=np.int64))
+    live: list = []
+    out = []
+    for c in range(n_chunks):
+        vals = rng.choice(pool, N)
+        seg = rng.integers(0, C - 1, N)
+        if c % 3 == 1:
+            # one group, many distinct values: past K in one chunk
+            seg[: N // 2] = 0
+        ops = np.zeros(N, np.int8)
+        for i in range(N):
+            r = rng.random()
+            if live and r < 0.35:
+                s_, v_ = live.pop(int(rng.integers(len(live))))
+                seg[i], vals[i] = s_, v_
+                ops[i] = rng.choice([1, 2])          # Delete, UpdateDelete
+            elif r < 0.4:
+                ops[i] = 1                           # delete never inserted
+            else:
+                ops[i] = rng.choice([0, 3])          # Insert, UpdateInsert
+        valid = rng.random(N) > 0.1
+        visible = rng.random(N) > 0.1
+        three = np.array([1, 2, 3], dtype=vals.dtype)
+        if c == n_chunks - 2:
+            seg[:3], vals[:3], ops[:3] = C - 1, three, 0
+            valid[:3] = visible[:3] = True
+        if c == n_chunks - 1:
+            seg[:2], ops[:2] = C - 1, 1
+            vals[:2] = three[1:] if is_max else three[:2]
+            valid[:2] = visible[:2] = True
+        ins = (ops == 0) | (ops == 3)
+        live += [(int(seg[i]), vals[i]) for i in range(N)
+                 if ins[i] and valid[i] and visible[i] and seg[i] < C - 1]
+        out.append((vals.astype(dtype), valid, ops,
+                    np.where(visible, seg, -1).astype(np.int32)))
+    return out
+
+
+def extrema_state_err(a: tuple, b: tuple) -> int:
+    """Cells (values by their bits, counts, lossy flags) that differ."""
+    va, vb = (x[0].view(torch.int64) if x[0].dtype == torch.float64
+              else x[0] for x in (a, b))
+    return int((va != vb).sum()) + int((a[1] != b[1]).sum()) \
+        + int((a[2] != b[2]).sum())
+
+
+def maxbids_chunks(dev, C: int, N: int, groups: int, per_group: int,
+                   pairs: int, seed: int = 0, float_: bool = False):
+    """The MaxBids agg's inputs at q5c's shapes: a history chunk of
+    `groups` window slots x `per_group` counts (Inserts), then a flush
+    chunk of `pairs` U-/U+ pairs (a count v -> v + 1 of one auction), the
+    rest of the N rows invisible. Returns (history, update), each
+    (values, ops, slots)."""
+    g = torch.Generator().manual_seed(seed)
+    slots_g = torch.randperm(C, generator=g)[:groups].to(torch.int32)
+    n_h = groups * per_group
+    # geometric counts (p = 0.08), as HOP window counts of auctions run
+    u = torch.rand(n_h, generator=g, dtype=torch.float64)
+    hv = torch.clamp((torch.log(u) / math.log(1 - 0.08)).to(torch.int64)
+                     + 1, max=400)
+    hs = slots_g.repeat_interleave(per_group)
+    pick = torch.randint(0, n_h, (pairs,), generator=g)
+    old = hv[pick]
+    us = hs[pick]
+    uv = torch.stack([old, old + 1], 1).reshape(-1)
+    uo = torch.tensor([2, 3], dtype=torch.int8).repeat(pairs)
+    uslot = us.repeat_interleave(2)
+
+    def padded(v, o, s):
+        vals = torch.zeros(N, dtype=torch.int64)
+        ops = torch.zeros(N, dtype=torch.int8)
+        slots = torch.full((N,), -1, dtype=torch.int32)
+        vals[:v.shape[0]], ops[:v.shape[0]], slots[:v.shape[0]] = v, o, s
+        if float_:
+            vals = vals.to(torch.float64) * 0.5
+        return vals.to(dev), ops.to(dev), slots.to(dev)
+
+    return (padded(hv, torch.zeros(n_h, dtype=torch.int8), hs),
+            padded(uv, uo, uslot))
+
+
+def _extrema_copy(st: tuple) -> tuple:
+    return tuple(x.clone() for x in st)
+
+
+def _extrema_restore(dst: tuple, src: tuple) -> None:
+    for d, s in zip(dst, src):
+        d.copy_(s)
+
+
+def k26_edge_err(dev) -> int:
+    """K26 against its plain version on the hazard chunks (int64 and
+    float64, MAX and MIN, K = 2 and 32): state cells and error counts
+    that differ, summed."""
+    bad = 0
+    C, N = 6, 48
+    for dtype in ("int64", "float64"):
+        tdt = torch.float64 if dtype == "float64" else torch.int64
+        for is_max in (True, False):
+            for K in (2, 32):
+                rng = np.random.default_rng(K * 4 + is_max * 2
+                                            + (dtype == "float64"))
+                sk = extrema_empty(C, K, tdt, dev)
+                sp = extrema_empty(C, K, tdt, dev)
+                rc = torch.zeros(C, dtype=torch.int64, device=dev)
+                for vals, valid, ops, slots in extrema_edge_chunks(
+                        rng, dtype, C, 9, N, is_max):
+                    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+                    v_, va_, o_, s_ = t(vals), t(valid), t(ops), t(slots)
+                    ok = s_ >= 0
+                    rc += torch.zeros(C + 1, dtype=torch.int64,
+                                      device=dev).index_add_(
+                        0, torch.where(ok, s_.to(torch.int64), C),
+                        torch.where(ok, op_sign(o_), 0).to(torch.int64))[:C]
+                    ek = torch.zeros((), dtype=torch.int32, device=dev)
+                    ep = torch.zeros((), dtype=torch.int32, device=dev)
+                    extrema_apply(sk, v_, va_, o_, s_, rc, is_max, ek)
+                    extrema_apply_plain(sp, v_, va_, o_, s_, rc, is_max, ep)
+                    torch.cuda.synchronize()
+                    bad += extrema_state_err(sk, sp) + abs(int(ek) - int(ep))
+    return bad
+
+
+# float32's edge values as float64 state: zeros, float32 subnormals
+# (which the cast to REAL flushes and the compare ties with zero), the
+# smallest normal, NaN, infinities
+F32_EDGE = torch.tensor([0.0, -0.0, 1e-40, -1e-40, 1e-39, 1.1754943508222875e-38,
+                         float("nan"), float("inf"), float("-inf"), 1.5,
+                         -2.0], dtype=torch.float64)
+
+
+def agg_state_shape(dev, C: int, key_dtypes, specs, K: int, n_live: int,
+                    n_dirty: int, seed: int) -> AggState:
+    """A hash-agg state at a path's shape: n_live live groups with
+    random keys and states, n_dirty of them dirty, prev_exists/prev_emit
+    as a flush left them (random where dirty). A call with a REAL output
+    draws its values from F32_EDGE."""
+    g = torch.Generator().manual_seed(seed)
+
+    def draw(sp, shape, lo, hi):
+        if sp.call.ret_type is DataType.FLOAT32:
+            return F32_EDGE[torch.randint(0, F32_EDGE.numel(), shape,
+                                          generator=g)]
+        return torch.randint(lo, hi, shape, generator=g).to(sp.state_dtype)
+
+    perm = torch.randperm(C, generator=g)
+    live = torch.zeros(C, dtype=torch.bool)
+    live[perm[:n_live]] = True
+    dirty = torch.zeros(C, dtype=torch.bool)
+    dirty[perm[:n_dirty]] = True
+    rc = torch.where(live, torch.randint(0, 4, (C,), generator=g), 0)
+    keys = tuple(torch.where(live, torch.randint(0, 1 << 40, (C,),
+                                                 generator=g), 0).to(dt)
+                 for dt in key_dtypes)
+    states, emits = [], []
+    for sp in specs:
+        if sp.call.retractable:
+            v = draw(sp, (C, K), 1, 300)
+            v = torch.sort(v, dim=1, descending=sp.call.kind is AggKind.MAX
+                           ).values
+            c = torch.randint(0, 3, (C, K), generator=g, dtype=torch.int32)
+            c[:, 1:] *= (c[:, :1] > 0).to(torch.int32)
+            c *= live[:, None].to(torch.int32)
+            v = torch.where(c > 0, v, torch.zeros((), dtype=v.dtype))
+            st = (v, c, live & (torch.rand(C, generator=g) < 0.1))
+            cur = torch.where(c[:, 0] > 0, v[:, 0],
+                              torch.tensor(sp.init, dtype=v.dtype))
+        else:
+            st = torch.where(live, draw(sp, (C,), 0, 50),
+                             torch.zeros((), dtype=sp.state_dtype))
+            cur = st
+        cur = sp.emit(cur)
+        noise = draw(sp, (C,), 0, 300).to(cur.dtype)
+        emits.append(torch.where(dirty & (torch.rand(C, generator=g) < 0.5),
+                                 noise, cur))
+        states.append(st)
+    prev = torch.where(dirty, torch.rand(C, generator=g) < 0.7, rc > 0)
+    to = (lambda x: tuple(y.to(dev) for y in x) if isinstance(x, tuple)
+          else x.to(dev))
+    return AggState(ht.HashTable(tuple(k.to(dev) for k in keys),
+                                 live.to(dev)),
+                    tuple(to(s) for s in states), rc.to(dev),
+                    dirty.to(dev), prev.to(dev).clone(),
+                    tuple(e.to(dev) for e in emits))
+
+
+def _agg_clone(st: AggState) -> AggState:
+    cl = lambda x: (tuple(y.clone() for y in x)  # noqa: E731
+                    if isinstance(x, tuple) else x.clone())
+    return AggState(st.table, tuple(cl(a) for a in st.agg_states),
+                    st.row_count, st.dirty.clone(), st.prev_exists.clone(),
+                    tuple(p.clone() for p in st.prev_emit))
+
+
+def _flush_restore(dst: AggState, src: AggState) -> None:
+    dst.dirty.copy_(src.dirty)
+    dst.prev_exists.copy_(src.prev_exists)
+    for d, s in zip(dst.prev_emit, src.prev_emit):
+        d.copy_(s)
+
+
+def agg_flush_err(a, b, sa: AggState, sb: AggState) -> int:
+    """Output lanes (all 2C rows) and refreshed state that differ, floats
+    by their bits."""
+    def bits(x):
+        return {torch.float64: lambda: x.view(torch.int64),
+                torch.float32: lambda: x.view(torch.int32)}.get(
+                    x.dtype, lambda: x)()
+
+    bad = 0
+    for x, y in zip([a[1], a[2], *a[0], sa.dirty, sa.prev_exists,
+                     *sa.prev_emit],
+                    [b[1], b[2], *b[0], sb.dirty, sb.prev_exists,
+                     *sb.prev_emit]):
+        bad += int((bits(x) != bits(y)).sum())
+    return bad
+
+
+def flush_bytes(st: AggState, n_dirty: int) -> int:
+    """What the flush must move: the dirty bits; per dirty slot its keys,
+    row count, prev_exists, state (a buffer's head value and count) and
+    prev_emit read, prev_exists, prev_emit and the dirty bit written;
+    2C output rows of ops, vis, keys and values."""
+    C = st.table.capacity
+    key_b = sum(k.element_size() for k in st.table.keys)
+    ret_b = sum(p.element_size() for p in st.prev_emit)
+    state_b = sum(12 if isinstance(a, tuple) else 8 for a in st.agg_states)
+    per_dirty = key_b + 8 + 1 + state_b + ret_b + (1 + ret_b + 1)
+    return C + n_dirty * per_dirty + 2 * C * (2 + key_b + ret_b)
+
+
+def phase_kernels_extrema(dev) -> dict:
+    """K26 (extrema update), K27 (agg flush) and the extended K18 against
+    their plain versions: K26 on the MaxBids agg's shapes (a 2^21-row
+    flush chunk of U-/U+ count pairs into 17 window groups of a 2^20-slot,
+    K = 32 agg, int64 and float64) and on the CPU tests' hazard chunks;
+    K27 on q5's, q7's and the MaxBids agg's flush shapes; K18 on the
+    MaxBids agg's buffers (65 lanes a call) beside a COUNT."""
+    C, N, K = 1 << 20, 1 << 21, 32
+    res = {}
+    out = {}
+    # ---- K26
+    for float_ in (False, True):
+        tdt = torch.float64 if float_ else torch.int64
+        hist, upd = maxbids_chunks(dev, C, N, groups=17, per_group=36000,
+                                   pairs=300_000, seed=1 + float_,
+                                   float_=float_)
+        base = extrema_empty(C, K, tdt, dev)
+        rc = torch.zeros(C, dtype=torch.int64, device=dev)
+        e0 = torch.zeros((), dtype=torch.int32, device=dev)
+        hv, ho, hs = hist
+        rc.index_add_(0, hs[hs >= 0].to(torch.int64),
+                      torch.ones(int((hs >= 0).sum()), dtype=torch.int64,
+                                 device=dev))
+        extrema_apply_plain(base, hv, None, ho, hs, rc, True, e0)
+        uv, uo, us = upd
+        sk, sp = _extrema_copy(base), _extrema_copy(base)
+        ek = torch.zeros((), dtype=torch.int32, device=dev)
+        ep = torch.zeros((), dtype=torch.int32, device=dev)
+        extrema_apply(sk, uv, None, uo, us, rc, True, ek)
+        extrema_apply_plain(sp, uv, None, uo, us, rc, True, ep)
+        torch.cuda.synchronize()
+        err = extrema_state_err(sk, sp) + abs(int(ek) - int(ep))
+        touched = int(torch.unique(us[us >= 0]).numel())
+        visible = int((us >= 0).sum())
+        # every row's slot; an applied row's op and value; the touched
+        # groups' buffers read and written and their row counts; err
+        n_bytes = (N * 4 + visible * (1 + 8)
+                   + touched * (2 * (K * 12 + 1) + 8) + 4)
+        st = _extrema_copy(base)
+        errt = torch.zeros((), dtype=torch.int32, device=dev)
+        tm = timings(
+            lambda: extrema_apply(st, uv, None, uo, us, rc, True, errt),
+            lambda: extrema_apply_plain(st, uv, None, uo, us, rc, True,
+                                        errt),
+            setup=lambda: _extrema_restore(st, base))
+        out["k26_float64" if float_ else "k26_int64"] = dict(
+            max_abs_err=err, errs=[int(ek), int(ep)], touched_groups=touched,
+            visible_rows=visible, n_bytes=n_bytes,
+            bound_ms=bytes_bound_ms(n_bytes), **tm)
+        if not float_:
+            res["extrema_update"] = dict(
+                max_abs_err=err, bound_ms=bytes_bound_ms(n_bytes),
+                bound_by="bytes", **{k: tm[k] for k in
+                                     ("ms", "plain_ms", "library_ms")})
+    edge = k26_edge_err(dev)
+    out["k26_edge_err"] = edge
+    res["extrema_update"]["max_abs_err"] += edge
+    # ---- K27 on q5's, q7's and the MaxBids agg's flush shapes
+    shapes = {
+        "q5": (1 << 20, (torch.int64, torch.int64),
+               [count_star(append_only=True)], 620_000, 200_000),
+        "q7": (1 << 13, (torch.int64,),
+               [agg_max(1, append_only=True)], 40, 8),
+        "maxbids": (1 << 20, (torch.int64,), [agg_max(1)], 17, 6),
+        # REAL outputs: float32 subnormals flushed and compared as XLA's
+        # CPU does
+        "real": (1 << 13, (torch.int64,),
+                 [agg_sum(1, DataType.FLOAT32), agg_min(1, DataType.FLOAT32),
+                  agg_max(1, DataType.FLOAT32, append_only=True)], 4000,
+                 2000),
+    }
+    for name, (cap, kdts, calls, n_live, n_dirty) in shapes.items():
+        specs = [c.spec() for c in calls]
+        st0 = agg_state_shape(dev, cap, kdts, specs, K, n_live, n_dirty,
+                              seed=len(name))
+        sa, sb = _agg_clone(st0), _agg_clone(st0)
+        a = agg_flush(sa, specs)
+        b = agg_flush_plain(sb, specs)
+        torch.cuda.synchronize()
+        err = agg_flush_err(a, b, sa, sb)
+        n_bytes = flush_bytes(st0, n_dirty)
+        st = _agg_clone(st0)
+        tm = timings(lambda: agg_flush(st, specs),
+                     lambda: agg_flush_plain(st, specs),
+                     setup=lambda: _flush_restore(st, st0))
+        out[f"k27_{name}"] = dict(max_abs_err=err, n_bytes=n_bytes,
+                                  bound_ms=bytes_bound_ms(n_bytes), **tm)
+        if name == "q5":
+            res["agg_flush"] = dict(
+                max_abs_err=err, bound_ms=bytes_bound_ms(n_bytes),
+                bound_by="bytes", **{k: tm[k] for k in
+                                     ("ms", "plain_ms", "library_ms")})
+        else:
+            res["agg_flush"]["max_abs_err"] += err
+    # ---- K18 over a COUNT and a retractable MAX's buffers
+    specs = [count_star().spec(), agg_max(1).spec()]
+    for float_ in (False, True):
+        sp18 = ([count_star().spec(),
+                 agg_max(1, DataType.FLOAT64).spec()] if float_ else specs)
+        st = agg_state_shape(dev, C, (torch.int64,), sp18, K, 17, 6,
+                             seed=18 + float_)
+        bk, ck = persist_pack(st, None, None)
+        bp, cp = persist_pack_plain(st, None, None)
+        torch.cuda.synchronize()
+        nd = int(cp[0])
+        wp = 2 + 1 + 1 + (2 * K + 1) + 1
+        err = int((ck != cp).sum()) + int(
+            (bk[:nd * wp] != bp[:nd * wp]).sum())
+        n_bytes = C + nd * (wp * 8 + wp * 8)
+        tm = timings(lambda: persist_pack(st, None, None),
+                     lambda: persist_pack_plain(st, None, None))
+        out["k18_extrema_float64" if float_ else "k18_extrema"] = dict(
+            max_abs_err=err, rows=nd, lanes=wp, n_bytes=n_bytes,
+            bound_ms=bytes_bound_ms(n_bytes), **tm)
+    bad = {k: v["max_abs_err"] for k, v in out.items()
+           if isinstance(v, dict) and v["max_abs_err"]}
+    if bad or edge:
+        raise AssertionError(f"extrema kernels disagree with their plain "
+                             f"versions: {bad}, edge {edge}")
+    emit({"phase": "kernels_extrema", **out})
+    return res
+
+
+def q5c_summary(r: dict, recount: Counter, agg_cap: int) -> dict:
+    join, coord = r["join"], r["coord"]
+    errs = join.errs()
+    if errs != [0, 0, 0]:
+        raise AssertionError(f"q5c: join errs {errs}")
+    # a side's chunk (an agg's flush, 2C rows) probes a buffer of its
+    # match factor x 2C slots: op, emit, every column of both sides
+    # with its validity byte
+    slots = [f * 2 * agg_cap for f in join.match_factors]
+    slot_bytes = 2 + sum(c.element_size() + 1
+                         for side in join.sides for c in side.cols)
+    got = _q5c_mv(r["mv"])
+    if got != recount or not recount:
+        raise AssertionError(
+            f"q5c: MV ({sum(got.values())} rows) != recount "
+            f"({sum(recount.values())}): {list((got - recount).items())[:3]}"
+            f" / {list((recount - got).items())[:3]}")
+    return dict(
+        bids=r["bids"], barriers=r["barriers"], wall_s=r["wall_s"],
+        events_per_s=r["bids"] / r["wall_s"],
+        barrier_p50_s=coord.barrier_latency_percentile(0.5),
+        barrier_max_s=coord.barrier_latency_percentile(1.0),
+        mv_rows=len(r["mv"]), join_errs=errs,
+        join_live_rows=[int(s_.n) for s_ in join.sides],
+        match_slots=slots,
+        match_buffer_bytes=[m * slot_bytes for m in slots],
+        join_scratch_bytes=[sum(t.numel() * t.element_size()
+                                for t in b._t.values())
+                            for b in join._bufs],
+        mem_peak_bytes=r["mem_peak_bytes"])
+
+
+def phase_q5c_full(dev, rounds: int = Q5C_ROUNDS, chunk: int = Q5C_CHUNK,
+                   agg_cap: int = 1 << 20) -> dict:
+    """The canonical q5 through Session(device="cuda") into an MV, 8
+    chunks of 131072 bids a barrier, `rounds` barriers: every q5c
+    kernel launched, the join's errs [0, 0, 0], no agg overflow, the
+    two COUNT aggs never past 0.7 of their 2^20 slots (no growth), the
+    MV equal to the numpy recount; events/s, barrier p50/max, peak
+    memory, the join's match buffers."""
+    on_card = torch.device(dev).type == "cuda"
+    held = {}
+    r = session_run(dev, q5c_ddl(chunk, agg_cap=agg_cap), rounds,
+                    8 * chunk, name="q5c",
+                    on_flow=lambda s, dep: held.update(
+                        aggs=dep.executors(HashAggExecutor)))
+    missing = [k for k in Q5C_KERNELS if r["launches"][k] == 0]
+    if missing and on_card:
+        raise AssertionError(f"kernels never launched on q5c: {missing}")
+    overflow = [a.overflow() for a in held["aggs"]]
+    if any(overflow) or any(a.rebuilds for a in held["aggs"]):
+        raise AssertionError(f"q5c: agg overflow {overflow}")
+    rc = Q5cRecount(dev, NexmarkConfig(inter_event_us=2))
+    t0 = time.perf_counter()
+    rc.advance(r["bids"])
+    recount_s = time.perf_counter() - t0
+    out = q5c_summary(r, rc.rows(), agg_cap)
+    groups = len(rc.counts)
+    if groups > 0.7 * agg_cap:
+        raise AssertionError(f"q5c: {groups} groups would grow the agg")
+    out.update(live_groups_per_count_agg=groups, recount_s=recount_s,
+               agg_overflow=overflow, launches=r["launches"])
+    return out
+
+
+def phase_q5c_profile(dev, full: dict, rounds: int = 4) -> dict:
+    """The device's idle share on the canonical q5: a short fresh run
+    under torch.profiler against q5c_full's unprofiled wall per
+    barrier."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        r = session_run(dev, q5c_ddl(), rounds, Q5C_PER_BARRIER, name="q5c")
+        torch.cuda.synchronize()
+    kev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name: dict = {}
+    for e in kev:
+        t, c = by_name.get(e.name[:60], (0.0, 0))
+        by_name[e.name[:60]] = (t + e.time_range.elapsed_us(), c + 1)
+    busy = sum(t for t, _ in by_name.values()) / 1e6 / rounds
+    wall = full["wall_s"] / full["barriers"]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:16]
+    return dict(rounds=rounds, wall_s=r["wall_s"],
+                device_busy_per_barrier_s=busy,
+                unprofiled_wall_per_barrier_s=wall,
+                device_idle_share=(1 - busy / wall) if kev else None,
+                top_kernels=[{"name": nm, "ms": t / 1e3, "count": c}
+                             for nm, (t, c) in top])
+
+
+def phase_q5c_check(dev, rounds: int = 16, chunk: int = Q5C_CHUNK,
+                    agg_cap: int = 1 << 20) -> dict:
+    """The canonical q5 as an MV, one `chunk`-bid chunk a barrier: after
+    every barrier the MV equals the numpy recount of the bids emitted
+    before it."""
+    rc = Q5cRecount(dev, NexmarkConfig(inter_event_us=2))
+    checked = []
+
+    def on_barrier(k, s, rows):
+        rc.advance(rows["bid"])
+        got = _q5c_mv(mv_rows_now(s, "q5c"))
+        want = rc.rows()
+        if got != want:
+            raise AssertionError(
+                f"q5c_check: barrier {k}: MV ({sum(got.values())} rows) != "
+                f"recount ({sum(want.values())})")
+        checked.append(k)
+
+    r = session_run(dev, q5c_ddl(chunk, agg_cap=agg_cap), rounds, chunk,
+                    name="q5c", on_barrier=on_barrier)
+    if len(checked) < rounds - 1 or r["join"].errs() != [0, 0, 0]:
+        raise AssertionError(f"q5c_check: {len(checked)} barriers checked, "
+                             f"join errs {r['join'].errs()}")
+    return dict(barriers_checked=len(checked), mv_rows=len(r["mv"]),
+                bids=r["bids"])
+
+
+def phase_q5c_recover(dev, r1: int = 8, r2: int = 8, chunk: int = Q5C_CHUNK,
+                      agg_cap: int = 1 << 20) -> dict:
+    """The canonical q5 as a durable MV on a Hummock store over a
+    local-fs object store, one `chunk`-bid chunk a barrier: r1 barriers,
+    crash(), HummockStateStore.open, a new Session, recover(), on to r1
+    + r2 barriers: the MV equals the numpy recount, as an uninterrupted
+    run's."""
+    ddl = q5c_ddl(chunk, durable_=1, agg_cap=agg_cap)
+    with tempfile.TemporaryDirectory(prefix="q5cr_") as d:
+        a = session_run(dev, ddl, r1, chunk, name="q5c", crash=True,
+                        store=HummockStateStore(LocalFsObjectStore(d)))
+        b = session_run(dev, ddl, 0, chunk, name="q5c",
+                        recover_to=r1 + r2, store=lambda: HummockStateStore
+                        .open(LocalFsObjectStore(d)))
+    if b["bids"] != (r1 + r2) * chunk:
+        raise AssertionError(f"q5c_recover: {b['bids']} bids")
+    rc = Q5cRecount(dev, NexmarkConfig(inter_event_us=2))
+    rc.advance(b["bids"])
+    got, want = _q5c_mv(b["mv"]), rc.rows()
+    if got != want or not want or b["join"].errs() != [0, 0, 0]:
+        raise AssertionError(f"q5c_recover: recovered MV ({len(b['mv'])} "
+                             f"rows) != recount ({sum(want.values())}), "
+                             f"join errs {b['join'].errs()}")
+    return dict(barriers_before_crash=r1, barriers_after_recovery=b[
+        "barriers"], recovered_base=b["base"],
+        recovery_ms=b["recovery_s"] * 1e3, mv_rows=len(b["mv"]),
+        persist_rows_before_crash=a["persist_rows"],
+        wall_s_before_crash=a["wall_s"], wall_s_after=b["wall_s"],
+        launches=b["launches"])
+
+
+def phase_q5_sql(dev, per_chunks: int = 8, rounds: int = 6,
+                 ddl=Q5_SQL_DDL, chunk: int = Q5C_CHUNK,
+                 cap: int = 1 << 20) -> dict:
+    """bench.py's _q5_ddl() verbatim through Session(device="cuda")
+    beside the hand-wired q5 (build_q5) at the same geometry: the live
+    groups of the two aggs are equal."""
+    per = per_chunks * chunk
+    r = session_run(dev, ddl, rounds, per, name="q5")
+    got = live_groups(r["agg"])
+    q5 = build_q5(dev, chunk, cap, 2, per, materialize=False)
+    asyncio.run(drive_paced(q5, per, rounds))
+    want = live_groups(q5["agg"])
+    if got != want or not got or r["bids"] != q5["gen"].offset:
+        raise AssertionError(f"q5_sql: {len(got)} groups vs the hand "
+                             f"wiring's {len(want)}")
+    return dict(bids=r["bids"], live_groups=len(got),
+                cleaned_below=r["agg"].cleaned_below, wall_s=r["wall_s"],
+                bids_per_s=r["bids"] / r["wall_s"], launches=r["launches"])
+
+
 def main(argv) -> int:
     unknown = [a for a in argv if a != "--host-profile"]
     if unknown:
@@ -5211,8 +5869,17 @@ def main(argv) -> int:
     emit({"phase": "global_agg", "nvidia_smi": smi, **gagg})
     emit({"phase": "q6_recover", "nvidia_smi": smi,
           **phase_q6_recover(dev)})
+    res.update(phase_kernels_extrema(dev))
+    q5c = phase_q5c_full(dev)
+    emit({"phase": "q5c_full", "nvidia_smi": smi, **q5c})
+    emit({"phase": "q5c_profile", "nvidia_smi": smi,
+          **phase_q5c_profile(dev, q5c)})
+    emit({"phase": "q5c_check", "nvidia_smi": smi, **phase_q5c_check(dev)})
+    emit({"phase": "q5c_recover", "nvidia_smi": smi,
+          **phase_q5c_recover(dev)})
+    emit({"phase": "q5_sql", "nvidia_smi": smi, **phase_q5_sql(dev)})
     paths = {"q5": q5, "q7": q7, "q8": q8, "q17": q17, "q7d": q7d,
-             "q5t": q5t, "q2": q2, "q6": q6, "gagg": gagg}
+             "q5t": q5t, "q2": q2, "q6": q6, "gagg": gagg, "q5c": q5c}
     rows = []
     for name, k in kernels.KERNELS.items():
         r = res[name]

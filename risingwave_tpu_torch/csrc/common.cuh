@@ -42,6 +42,36 @@ __device__ __forceinline__ void rw_store_key(void* col, int width,
   }
 }
 
+// Floats as XLA's CPU programs compare and sort them: a value below its
+// type's smallest normal counts as zero. The smallest normal float64 and
+// float32:
+#define RW_TINY_F64 2.2250738585072014e-308
+#define RW_TINY_F32 1.1754943508222875e-38
+
+// x as that compare sees it (subnormals flushed to zero).
+__device__ __forceinline__ double rw_daz(double x,
+                                         double tiny = RW_TINY_F64) {
+  return fabs(x) < tiny ? 0.0 : x;
+}
+
+// `x == y` as XLA computes it on the CPU: NaN equals nothing, zeros and
+// subnormals (below `tiny`, the smallest normal of the values' type) are
+// all equal.
+__device__ __forceinline__ bool rw_float_eq(double x, double y,
+                                            double tiny = RW_TINY_F64) {
+  return rw_daz(x, tiny) == rw_daz(y, tiny);
+}
+
+// A float64 as an int64 that orders as jnp.argsort orders floats on the
+// CPU: zeros and subnormals equal (0), NaNs last and equal.
+__device__ __forceinline__ i64 rw_float_key(double x) {
+  const i64 top = 0x7fffffffffffffffLL;
+  if (x != x) return top;
+  if (fabs(x) < RW_TINY_F64) return 0;
+  const i64 b = __double_as_longlong(x);
+  return b >= 0 ? b : (b ^ top);
+}
+
 static inline int rw_blocks(long long n, int threads) {
   return static_cast<int>((n + threads - 1) / threads);
 }

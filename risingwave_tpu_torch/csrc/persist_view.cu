@@ -4,9 +4,11 @@
 //
 // Replaces risingwave_tpu/stream/hash_agg.py:891 _persist_view_impl,
 // with _durable_cols_at (906), and :358 _evict_keys_impl.
-//   persist  mask = dirty; row = ops ++ vis ++ keys ++ one state per
-//            call ++ row_count, where ops = Insert (0) if row_count > 0
-//            else Delete (1) and vis = row_count > 0 or prev_exists;
+//   persist  mask = dirty; row = ops ++ vis ++ keys ++ per call its
+//            state, or for a retractable MIN/MAX its K values, K counts
+//            and lossy flag ++ row_count, where ops = Insert (0) if
+//            row_count > 0 else Delete (1) and vis = row_count > 0 or
+//            prev_exists;
 //   evict    mask = occupied and key[j] < watermark and row_count > 0;
 //            row = keys.
 // Row r of an entry lands at out[base + r * W] (W = its row width,
@@ -14,6 +16,11 @@
 // count goes to *count on the device. The evict entry's base may be read
 // from the device (the persist entry's count times its width), so both
 // views share one buffer and one host fetch.
+//
+// The persist columns come as column groups (pointer, element width,
+// lanes, stride): lane l of slot i is element i * stride + l, so a
+// retractable call's [C, K] buffers are read in place as K lanes each,
+// widened to int64 lanes (counts sign-extended, the flag as 0/1).
 //
 // What bounds it on the H100: bytes. It reads the mask inputs of every
 // slot and the columns of the selected ones, and writes the selected
@@ -44,8 +51,11 @@ struct View {
   const bool* prev_exists;
   const void* col[kMaxCols];       // keys, then states (persist)
   int width[kMaxCols];
+  int lanes[kMaxCols];
+  int stride[kMaxCols];
   int n_keys;
-  int n_cols;                      // columns gathered besides ops/vis/rc
+  int n_cols;                      // column groups besides ops/vis/rc
+  int n_lanes;                     // their lanes
 };
 
 __device__ __forceinline__ bool selected(const View& v, long long i) {
@@ -77,15 +87,19 @@ pv_scatter(View v, const int* __restrict__ sums, int nb,
     const long long r = static_cast<long long>(sums[blockIdx.x]) + incl - 1;
     const long long base = base_count ? *base_count * base_width : 0;
     if (v.mode == 0) {
-      const int w = 2 + v.n_cols + 1;
+      const int w = 2 + v.n_lanes + 1;
       i64* row = out + base + r * w;
       const bool exists = v.row_count[i] > 0;
       row[0] = exists ? 0 : 1;
       row[1] = (exists || v.prev_exists[i]) ? 1 : 0;
+      int at = 2;
       for (int c = 0; c < v.n_cols; ++c) {
-        row[2 + c] = rw_load_any(v.col[c], v.width[c], i);
+        const long long e = i * v.stride[c];
+        for (int l = 0; l < v.lanes[c]; ++l) {
+          row[at++] = rw_load_any(v.col[c], v.width[c], e + l);
+        }
       }
-      row[2 + v.n_cols] = v.row_count[i];
+      row[at] = v.row_count[i];
     } else {
       i64* row = out + base + r * v.n_keys;
       for (int c = 0; c < v.n_keys; ++c) {
@@ -115,12 +129,14 @@ extern "C" int rw_pv_sums(long long cap) {
   return rw_blocks(cap, kScanThreads) + 1;
 }
 
-// The persist view: columns = keys ++ one state per call (n_cols of
-// them, widths in bytes); rows of 2 + n_cols + 1 lanes.
+// The persist view: column groups = keys ++ per call its state or
+// buffers (n_cols of them: widths in bytes, lanes, strides in elements);
+// rows of 2 + (their lanes) + 1 lanes.
 extern "C" int rw_persist_view(long long cap, const bool* dirty,
                                const long long* row_count,
                                const bool* prev_exists, int n_cols,
                                void* const* cols, const int* widths,
+                               const int* lanes, const int* strides,
                                int* sums, long long* out, long long* count,
                                void* stream) {
   if (cap < 1 || n_cols < 1 || n_cols > kMaxCols) {
@@ -133,9 +149,16 @@ extern "C" int rw_persist_view(long long cap, const bool* dirty,
   v.row_count = row_count;
   v.prev_exists = prev_exists;
   v.n_cols = n_cols;
+  v.n_lanes = 0;
   for (int c = 0; c < n_cols; ++c) {
+    if (lanes[c] < 1 || strides[c] < lanes[c]) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
     v.col[c] = cols[c];
     v.width[c] = widths[c];
+    v.lanes[c] = lanes[c];
+    v.stride[c] = strides[c];
+    v.n_lanes += lanes[c];
   }
   return launch(v, sums, out, nullptr, 0, count, stream);
 }

@@ -59,20 +59,11 @@ struct RowCols {
   int n;
 };
 
-// A float64 as an int64 that orders as jnp.argsort orders floats on the
-// CPU: zeros and subnormals equal (0), NaNs last and equal.
-__device__ __forceinline__ i64 float_key(double x) {
-  if (x != x) return kMaxKey;
-  if (fabs(x) < 2.2250738585072014e-308) return 0;
-  const i64 b = __double_as_longlong(x);
-  return b >= 0 ? b : (b ^ kMaxKey);
-}
-
 __device__ __forceinline__ i64 order_key(const void* col, int type,
                                          bool desc, long long t) {
   if (type == RW_F64) {
     const double x = static_cast<const double*>(col)[t];
-    return float_key(desc ? -x : x);
+    return rw_float_key(desc ? -x : x);
   }
   const i64 v = static_cast<i64>(rw_lane_u64(col, type, t));
   return desc ? ~v : v;

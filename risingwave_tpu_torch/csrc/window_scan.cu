@@ -134,17 +134,12 @@ __device__ __forceinline__ double load_f(const void* col, int type,
   return static_cast<double>(load_i(col, type, i));
 }
 
-// a float64 as the reference's CPU compares it: subnormals as zero
-__device__ __forceinline__ double daz(double x) {
-  return fabs(x) < 2.2250738585072014e-308 ? 0.0 : x;
-}
-
 // raw inequality of elements a and b of one column (floats by value)
 __device__ __forceinline__ bool raw_ne(const void* col, int type,
                                        long long a, long long b) {
   if (type == RW_F64) {
     const double* d = static_cast<const double*>(col);
-    return daz(d[a]) != daz(d[b]);
+    return !rw_float_eq(d[a], d[b]);
   }
   return load_i(col, type, a) != load_i(col, type, b);
 }

@@ -9,13 +9,14 @@ reductions and hash-table scatter:
   emit(state) -> output value
 
 COUNT and SUM are retractable (a Delete row contributes with sign -1).
-MIN/MAX combine form is valid on append-only input only.
+The MIN/MAX combine form is valid on append-only input only; over a
+retracting input the hash agg keeps their materialized-input buffers
+(ops/extrema.py) and the spec gives their state dtype and identity.
 
 On the hash-agg path the per-chunk partial+combine is fused into kernel
 K4 (stream/hash_agg.py); these functions are its plain PyTorch version.
 
-Left out of this slice (ROADMAP Queue A): HLL_REG (approx_count_distinct)
-and the retractable MIN/MAX of ops/extrema.py.
+Left out of this slice (ROADMAP Queue A): HLL_REG (approx_count_distinct).
 """
 
 from __future__ import annotations
@@ -42,6 +43,12 @@ class AggCall:
     arg: Optional[int]          # input column index (None for count(*))
     ret_type: DataType
     append_only: bool = False   # input stream has no deletes
+
+    @property
+    def retractable(self) -> bool:
+        """MIN/MAX over a retracting input: kept as a buffer of the best
+        distinct values (ops/extrema.py), not as one value a group."""
+        return self.kind in (AggKind.MIN, AggKind.MAX) and not self.append_only
 
     def spec(self) -> "AggSpec":
         return make_spec(self)
@@ -96,7 +103,13 @@ class AggSpec:
         raise NotImplementedError(k)
 
     def emit(self, state) -> torch.Tensor:
-        return state.to(self.call.ret_type.torch_dtype)
+        out = state.to(self.call.ret_type.torch_dtype)
+        if out.dtype == torch.float32:
+            # the JAX package's CPU cast to float32 flushes subnormal
+            # results to a zero of their sign
+            out = torch.where(out.abs() < torch.finfo(out.dtype).tiny,
+                              out * 0, out)
+        return out
 
 
 def make_spec(call: AggCall) -> AggSpec:
@@ -108,9 +121,6 @@ def make_spec(call: AggCall) -> AggSpec:
             return AggSpec(call, torch.float64, 0.0)
         return AggSpec(call, torch.int64, 0)
     if k in (AggKind.MIN, AggKind.MAX):
-        if not call.append_only:
-            raise NotImplementedError(
-                "retractable MIN/MAX (materialized input) is not ported yet")
         if call.ret_type.is_float:
             ident = float("inf") if k is AggKind.MIN else float("-inf")
             return AggSpec(call, torch.float64, ident)

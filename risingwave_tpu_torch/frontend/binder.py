@@ -10,12 +10,16 @@ and executor arguments:
   FROM (subquery) alias  -> the inner query's plan, unmaterialized
   TUMBLE(...)            -> project fragment appending window_start and
                             window_end, with their watermark transforms
+  HOP(...)               -> hop_window fragment (one row per window; the
+                            watermark on window_start only, a source pk
+                            widened to (pk, window_start))
   GROUP BY keys, COUNT / SUM / MIN / MAX / AVG
                          -> pre-project (keys, then agg args), a
                             hash_agg fragment (hash dispatch on the keys,
                             one actor) with the first watermarked key as
                             its state-cleaning column, post-project (AVG
-                            = FLOAT64 SUM / COUNT there)
+                            = FLOAT64 SUM / COUNT there); MIN / MAX over
+                            a retracting input are retractable
   aggregates without GROUP BY
                          -> pre-project, a singleton simple_agg fragment,
                             post-project
@@ -44,7 +48,7 @@ and executor arguments:
 
 What the JAX planner also plans raises `BindError("... not ported yet
 (ROADMAP A9)")` here, never a different plan: NOW() dynamic filters,
-bool_and / bool_or / approx_count_distinct, HOP, MV-on-MV scans, the
+bool_and / bool_or / approx_count_distinct, MV-on-MV scans, the
 mesh top-N and the sharded over-window (`streaming_parallelism_devices`
 > 1), outer and temporal joins, non-integer join keys (hash join),
 parallelism > 1 and remote fragment placement.
@@ -231,23 +235,28 @@ class StreamPlanner:
                     RelInfo(None if pk_opt is None else (pk_opt,), ao,
                             wm))
         if isinstance(rel, ast.WindowRel):
-            if rel.kind != "tumble":
-                raise not_ported("HOP windows through SQL")
             src = self.catalog.source(rel.inner.name)
             scope = Scope.of(src.schema, None)
             i, t = scope.resolve(ast.ColRef(rel.time_col))
             src_node = Exchange(self.source_fragment(rel.inner.name))
-            exprs = [col(j, f.data_type) for j, f in enumerate(src.schema)]
-            exprs.append(call("tumble_start", col(i, t), lit(rel.size)))
-            exprs.append(call("tumble_end", col(i, t), lit(rel.size)))
-            names = list(src.schema.names) + ["window_start", "window_end"]
-            W = rel.size
-            node = Node("project", dict(
-                exprs=exprs, names=names,
-                watermark_transforms={
-                    i: [(len(names) - 2, TumbleStartTransform(W)),
-                        (len(names) - 1, TumbleEndTransform(W))]}),
-                inputs=(src_node,))
+            if rel.kind == "tumble":
+                exprs = [col(j, f.data_type)
+                         for j, f in enumerate(src.schema)]
+                exprs.append(call("tumble_start", col(i, t), lit(rel.size)))
+                exprs.append(call("tumble_end", col(i, t), lit(rel.size)))
+                names = list(src.schema.names) + ["window_start",
+                                                  "window_end"]
+                W = rel.size
+                node = Node("project", dict(
+                    exprs=exprs, names=names,
+                    watermark_transforms={
+                        i: [(len(names) - 2, TumbleStartTransform(W)),
+                            (len(names) - 1, TumbleEndTransform(W))]}),
+                    inputs=(src_node,))
+            else:
+                node = Node("hop_window", dict(
+                    time_col=i, slide_us=rel.slide, size_us=rel.size),
+                    inputs=(src_node,))
             f = self.graph.add(Fragment(self.fid(), node,
                                         dispatch="broadcast"))
             out_schema = Schema(tuple(
@@ -256,11 +265,18 @@ class StreamPlanner:
             wm = frozenset()
             if src.options.get("emit_watermarks"):
                 # tumble carries the event-time watermark onto both
-                # window columns
-                wm = frozenset({len(src.schema), len(src.schema) + 1})
-            # tumble is 1:1, so a declared source pk stays a stream key
+                # window columns; hop emits it on window_start only
+                wm = (frozenset({len(src.schema), len(src.schema) + 1})
+                      if rel.kind == "tumble"
+                      else frozenset({len(src.schema)}))
+            # tumble is 1:1, so a declared source pk stays a stream key;
+            # hop emits one row per window, so the key widens to (pk,
+            # window_start)
             pk_opt = src.options.get("primary_key")
-            sk = None if pk_opt is None else (pk_opt,)
+            sk = None
+            if pk_opt is not None:
+                sk = ((pk_opt,) if rel.kind == "tumble"
+                      else (pk_opt, len(src.schema)))
             return (f.fid, Scope.of(out_schema, rel.alias or rel.inner.name),
                     RelInfo(sk, True, wm))
         if isinstance(rel, ast.JoinRel):

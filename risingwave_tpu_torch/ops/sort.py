@@ -32,6 +32,27 @@ K_SORT = kernels.register(kernels.CudaKernel(
 
 # the kernel packs counts into 30 bits
 MAX_KEYS = 1 << 30
+INT64_MAX = (1 << 63) - 1
+
+
+def float_key_plain(x: torch.Tensor) -> torch.Tensor:
+    """float64 -> int64 ordered as jnp.argsort orders floats on the CPU:
+    zeros and subnormals equal (0), every NaN last and equal."""
+    x = x.to(torch.float64)
+    b = x.view(torch.int64)
+    k = torch.where(b >= 0, b, b ^ INT64_MAX)
+    k = torch.where(x.abs() < 2.2250738585072014e-308, 0, k)
+    return torch.where(torch.isnan(x), INT64_MAX, k)
+
+
+def order_key_plain(c: torch.Tensor, desc: bool) -> torch.Tensor:
+    """One order column as an int64 sort key: integers as they are, DESC
+    by bitwise complement; floats by `float_key_plain`, DESC negated
+    first."""
+    if c.is_floating_point():
+        return float_key_plain(-c if desc else c)
+    v = c.to(torch.int64)
+    return ~v if desc else v
 
 
 def stable_sort_plain(keys: torch.Tensor,

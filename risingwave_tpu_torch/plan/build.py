@@ -18,7 +18,7 @@ hash dispatch, vnode bitmaps, merge executors), remote and cluster
 placement (`build_partial_graph`, `cluster_remote_edges`,
 `_infer_fragment_schema`), per-fragment rebuild and channel replay,
 mesh-chain fusion, memory and stats registration, and the builders of
-node kinds the port cannot plan yet (hop_window, the stateless simple
+node kinds the port cannot plan yet (the stateless simple
 and the other aggregates, dynamic filters, joins other than sorted, the
 group and sharded top-Ns, the sharded over-window, stream_scan, dedup);
 durable snapshot join-agg state; sinks other than `blackhole_device`;
@@ -33,12 +33,14 @@ from typing import Callable, Optional, Sequence
 
 from ..common.types import DataType, Field as SchemaField, Schema
 from ..meta.barrier_manager import BarrierCoordinator
+from ..ops.extrema import extrema_row_layout
 from ..state.state_table import StateTable
 from ..state.store import StateStore
 from ..stream import (
     Actor, BroadcastDispatcher, Channel, ChannelInput,
     DeviceBlackholeSinkExecutor, EowcOverWindowExecutor, FilterExecutor,
-    GeneralOverWindowExecutor, HashAggExecutor, MaterializeExecutor,
+    GeneralOverWindowExecutor, HashAggExecutor, HopWindowExecutor,
+    MaterializeExecutor,
     NoOpExecutor, ProjectExecutor, RetractableTopNExecutor,
     RowIdGenExecutor, SimpleAggExecutor, SimpleDispatcher,
     SnapshotJoinAggExecutor, SortedJoinExecutor, SourceExecutor,
@@ -310,13 +312,27 @@ def _build_no_op(args, inputs, ctx, key):
     return NoOpExecutor(inputs[0])
 
 
-def _agg_state_schema(in_schema: Schema, group_key_indices,
-                      agg_calls) -> Schema:
-    """Durable agg row: keys ++ one state per call ++ row count (the
-    JAX package's layout for non-retractable calls)."""
+@register_builder("hop_window")
+def _build_hop(args, inputs, ctx, key):
+    return HopWindowExecutor(inputs[0], time_col=args["time_col"],
+                             window_slide_us=args["slide_us"],
+                             window_size_us=args["size_us"],
+                             output_indices=args.get("output_indices"))
+
+
+def _agg_state_schema(in_schema: Schema, group_key_indices, agg_calls,
+                      minput_k: int) -> Schema:
+    """Durable agg row: keys ++ per call its state, or for a retractable
+    MIN/MAX its top-K value buffer (K values, K counts, the lossy flag)
+    ++ row count (the JAX package's layout)."""
     fields = [in_schema[i] for i in group_key_indices]
-    fields += [SchemaField(f"state{j}", c.ret_type)
-               for j, c in enumerate(agg_calls)]
+    for j, c in enumerate(agg_calls):
+        if c.retractable:
+            for part, names in enumerate(extrema_row_layout(j, minput_k)):
+                dt = c.ret_type if part == 0 else DataType.INT64
+                fields += [SchemaField(n, dt) for n in names]
+        else:
+            fields.append(SchemaField(f"state{j}", c.ret_type))
     fields.append(SchemaField("_row_count", DataType.INT64))
     return Schema(tuple(fields))
 
@@ -324,11 +340,13 @@ def _agg_state_schema(in_schema: Schema, group_key_indices,
 @register_builder("hash_agg")
 def _build_hash_agg(args, inputs, ctx: ActorCtx, key):
     st = None
+    minput_k = args.get("minput_k", 32)
     if args.get("durable"):
         gk = tuple(args["group_key_indices"])
         st = ctx.env.state_table(
             ctx.table_id(key),
-            _agg_state_schema(inputs[0].schema, gk, args["agg_calls"]),
+            _agg_state_schema(inputs[0].schema, gk, args["agg_calls"],
+                              minput_k),
             tuple(range(len(gk))))
     return HashAggExecutor(
         inputs[0], args["group_key_indices"], args["agg_calls"],
@@ -336,7 +354,7 @@ def _build_hash_agg(args, inputs, ctx: ActorCtx, key):
         group_key_names=args.get("group_key_names"),
         cleaning_watermark_col=args.get("cleaning_watermark_col"),
         watchdog_interval=args.get("watchdog_interval", 1),
-        device=ctx.env.device)
+        minput_k=minput_k, device=ctx.env.device)
 
 
 @register_builder("sorted_join")
@@ -584,6 +602,13 @@ def infer_fragment_schemas(graph: StreamGraph,
         if k in ("filter", "no_op", "retract_top_n", "materialize",
                  "sink"):
             return ins[0]
+        if k == "hop_window":
+            fields = tuple(ins[0]) + (
+                SchemaField("window_start", DataType.TIMESTAMP),
+                SchemaField("window_end", DataType.TIMESTAMP))
+            oi = a.get("output_indices")
+            return Schema(fields if oi is None
+                          else tuple(fields[i] for i in oi))
         if k == "hash_agg":
             gk = list(a["group_key_indices"])
             names = list(a.get("group_key_names")

@@ -1,39 +1,45 @@
 """HashAgg executor — grouped streaming aggregation with device state
-(port of risingwave_tpu/stream/hash_agg.py, volatile non-retractable
-path).
+(port of risingwave_tpu/stream/hash_agg.py).
 
 The group map is a `HashTable` on the device plus parallel state tensors
-[C] (one per agg call), a row count and dirty bits. Applying a chunk is
-kernel K3 (slot per row, `ops/hash_table.py`) followed by kernel K4
-(`csrc/hash_agg.cu`): signed counts into row_count and each call's
-state, dirty bits, and the overflow accumulator, all on the device. At a
-barrier the flush compacts the dirty slots and lays out UpdateDelete /
-UpdateInsert pairs (Insert for born groups, Delete for died ones), as the
-reference's changelog contract says. The flush, watermark eviction and
-rehash are plain PyTorch around K12 for now (ROADMAP Queue B8).
+(one per agg call), a row count and dirty bits. A linear call (COUNT,
+SUM, MIN/MAX over append-only input) keeps one value per group; a MIN or
+MAX over retracting input keeps a buffer of its group's K best distinct
+values with their counts and a lossy flag (`ops/extrema.py`, the
+reference's materialized-input state). Applying a chunk is kernel K3
+(slot per row, `ops/hash_table.py`), kernel K4 (`csrc/hash_agg.cu`:
+signed counts into row_count and each linear call's state, dirty bits,
+the overflow accumulator), then kernel K26 (`csrc/extrema_update.cu`)
+per retractable call on the same slots, its errors added to the
+overflow accumulator; all on the device. At a barrier kernel K12
+compacts the dirty slots and kernel K27 (`csrc/agg_flush.cu`) lays out
+UpdateDelete / UpdateInsert pairs (Insert for born groups, Delete for
+died ones), as the reference's changelog contract says. Watermark
+eviction and rehash are plain PyTorch around K3 and K12 for now (ROADMAP
+Queue B8).
 
-Durable state (a state table of keys ++ one state per call ++
-row_count): at each barrier, BEFORE the flush resets the dirty bits,
-kernel K18 (`csrc/persist_view.cu`) compacts the dirty groups' rows
-(and the keys of groups the cleaning watermark evicts) into one packed
-int64 buffer; the counts and then the rows are fetched through the
-store's deferred-flush stages, so with a pipelined checkpoint the
-fetch and the state-table write run behind the stream. Recovery at the
-first barrier re-inserts the stored groups through K3 and scatters
-their states.
+Durable state (a state table of keys ++ per call its state, or for a
+retractable call its K values, K counts and lossy flag ++ row_count): at
+each barrier, BEFORE the flush resets the dirty bits, kernel K18
+(`csrc/persist_view.cu`) compacts the dirty groups' rows (and the keys
+of groups the cleaning watermark evicts) into one packed int64 buffer;
+the counts and then the rows are fetched through the store's
+deferred-flush stages, so with a pipelined checkpoint the fetch and the
+state-table write run behind the stream. Recovery at the first barrier
+re-inserts the stored groups through K3 and scatters their states.
 
 State updates happen in place where the JAX package donated the state
 buffers to its jitted programs.
 
 Left out of this slice (ROADMAP Queue A): the memory manager (LRU
-stamps, spill, reload), retractable MIN/MAX (a durable retractable call
-raises with them), and the batched interval scan (`_make_apply_scan`).
+stamps, spill, reload) and the batched interval scan
+(`_make_apply_scan`).
 """
 
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional, Sequence
 
 import numpy as np
@@ -47,6 +53,11 @@ from ..common.types import Field, Schema
 from ..device import resolve_device
 from ..expr.agg import AggCall, AggKind, AggSpec
 from ..ops import kernels
+from ..ops.extrema import (
+    extrema_apply, extrema_emit, extrema_empty, extrema_gather,
+    extrema_mask_keep, extrema_row_layout, values_equal,
+)
+from ..ops import hash_table as ht
 from ..ops.hash_table import (
     HashTable, compact_mask, compact_mask_plain, lookup_or_insert,
     needs_rebuild,
@@ -62,7 +73,9 @@ class AggState:
     """Device state of one HashAgg instance (all tensors share capacity C)."""
 
     table: HashTable
-    agg_states: tuple[torch.Tensor, ...]  # one [C] per agg call
+    # per agg call: a [C] state, or for a retractable MIN/MAX its
+    # (vals [C, K], cnts [C, K], lossy [C]) buffers
+    agg_states: tuple
     row_count: torch.Tensor               # int64 [C] — group liveness
     dirty: torch.Tensor                   # bool [C] — touched since flush
     prev_exists: torch.Tensor             # bool [C] — group was in output
@@ -182,21 +195,43 @@ K_PERSIST = kernels.register(kernels.CudaKernel(
     "persist_view",
     replaces="risingwave_tpu/stream/hash_agg.py:891",
     functions={
-        "rw_persist_view": [_L, _P, _P, _P, _I, _PP, _PI, _P, _P, _P, _P],
+        "rw_persist_view": [_L, _P, _P, _P, _I, _PP, _PI, _PI, _PI, _P, _P,
+                            _P, _P],
         "rw_evict_keys": [_L, _P, _P, _I, _PP, _PI, _I, _L, _P, _P, _P,
                           _I, _P, _P],
         "rw_pv_sums": [_L]}))
 
 
-def _np_dtype(t: torch.Tensor) -> np.dtype:
-    return torch.empty(0, dtype=t.dtype).numpy().dtype
+def _np_dtype(dt: torch.dtype) -> np.dtype:
+    return torch.empty(0, dtype=dt).numpy().dtype
+
+
+def call_parts(st) -> list:
+    """One call's state in the durable agg row, as (tensor, lanes) in the
+    row's order: a [C] state is one lane; a retractable call's buffers
+    come in `extrema_row_layout`'s order and widths."""
+    if not isinstance(st, tuple):
+        return [(st, 1)]
+    layout = extrema_row_layout(0, st[0].shape[1])
+    return [(t, len(names)) for t, names in zip(st, layout)]
+
+
+def _durable_dtype(t: torch.Tensor) -> torch.dtype:
+    """A state part's column type in the durable row: floats as they are,
+    integers and flags widened to int64."""
+    return t.dtype if t.is_floating_point() else torch.int64
 
 
 def durable_cols_at(state: AggState, sel: torch.Tensor) -> list:
-    """Durable-row columns (keys ++ one state per call ++ row_count)
-    gathered at `sel`."""
-    return ([tk[sel] for tk in state.table.keys]
-            + [st[sel] for st in state.agg_states] + [state.row_count[sel]])
+    """Durable-row columns gathered at `sel`: keys ++ each call's parts,
+    lane by lane (`call_parts`) ++ row_count."""
+    cols = [tk[sel] for tk in state.table.keys]
+    for st in state.agg_states:
+        for t, lanes in call_parts(st):
+            dt = _durable_dtype(t)
+            cols += ([t[sel].to(dt)] if t.dim() == 1
+                     else [t[sel, k].to(dt) for k in range(lanes)])
+    return cols + [state.row_count[sel]]
 
 
 def persist_view_plain(state: AggState):
@@ -229,8 +264,8 @@ def evict_keys_plain(state: AggState, j: int, watermark: int):
 def persist_pack_plain(state: AggState, j: Optional[int],
                        watermark: Optional[int]):
     """The plain versions in K18's output layout: (buffer, counts). The
-    buffer holds n_dirty persist rows of 2 + nk + calls + 1 lanes (ops,
-    vis, columns), then n_evict rows of the nk key lanes; counts =
+    buffer holds n_dirty persist rows of 2 + (durable columns) lanes
+    (ops, vis, columns), then n_evict rows of the nk key lanes; counts =
     [n_dirty, n_evict] on the device. Entries past them are 0."""
     C = state.table.capacity
     nk = len(state.table.keys)
@@ -251,6 +286,17 @@ def persist_pack_plain(state: AggState, j: Optional[int],
     return buf[:trash], torch.stack([nd, nev])
 
 
+def _column_groups(state: AggState) -> list:
+    """The durable columns as K18's column groups: (tensor, lanes,
+    stride), lane l of slot i at element i * stride + l. A [C] tensor is
+    one lane; a retractable call's [C, K] values and counts are K lanes
+    each, read in place."""
+    groups = [(k, 1, 1) for k in state.table.keys]
+    for st in state.agg_states:
+        groups += [(t, lanes, lanes) for t, lanes in call_parts(st)]
+    return groups
+
+
 def persist_pack(state: AggState, j: Optional[int],
                  watermark: Optional[int]):
     """Kernel K18 on a CUDA device (the persist entry, then the evict
@@ -264,39 +310,170 @@ def persist_pack(state: AggState, j: Optional[int],
         raise ValueError(f"unsupported device {dev}")
     C = state.table.capacity
     keys = list(state.table.keys)
-    cols = keys + list(state.agg_states)
+    groups = _column_groups(state)
     nk = len(keys)
-    if len(cols) > MAX_PERSIST_COLS:
-        raise ValueError(f"K18 persists at most {MAX_PERSIST_COLS} columns")
-    for c in cols:
-        if c.dim() != 1 or c.shape[0] != C or not c.is_contiguous() \
-                or c.dtype == torch.float32:
-            raise ValueError("K18 gathers contiguous [C] columns of integer, "
-                             "bool or float64 state")
-    wp = 2 + len(cols) + 1
+    if len(groups) > MAX_PERSIST_COLS:
+        raise ValueError(f"K18 persists at most {MAX_PERSIST_COLS} column "
+                         f"groups")
+    for t, lanes, _ in groups:
+        if t.shape[0] != C or t.numel() != C * lanes \
+                or not t.is_contiguous() or t.dtype == torch.float32:
+            raise ValueError("K18 gathers contiguous [C] or [C, K] columns "
+                             "of integer, bool or float64 state")
+    wp = 2 + sum(lanes for _, lanes, _ in groups) + 1
     i64 = dict(dtype=torch.int64, device=dev)
     buf = torch.empty(C * wp + C * nk, **i64)
     counts = torch.zeros(2, **i64)
     sums = torch.empty(K_PERSIST.lib().rw_pv_sums(C), dtype=torch.int32,
                        device=dev)
     stream = kernels.stream_of(state.row_count)
-    widths = kernels.int_array(c.element_size() for c in cols)
+    key_widths = kernels.int_array(k.element_size() for k in keys)
     K_PERSIST.launches += 1
     K_PERSIST.call("rw_persist_view", C, kernels.ptr(state.dirty),
                    kernels.ptr(state.row_count),
-                   kernels.ptr(state.prev_exists), len(cols),
-                   kernels.ptr_array(cols), widths, kernels.ptr(sums),
-                   kernels.ptr(buf), kernels.ptr(counts[0:1]), stream)
+                   kernels.ptr(state.prev_exists), len(groups),
+                   kernels.ptr_array(t for t, _, _ in groups),
+                   kernels.int_array(t.element_size() for t, _, _ in groups),
+                   kernels.int_array(lanes for _, lanes, _ in groups),
+                   kernels.int_array(stride for _, _, stride in groups),
+                   kernels.ptr(sums), kernels.ptr(buf),
+                   kernels.ptr(counts[0:1]), stream)
     if j is not None:
         sums2 = torch.empty_like(sums)
         K_PERSIST.launches += 1
         K_PERSIST.call("rw_evict_keys", C, kernels.ptr(state.table.occupied),
                        kernels.ptr(state.row_count), nk,
-                       kernels.ptr_array(keys), widths, j, int(watermark),
+                       kernels.ptr_array(keys), key_widths, j, int(watermark),
                        kernels.ptr(sums2), kernels.ptr(buf),
                        kernels.ptr(counts[0:1]), wp,
                        kernels.ptr(counts[1:2]), stream)
     return buf, counts
+
+
+# ---------------------------------------------------------------- K27
+# Replaces stream/hash_agg.py:_flush_impl (300) with
+# ops/extrema.py:extrema_emit (156).
+K_FLUSH = kernels.register(kernels.CudaKernel(
+    "agg_flush",
+    replaces="risingwave_tpu/stream/hash_agg.py:300",
+    functions={"rw_agg_flush": [
+        _L, _P, _P, _P, _P, _P, _I, _PP, _PI, _PP, _I, _PI, _PP, _PP, _PI,
+        _PI, ctypes.POINTER(_L), _PI, _PP, _PP, _P, _P, _P]}))
+
+_RET_CODES = {torch.int32: 1, torch.int64: 2, torch.float32: 3,
+              torch.float64: 4}
+
+
+def call_emit(spec: AggSpec, st) -> torch.Tensor:
+    """A call's emitted value per slot, in its output type: the state of
+    a linear call, the buffer head (or the identity) of a retractable
+    one."""
+    if isinstance(st, tuple):
+        st = extrema_emit(st, spec.init, spec.state_dtype)
+    return spec.emit(st)
+
+
+def agg_flush_plain(state: AggState, specs: Sequence[AggSpec]):
+    """Plain PyTorch version of K12 then kernel K27: the barrier diff as
+    one chunk of 2C rows, dirty rank j at rows 2j (old values) and 2j + 1
+    (new), the rows past the dirty ranks invisible zeros; then the dirty
+    slots' prev_exists and prev_emit refreshed and their dirty bits
+    cleared, in place. Returns (cols, ops, vis)."""
+    C = state.table.capacity
+    dev = state.row_count.device
+    d_slot, n_dirty = compact_mask_plain(state.dirty)
+    is_dirty = torch.arange(C, device=dev) < n_dirty
+    existed = state.prev_exists[d_slot]
+    exists = (state.row_count > 0)[d_slot]
+    cur = [call_emit(sp, st)[d_slot]
+           for sp, st in zip(specs, state.agg_states)]
+    old = [pe[d_slot] for pe in state.prev_emit]
+    # no-change skip (reference agg_group.rs build_change -> NoChange)
+    unchanged = existed & exists
+    for c, o in zip(cur, old):
+        unchanged &= values_equal(c, o)
+    zero = torch.zeros((), dtype=torch.bool, device=dev)
+
+    def interleave(a, b):
+        a = torch.where(is_dirty, a, zero.to(a.dtype))
+        b = torch.where(is_dirty, b, zero.to(b.dtype))
+        return torch.stack([a, b], dim=1).reshape(2 * C)
+
+    ops_old = torch.where(is_dirty & exists, OP_UPDATE_DELETE, OP_DELETE)
+    ops_new = torch.where(is_dirty & existed, OP_UPDATE_INSERT, OP_INSERT)
+    out_ops = torch.stack([ops_old, ops_new], dim=1).reshape(2 * C).to(
+        torch.int8)
+    out_vis = interleave(existed & ~unchanged, exists & ~unchanged)
+    out_cols = [interleave(tk[d_slot], tk[d_slot])
+                for tk in state.table.keys]
+    out_cols += [interleave(o, c) for o, c in zip(old, cur)]
+    # refresh the dirty slots through a trash row C
+    tgt = torch.where(is_dirty, d_slot, C)
+
+    def refresh(dst, src):
+        pad = torch.cat([dst, dst[:1]])
+        pad[tgt] = src
+        dst.copy_(pad[:C])
+
+    refresh(state.prev_exists, exists)
+    for pe, c in zip(state.prev_emit, cur):
+        refresh(pe, c)
+    refresh(state.dirty, torch.zeros_like(exists))
+    return tuple(out_cols), out_ops, out_vis
+
+
+def agg_flush(state: AggState, specs: Sequence[AggSpec]):
+    """K12 then kernel K27 on a CUDA device, the plain version on the
+    CPU. Same contract as `agg_flush_plain`."""
+    dev = state.row_count.device
+    if dev.type == "cpu":
+        return agg_flush_plain(state, specs)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    C = state.table.capacity
+    keys = state.table.keys
+    if len(specs) > MAX_CALLS or len(keys) > ht.MAX_KEY_COLUMNS:
+        raise ValueError(f"K27 takes at most {MAX_CALLS} calls and "
+                         f"{ht.MAX_KEY_COLUMNS} keys")
+    kinds, states, cnts, ks, floats, inits, rets, outs = \
+        [], [], [], [], [], [], [], []
+    for sp, st, pe in zip(specs, state.agg_states, state.prev_emit):
+        ext = isinstance(st, tuple)
+        v = st[0] if ext else st
+        if v.dtype not in (torch.int64, torch.float64) \
+                or pe.dtype not in _RET_CODES or pe.shape != (C,) \
+                or (v.dtype == torch.float64) != pe.is_floating_point():
+            raise ValueError("K27 takes int64 state to an int32 or int64 "
+                             "output, float64 state to a float output")
+        kinds.append(int(ext))
+        states.append(v)
+        cnts.append(st[1] if ext else None)
+        ks.append(v.shape[1] if ext else 0)
+        floats.append(int(v.dtype == torch.float64))
+        init = torch.tensor(sp.init, dtype=v.dtype)
+        inits.append(int(init.view(torch.int64)))
+        rets.append(_RET_CODES[pe.dtype])
+        outs.append(torch.empty(2 * C, dtype=pe.dtype, device=dev))
+    key_out = [torch.empty(2 * C, dtype=k.dtype, device=dev) for k in keys]
+    out_ops = torch.empty(2 * C, dtype=torch.int8, device=dev)
+    out_vis = torch.empty(2 * C, dtype=torch.bool, device=dev)
+    d_slot, n_dirty = compact_mask(state.dirty)
+    K_FLUSH.launches += 1
+    K_FLUSH.call("rw_agg_flush", C, kernels.ptr(d_slot),
+                 kernels.ptr(n_dirty), kernels.ptr(state.row_count),
+                 kernels.ptr(state.dirty), kernels.ptr(state.prev_exists),
+                 len(keys), kernels.ptr_array(keys),
+                 kernels.int_array(k.element_size() for k in keys),
+                 kernels.ptr_array(key_out), len(specs),
+                 kernels.int_array(kinds), kernels.ptr_array(states),
+                 kernels.ptr_array(cnts), kernels.int_array(ks),
+                 kernels.int_array(floats),
+                 (ctypes.c_longlong * max(1, len(inits)))(*inits),
+                 kernels.int_array(rets),
+                 kernels.ptr_array(state.prev_emit), kernels.ptr_array(outs),
+                 kernels.ptr(out_ops), kernels.ptr(out_vis),
+                 kernels.stream_of(state.row_count))
+    return tuple(key_out + outs), out_ops, out_vis
 
 
 class HashAggExecutor(Executor):
@@ -306,12 +483,18 @@ class HashAggExecutor(Executor):
                  group_key_names: Optional[Sequence[str]] = None,
                  cleaning_watermark_col: Optional[int] = None,
                  watchdog_interval: Optional[int] = 1,
-                 device="cuda"):
+                 minput_k: int = 32, device="cuda"):
         self.device = resolve_device(device)
         self.input = input
         self.group_key_indices = tuple(group_key_indices)
         self.agg_calls = tuple(agg_calls)
         self.specs = tuple(c.spec() for c in agg_calls)
+        # retractable MIN/MAX keep top-K value buffers (reference
+        # minput.rs); linear calls keep one value per group
+        self.minput_k = minput_k
+        self._retractable = tuple(c.retractable for c in agg_calls)
+        self._linear = tuple(j for j, r in enumerate(self._retractable)
+                             if not r)
         in_schema = input.schema
         gk_names = list(group_key_names or
                         [in_schema[i].name for i in self.group_key_indices])
@@ -359,11 +542,19 @@ class HashAggExecutor(Executor):
         return [self.state.table.keys[0]] + super().fence_tokens()
 
     # ------------------------------------------------------------ state
+    def _call_init_state(self, j: int, capacity: int):
+        spec = self.specs[j]
+        if self._retractable[j]:
+            return extrema_empty(capacity, self.minput_k, spec.state_dtype,
+                                 self.device)
+        return spec.init_state(capacity, self.device)
+
     def _empty_state(self, capacity: int) -> AggState:
         dev = self.device
         return AggState(
             table=HashTable.empty(capacity, self._key_dtypes, dev),
-            agg_states=tuple(s.init_state(capacity, dev) for s in self.specs),
+            agg_states=tuple(self._call_init_state(j, capacity)
+                             for j in range(len(self.specs))),
             row_count=torch.zeros(capacity, dtype=torch.int64, device=dev),
             dirty=torch.zeros(capacity, dtype=torch.bool, device=dev),
             prev_exists=torch.zeros(capacity, dtype=torch.bool, device=dev),
@@ -375,56 +566,25 @@ class HashAggExecutor(Executor):
 
     # ------------------------------------------------------- chunk apply
     def _apply_chunk(self, chunk: StreamChunk) -> None:
-        """K3 then K4; no host sync."""
+        """K3, K4 over the linear calls and the row count, then K26 per
+        retractable call; no host sync."""
+        st = self.state
         key_cols = [chunk.columns[i].data for i in self.group_key_indices]
         _, slots, n_unresolved = lookup_or_insert(
-            self.state.table, key_cols, chunk.vis)
-        agg_apply(self.state, self.specs, slots, chunk.ops,
-                  _call_inputs(self.agg_calls, chunk.columns),
-                  n_unresolved, self._overflow_dev)
+            st.table, key_cols, chunk.vis)
+        inputs = _call_inputs(self.agg_calls, chunk.columns)
+        lin = self._linear
+        agg_apply(replace(st, agg_states=tuple(st.agg_states[j] for j in lin)),
+                  [self.specs[j] for j in lin], slots, chunk.ops,
+                  [inputs[j] for j in lin], n_unresolved, self._overflow_dev)
+        for j, retractable in enumerate(self._retractable):
+            if retractable:
+                values, valid = inputs[j]
+                extrema_apply(st.agg_states[j], values, valid, chunk.ops,
+                              slots, st.row_count,
+                              self.agg_calls[j].kind is AggKind.MAX,
+                              self._overflow_dev)
         self._applied_since_flush = True
-
-    # ---------------------------------------------------------- flush
-    def _flush_impl(self, state: AggState):
-        """The barrier diff as one chunk of capacity 2*C with interleaved
-        UD/UI pairs: dirty slot with rank j lands at output rows 2j (old
-        value) and 2j+1 (new). Resets dirty and the emitted-value
-        snapshot in place."""
-        C = state.table.capacity
-        exists_now = state.row_count > 0
-        d_slot, n_dirty = compact_mask(state.dirty)
-        existed = state.prev_exists[d_slot]
-        exists = exists_now[d_slot]
-        is_dirty = torch.arange(C, device=d_slot.device) < n_dirty
-
-        # no-change skip: a group that existed before, still exists and
-        # whose outputs are unchanged produces no changelog rows
-        cur_emit = [spec.emit(st) for spec, st in
-                    zip(self.specs, state.agg_states)]
-        unchanged = existed & exists
-        for cur, pe in zip(cur_emit, state.prev_emit):
-            unchanged &= cur[d_slot] == pe[d_slot]
-
-        vis_old = is_dirty & existed & ~unchanged   # UD or Delete
-        vis_new = is_dirty & exists & ~unchanged    # UI or Insert
-        ops_old = torch.where(exists, OP_UPDATE_DELETE, OP_DELETE)
-        ops_new = torch.where(existed, OP_UPDATE_INSERT, OP_INSERT)
-
-        def interleave(a, b):
-            return torch.stack([a, b], dim=1).reshape(2 * C)
-
-        out_ops = interleave(ops_old, ops_new).to(torch.int8)
-        out_vis = interleave(vis_old, vis_new)
-        out_cols = [interleave(tk[d_slot], tk[d_slot])
-                    for tk in state.table.keys]
-        for cur, pe in zip(cur_emit, state.prev_emit):
-            out_cols.append(interleave(pe[d_slot], cur[d_slot]))
-
-        state.prev_exists.copy_(exists_now)
-        for cur, pe in zip(cur_emit, state.prev_emit):
-            pe.copy_(cur)
-        state.dirty.zero_()
-        return tuple(out_cols), out_ops, out_vis
 
     def _live_zombie(self, state: AggState):
         occ = state.table.occupied.sum(dtype=torch.int64)
@@ -437,7 +597,10 @@ class HashAggExecutor(Executor):
         j = self.cleaning_watermark_key
         evict = state.table.occupied & (state.table.keys[j] < watermark)
         for spec, st in zip(self.specs, state.agg_states):
-            st.masked_fill_(evict, spec.init)
+            if isinstance(st, tuple):
+                extrema_mask_keep(st, ~evict)
+            else:
+                st.masked_fill_(evict, spec.init)
         state.row_count.masked_fill_(evict, 0)
         state.dirty &= ~evict
         state.prev_exists &= ~evict
@@ -470,10 +633,17 @@ class HashAggExecutor(Executor):
             pad[tgt] = src[sel]
             return pad[:new_capacity]
 
+        def moved_call(j, dst, src):
+            if self._retractable[j]:
+                return extrema_gather(src, sel, tgt, new_capacity,
+                                      self.minput_k,
+                                      self.specs[j].state_dtype)
+            return moved(dst, src)
+
         return AggState(
             table=table,
-            agg_states=tuple(moved(e, o) for e, o in
-                             zip(fresh.agg_states, state.agg_states)),
+            agg_states=tuple(moved_call(j, e, o) for j, (e, o) in enumerate(
+                zip(fresh.agg_states, state.agg_states))),
             row_count=moved(fresh.row_count, state.row_count),
             dirty=moved(fresh.dirty, state.dirty),
             prev_exists=moved(fresh.prev_exists, state.prev_exists),
@@ -538,10 +708,12 @@ class HashAggExecutor(Executor):
             self._pending_clean_wm)
         counts_fetch = PendingFetch(counts)
         nk = len(self.state.table.keys)
-        key_dts = [_np_dtype(k) for k in self.state.table.keys]
-        row_dts = ([np.dtype(np.int8), np.dtype(bool)] + key_dts
-                   + [_np_dtype(a) for a in self.state.agg_states]
-                   + [np.dtype(np.int64)])
+        key_dts = [_np_dtype(k.dtype) for k in self.state.table.keys]
+        row_dts = [np.dtype(np.int8), np.dtype(bool)] + key_dts
+        for a in self.state.agg_states:
+            for t, lanes in call_parts(a):
+                row_dts += [_np_dtype(_durable_dtype(t))] * lanes
+        row_dts.append(np.dtype(np.int64))
         wp = len(row_dts)
         new_epoch = barrier.epoch.curr
         cell: dict = {}
@@ -575,10 +747,15 @@ class HashAggExecutor(Executor):
     def _apply_evict_deletes(self, keys_np, n: int) -> None:
         # evicted groups leave the durable table in the epoch their device
         # state is zeroed; the non-pk columns of a delete are unused
-        pad = (0,) * (len(self.agg_calls) + 1)
+        pad = (0,) * (sum(self._call_persist_width(j)
+                          for j in range(len(self.specs))) + 1)
         self.state_table.write_chunk_rows(
             [(OP_DELETE, tuple(k[r].item() for k in keys_np) + pad)
              for r in range(n)])
+
+    def _call_persist_width(self, j: int) -> int:
+        """Columns one agg call contributes to the durable state row."""
+        return sum(lanes for _, lanes in call_parts(self.state.agg_states[j]))
 
     def recover(self) -> None:
         """Rebuild the device state from the state table, sized from the
@@ -607,18 +784,19 @@ class HashAggExecutor(Executor):
         if int(n_un):
             raise RuntimeError("hash-agg recovery overflowed its table")
         slots = slots.to(torch.int64)
-        agg_states = []
-        for j, (init, spec) in enumerate(zip(st.agg_states, self.specs)):
-            init[slots] = torch.tensor([r[nk + j] for r in rows],
-                                       dtype=init.dtype, device=dev)
-            agg_states.append(init)
+        off = nk
+        for init in st.agg_states:
+            for t, lanes in call_parts(init):
+                v = torch.tensor([r[off:off + lanes] for r in rows],
+                                 dtype=t.dtype, device=dev)
+                t[slots] = v if t.dim() == 2 else v[:, 0]
+                off += lanes
         st.row_count[slots] = torch.tensor(
-            [r[nk + len(self.specs)] for r in rows], dtype=torch.int64,
-            device=dev)
+            [r[off] for r in rows], dtype=torch.int64, device=dev)
         st.prev_exists[slots] = True
-        for spec, ags, pe in zip(self.specs, agg_states, st.prev_emit):
-            pe[slots] = spec.emit(ags)[slots].to(pe.dtype)
-        return AggState(table=table, agg_states=tuple(agg_states),
+        for spec, ags, pe in zip(self.specs, st.agg_states, st.prev_emit):
+            pe[slots] = call_emit(spec, ags)[slots].to(pe.dtype)
+        return AggState(table=table, agg_states=st.agg_states,
                         row_count=st.row_count, dirty=st.dirty,
                         prev_exists=st.prev_exists, prev_emit=st.prev_emit)
 
@@ -645,7 +823,7 @@ class HashAggExecutor(Executor):
                 flushed = self._applied_since_flush
                 if flushed:
                     self._applied_since_flush = False
-                    cols, ops, vis = self._flush_impl(self.state)
+                    cols, ops, vis = agg_flush(self.state, self.specs)
                     yield StreamChunk(tuple(Column(c) for c in cols), ops,
                                       vis, self.schema)
                 if (self.cleaning_watermark_key is not None

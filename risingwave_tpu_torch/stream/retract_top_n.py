@@ -48,7 +48,9 @@ from ..common.chunk import Column, StreamChunk, OP_DELETE, OP_INSERT
 from ..device import resolve_device
 from ..expr.program import TYPE_CODES
 from ..ops import kernels
-from ..ops.sort import lexsort_plain, stable_lexsort, stable_sort
+from ..ops.sort import (
+    lexsort_plain, order_key_plain, stable_lexsort, stable_sort,
+)
 from ..state.storage_table import rows_to_columns
 from .executor import Executor, StatefulUnaryExecutor
 from .message import Barrier, Watermark
@@ -86,26 +88,6 @@ K_DIFF = kernels.register(kernels.CudaKernel(
 
 
 # ------------------------------------------------------------------ K20
-
-def float_key_plain(x: torch.Tensor) -> torch.Tensor:
-    """float64 -> int64 ordered as jnp.argsort orders floats on the CPU:
-    zeros and subnormals equal (0), every NaN last and equal."""
-    x = x.to(torch.float64)
-    b = x.view(torch.int64)
-    k = torch.where(b >= 0, b, b ^ INT64_MAX)
-    k = torch.where(x.abs() < 2.2250738585072014e-308, 0, k)
-    return torch.where(torch.isnan(x), INT64_MAX, k)
-
-
-def order_key_plain(c: torch.Tensor, desc: bool) -> torch.Tensor:
-    """One order column as an int64 sort key: integers as they are, DESC
-    by bitwise complement; floats by `float_key_plain`, DESC negated
-    first."""
-    if c.is_floating_point():
-        return float_key_plain(-c if desc else c)
-    v = c.to(torch.int64)
-    return ~v if desc else v
-
 
 def topn_keys_plain(store: SortedSideState, order_specs, group_idx):
     """Plain PyTorch version of kernel K20's keys entry: (order keys,

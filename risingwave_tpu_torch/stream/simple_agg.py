@@ -179,7 +179,7 @@ class SimpleAggExecutor(StatefulUnaryExecutor):
         self.input = input
         self.agg_calls = tuple(agg_calls)
         for c in agg_calls:
-            if c.kind in (AggKind.MIN, AggKind.MAX) and not c.append_only:
+            if c.retractable:
                 raise NotImplementedError(
                     "retractable min/max needs materialized-input state")
         self.specs = tuple(c.spec() for c in agg_calls)

@@ -218,6 +218,39 @@ def test_k18_plain_matches_jax_persist_and_evict(wm):
         np.testing.assert_array_equal(r, np.asarray(y)[:nev])
 
 
+def test_k18_plain_matches_jax_with_extrema_buffers():
+    """K18's persist view over a COUNT beside a retractable MAX (K = 4):
+    the buffer's values, counts (widened) and lossy flag as 2K + 1
+    columns, as JAX's `_durable_cols_at` lays them out, also packed."""
+    rng = np.random.default_rng(3)
+    C, K = 128, 4
+    a = _agg_np(rng, C)
+    vals = np.sort(rng.integers(-50, 50, (C, K)), axis=1)[:, ::-1].copy()
+    cnts = rng.integers(0, 3, (C, K)).astype(np.int32)
+    lossy = rng.random(C) < 0.3
+    a["states"] = [a["states"][0], (vals, cnts, lossy)]
+    ns = types.SimpleNamespace(_retractable=(False, True), minput_k=K)
+    ns._durable_cols_at = lambda st, sel: JaxHashAgg._durable_cols_at(
+        ns, st, sel)
+    ja = _jax_agg(dict(a, states=[a["states"][0], 0]))
+    ja.agg_states = (ja.agg_states[0], tuple(jnp.asarray(x)
+                                             for x in (vals, cnts, lossy)))
+    pa = _port_agg(dict(a, states=[a["states"][0], vals]))
+    pa.agg_states = (pa.agg_states[0], tuple(torch.from_numpy(x)
+                                             for x in (vals, cnts, lossy)))
+    jc, jops, jvis, jnd = JaxHashAgg._persist_view_impl(ns, ja)
+    pc, pops, pvis, pnd = ha.persist_view_plain(pa)
+    assert int(pnd) == int(jnd) > 0 and len(pc) == len(jc) == 1 + 1 + 9 + 1
+    for x, y in zip([pops, pvis, *pc], [jops, jvis, *jc]):
+        np.testing.assert_array_equal(x.numpy(), np.asarray(y))
+    buf, counts = ha.persist_pack_plain(pa, None, None)
+    nd = int(counts[0])
+    dts = [np.int8, bool] + [np.int64] * (1 + 1 + 2 * K + 1 + 1)
+    for r, y in zip(d2h.unpack_rows(buf.numpy(), nd, dts),
+                    [jops, jvis, *jc]):
+        np.testing.assert_array_equal(r, np.asarray(y)[:nd])
+
+
 # ------------------------------------------------------------- sessions
 
 def _ddl():
@@ -242,11 +275,11 @@ def _walk(dep, cls):
     return out
 
 
-async def _paced(s, source_cls, start, stop):
+async def _paced(s, source_cls, start, stop, name="q7"):
     """Barriers start..stop-1, barrier r once the source emitted
     r * PER bids (its rate limit is PER a barrier); a snapshot of the
     whole store after each, uploads drained."""
-    dep = s.catalog.mvs["q7"].deployment
+    dep = s.catalog.mvs[name].deployment
     src = _walk(dep, source_cls)[0]
     snaps = []
     for r in range(start, stop):
@@ -262,8 +295,8 @@ async def _paced(s, source_cls, start, stop):
     return snaps
 
 
-def _mv(s):
-    return sorted(r for _, r in s.catalog.mvs["q7"].table.iter_all())
+def _mv(s, name="q7"):
+    return sorted(r for _, r in s.catalog.mvs[name].table.iter_all())
 
 
 def _jax_session(path, rounds, crash=False):
@@ -441,3 +474,60 @@ def test_durable_varchar_table_raises(tmp_path):
             await s.execute("CREATE MATERIALIZED VIEW m AS "
                             "SELECT id, name FROM person")
     asyncio.run(go())
+
+
+# ------------------------------------------------------ canonical q5
+
+def _q5c_ddl():
+    """The canonical Nexmark q5 (chip_smoke.Q5C_SELECT), durable, at
+    CS-bid chunks of one bid every 2 ms and PER bids a barrier, 2^12-slot
+    aggs (K = 32 top-K buffers in the MaxBids agg) and join sides."""
+    ddl = chip_smoke.q5c_ddl(CS, durable_=1, agg_cap=1 << 12,
+                             join_cap=1 << 12)
+    return [st.replace("inter_event_us=2)",
+                       f"inter_event_us=2000, rate_limit={PER})")
+            for st in ddl]
+
+
+def _q5c_session(engine, path, start, stop, crash=False, recover=False):
+    async def go():
+        if engine == "jax":
+            s = JaxSession(store=JaxH.open(JaxLocalFs(path)) if recover
+                           else JaxH(JaxLocalFs(path)))
+        else:
+            s = PortSession(device="cpu", store=H.open(LocalFs(path))
+                            if recover else H(LocalFs(path)))
+        if recover:
+            await s.recover()
+        else:
+            for st in _q5c_ddl():
+                await s.execute(st)
+        snaps = await _paced(s, JaxSource if engine == "jax" else PortSource,
+                             start, stop, name="q5c")
+        mv = _mv(s, "q5c")
+        if crash:
+            await s.crash()
+        elif engine == "port":
+            await s.shutdown()
+        return snaps, mv
+    return asyncio.run(go())
+
+
+def test_durable_q5c_state_and_recovery_match_jax(det_epochs, tmp_path):
+    """The canonical q5, durable: after every barrier each state table
+    (two COUNT aggs, the MaxBids agg's 65-lane buffer rows, both join
+    sides, the MV, the source) holds the same bytes in both engines; the
+    port's crash(), reopen and recover() ends at JAX's uninterrupted
+    MV."""
+    jsnaps, jmv = _q5c_session("jax", str(tmp_path / "j"), 1, N + M + 1)
+    psnaps, pmv = _q5c_session("port", str(tmp_path / "p"), 1, N + M + 1)
+    assert len(psnaps) == len(jsnaps) == N + M
+    for r, (a, b) in enumerate(zip(psnaps, jsnaps)):
+        assert a == b, f"state differs after barrier {r + 1}"
+    tables = {int.from_bytes(k[:4], "big") for k, _ in jsnaps[-1]}
+    assert len(tables) >= 6
+    assert pmv == jmv and len(jmv) >= 3
+    path = str(tmp_path / "c")
+    _q5c_session("port", path, 1, N + 1, crash=True)
+    _, rmv = _q5c_session("port", path, N + 1, N + M + 1, recover=True)
+    assert rmv == jmv

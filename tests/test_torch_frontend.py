@@ -283,6 +283,31 @@ WINDOW_VIEWS = {
 }
 
 
+def _q5c_ddl(watermarks: bool = False, durable: bool = False) -> list:
+    """The canonical Nexmark q5 (chip_smoke.Q5C_SELECT) at a small
+    geometry: 1024-bid chunks, one bid every 2 ms, 2048 bids a
+    barrier (the rate limit makes the barriers' contents deterministic),
+    4096-slot aggs and join sides. With `watermarks` the source emits
+    them and the watchdog is on (the reference finding's shape)."""
+    ddl = chip_smoke.q5c_ddl(1024, durable_=int(durable), agg_cap=4096,
+                             join_cap=4096)
+    src = "inter_event_us=2000, rate_limit=2048"
+    if watermarks:
+        src += ", emit_watermarks=1"
+        ddl = [st for st in ddl if "streaming_watchdog" not in st]
+    return [st.replace("inter_event_us=2)", src + ")") for st in ddl]
+
+
+def _q5_mv_ddl() -> list:
+    """bench.py's _q5_ddl() as an MV at 1024-bid chunks, 2048 bids a
+    barrier and a 4096-slot agg."""
+    return [st.replace("CREATE SINK", "CREATE MATERIALIZED VIEW")
+              .replace(" WITH (connector='blackhole_device')", "")
+              .replace("chunk_size=131072", "chunk_size=1024, rate_limit=2048")
+              .replace(f"{1 << 20}", "4096")
+            for st in BENCH_DDL["q5"]()]
+
+
 def _window_ddl(view: str, durable: bool = False) -> list:
     ddl = WINDOW_SOURCES + [WINDOW_VIEWS[view]]
     if durable:
@@ -304,6 +329,10 @@ PLANNED_DDL = {
           .replace(" WITH (connector='blackhole_device')", "")
         for st in chip_smoke.Q5T_DDL],
     "q2": lambda: chip_smoke.Q2_DDL,
+    "q5": BENCH_DDL["q5"],
+    "q5c": lambda: _q5c_ddl(),
+    "q5c_watermarked": lambda: _q5c_ddl(watermarks=True),
+    "q5c_durable": lambda: _q5c_ddl(durable=True),
     "where_agg": lambda: WHERE_AGG_DDL,
     "where_join": lambda: WHERE_JOIN_DDL,
     **{f"window_{v}": (lambda v=v: _window_ddl(v)) for v in WINDOW_VIEWS},
@@ -429,19 +458,20 @@ def _nodes(n, exchange_cls) -> list:
 
 
 @pytest.mark.parametrize("sql", [
-    # aggregates / GROUP BY / HOP (q5), a HOP window with GROUP BY
-    lambda: BENCH_DDL["q5"]()[-1],
-    lambda: ("CREATE MATERIALIZED VIEW m AS SELECT window_start, "
-             "max(price) AS p FROM HOP(bid, date_time, 2000000, 10000000) "
-             "GROUP BY window_start"),
+    # approx_count_distinct and bool_or grouped (HOP through SQL, which
+    # these cases held before, plans now: the q5 tests run it)
+    lambda: ("CREATE MATERIALIZED VIEW m AS SELECT auction, "
+             "approx_count_distinct(bidder) AS n FROM bid GROUP BY auction"),
+    lambda: ("CREATE MATERIALIZED VIEW m AS SELECT auction, "
+             "bool_or(price > 10) AS p FROM bid GROUP BY auction"),
     # NOW() dynamic filters and bool_and / bool_or (global or grouped):
     # still not ported
     lambda: ("CREATE MATERIALIZED VIEW m AS SELECT auction FROM bid "
              "WHERE date_time < NOW()"),
     lambda: ("CREATE MATERIALIZED VIEW m AS SELECT bool_and(price > 10) "
              "AS p FROM bid"),
-    lambda: ("CREATE MATERIALIZED VIEW m AS SELECT window_start FROM "
-             "HOP(bid, date_time, 2000000, 10000000)"),
+    lambda: ("CREATE MATERIALIZED VIEW m AS SELECT "
+             "approx_count_distinct(bidder) AS n FROM bid"),
     lambda: ("CREATE MATERIALIZED VIEW m AS SELECT P.id FROM person P "
              "LEFT JOIN auction A ON P.id = A.seller"),
 ])
@@ -553,6 +583,72 @@ def test_chip_smoke_q7_statements_are_bench_q7s():
     assert chip_smoke.Q7K_DDL == BENCH_DDL["q7_kill"]()
     assert f"chunk_size={chip_smoke.Q7D_CHUNK}," in chip_smoke.Q7D_DDL[6]
     assert f"chunk_size={chip_smoke.Q7K_CHUNK}," in chip_smoke.Q7K_DDL[6]
+
+
+def test_chip_smoke_q5_statements_are_bench_q5s():
+    """chip_smoke's q5_sql list is bench.py's _q5_ddl(), verbatim, and
+    its canonical q5 keeps bench's SETs and source (no watermarks) and
+    adds the join's capacity."""
+    assert chip_smoke.Q5_SQL_DDL == BENCH_DDL["q5"]()
+    ddl = chip_smoke.q5c_ddl()
+    assert ddl[:3] == BENCH_DDL["q5"]()[:3]
+    assert ddl[3] == f"SET streaming_join_capacity = {1 << 20}"
+    assert ddl[4] == BENCH_DDL["q5"]()[3].replace(", emit_watermarks=1", "")
+
+
+@pytest.fixture(scope="module")
+def q5_jax_mvs():
+    """The JAX session's MVs of the canonical q5 and of _q5_ddl() as an
+    MV after 6 barriers, and the barrier at which the watermarked
+    canonical q5 fail-stops with its cause (one JAX session each, run
+    once for the module)."""
+    async def failing(engine):
+        s = (JaxSession() if engine == "jax"
+             else PortSession(device="cpu"))
+        for stmt in _q5c_ddl(watermarks=True):
+            await s.execute(stmt)
+        dep = s.catalog.mvs["q5c"].deployment
+        for k in range(1, 7):
+            try:
+                if engine == "jax":
+                    await s.tick(1, max_recoveries=0)
+                else:
+                    await s.tick(1)
+            except RuntimeError:
+                causes = sorted(str(t.exception()) for t in dep.tasks
+                                if t.done() and t.exception() is not None)
+                if engine == "port":
+                    await s.crash()
+                return k, causes
+        return None, []
+
+    return dict(q5c=_mv_rows("jax", _q5c_ddl(), "q5c", 6),
+                q5=_mv_rows("jax", _q5_mv_ddl(), "q5", 6),
+                failing=asyncio.run(failing("jax")), failing_fn=failing)
+
+
+def test_q5c_and_q5_through_sql_match_jax(q5_jax_mvs):
+    """The canonical q5 (HOP through SQL, a retractable MAX over a COUNT's
+    changelog, a join of two retracting aggregates with the residue num
+    >= maxn) and bench.py's _q5_ddl() as an MV run through both
+    sessions to the same rows."""
+    got = _mv_rows("port", _q5c_ddl(), "q5c", 6)
+    assert got == q5_jax_mvs["q5c"] and len(got) >= 10
+    got = _mv_rows("port", _q5_mv_ddl(), "q5", 6)
+    assert got == q5_jax_mvs["q5"] and len(got) >= 100
+
+
+def test_watermarked_q5c_fail_stops_like_jax(q5_jax_mvs):
+    """With the source's watermarks, the aggregates pass each watermark
+    on before the barrier flush that retracts the rows below it, the
+    join's pair cleaning has evicted them, and both engines fail-stop
+    at the same barrier with the join's changelog inconsistency (the
+    reference finding; ROADMAP's operational notes)."""
+    k, causes = asyncio.run(q5_jax_mvs["failing_fn"]("port"))
+    jk, jcauses = q5_jax_mvs["failing"]
+    assert k is not None and k == jk
+    assert causes == jcauses
+    assert any("changelog inconsistency" in c for c in causes)
 
 
 def test_chip_smoke_q5t_statements_are_bench_q5_topns():

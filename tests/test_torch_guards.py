@@ -52,6 +52,7 @@ MODULES = [
     "risingwave_tpu_torch.stream.general_over_window",
     "risingwave_tpu_torch.stream.eowc_over_window",
     "risingwave_tpu_torch.stream.simple_agg",
+    "risingwave_tpu_torch.ops.extrema",
 ]
 
 
@@ -212,7 +213,8 @@ def test_every_kernel_is_registered_with_its_source():
     import chip_smoke  # noqa: F401  (imports every wrapper module)
     from risingwave_tpu_torch.ops import kernels
     names = sorted(kernels.KERNELS)
-    assert names == ["compact", "expr_eval", "filter_ops", "hash_agg",
+    assert names == ["agg_flush", "compact", "expr_eval",
+                     "extrema_update", "filter_ops", "hash_agg",
                      "hash_table", "hop_window", "nexmark_auction",
                      "nexmark_bid", "nexmark_person", "persist_view",
                      "pk_net", "radix_sort", "row_id", "segment_agg",
@@ -242,6 +244,8 @@ def test_wrappers_refuse_other_devices():
     from risingwave_tpu_torch.stream import retract_top_n as rtn
     from risingwave_tpu_torch.stream import general_over_window as gow
     from risingwave_tpu_torch.stream import simple_agg as sagg
+    from risingwave_tpu_torch.stream import hash_agg
+    from risingwave_tpu_torch.ops import extrema
     from risingwave_tpu_torch.common.chunk import StreamChunk
     from risingwave_tpu_torch.common import DataType, schema
     t = ht.HashTable.empty(32, [torch.int64], "meta")
@@ -290,6 +294,13 @@ def test_wrappers_refuse_other_devices():
             [count_star().spec()], [i64[0]], i64[0], StreamChunk(
                 (Column(i64),), i64.to(torch.int8), b,
                 schema(("k", DataType.INT64)))),
+        lambda: extrema.extrema_apply(
+            extrema.extrema_empty(4, 2, torch.int64, "meta"), i64, None,
+            i64.to(torch.int8), i64.to(torch.int32), i64, True,
+            errs[0]),
+        lambda: hash_agg.agg_flush(hash_agg.AggState(
+            t, (i64.clone(),), i64.clone(), b.clone(), b.clone(),
+            (i64.clone(),)), [count_star().spec()]),
     ]
     for refuse in refusals:
         with pytest.raises(ValueError, match="unsupported device"):
