@@ -38,6 +38,10 @@ plain PyTorch version on the card:
        count per window over its changelog (a retractable MAX: top-K
        value buffers), the two joined on the window with num >= maxn;
        and bench.py's _q5_ddl() verbatim (HOP through SQL).
+  outer joins, temporal joins, NOW() — LEFT/FULL/RIGHT joins of auctions
+       and persons (degrees and NULL-padded rows), a temporal join of
+       bids against auctions, `expires > now()` dynamic filters, through
+       the Session, and a durable LEFT join with a crash.
 Phases, one JSON line each:
 
   1. device: the card, torch/CUDA versions, the kernels' build time;
@@ -196,12 +200,39 @@ Phases, one JSON line each:
      barriers, recover, on to 16, the MV equal to the recount; q5_sql:
      bench.py's _q5_ddl() verbatim through the Session beside the
      hand-wired q5, the live groups equal;
- 27. the kernels line: launches on the first run of each kernel's own
+ 27. kernels_outer: K28 (the outer join's match counts, degrees, net
+     NULL-row transitions and NULL-padded segments, after K6 and the K5
+     condition) against its plain version, exactly, as a LEFT, FULL and
+     RIGHT apply of a 131072-row person chunk (U-/U+ pairs of one id,
+     deletes, NULL ids) against the 2^22-row auction side (2^23 slots,
+     match factor 64) and of an auction chunk against persons; K7 with
+     match counts as degrees; K29 (the dynamic filter's flush) for the
+     four ops, a retracted rhs, NULL and float keys, at the dynf shape;
+ 28. lj_full: auction LEFT OUTER JOIN person ON seller = id AND
+     category = 10 through Session(device="cuda") into a device collect
+     sink, 2^19 auctions and 2^17 persons a barrier (persons lag, so
+     NULL rows are retracted), 9 barriers: the net output equals the
+     numpy recount, errs [0, 0, 0], every outer-join kernel launched;
+     events/s, barrier p50, the idle share of a short profiled run;
+ 29. lj_retract (a LEFT join of a retracting count per seller, exact
+     after every barrier), fj_check (the FULL golden, right-only rows),
+     tj_full (bid LEFT and INNER JOIN auction FOR SYSTEM_TIME AS OF
+     PROCTIME(), 131072-bid chunks against 2^22 auctions: one row per
+     bid, categories right);
+ 30. dynf: `expires > now()` over 2^22 auctions (every row passes) and
+     `expires < now()` (none), then the dynamic filter with a scripted
+     rhs stepping through the expires range in 16 barriers, each
+     barrier's changelog equal to the rows that crossed;
+ 31. lj_recover: the LEFT join durable, crash after 4 barriers, recover
+     (degrees rebuilt by replay), on to 8: the MV equals an
+     uninterrupted run's and the recount, NULL rows at the crash
+     matched after it;
+ 32. the kernels line: launches on the first run of each kernel's own
      slice's path (q5 for K1-K4 and K12, q7 for K5-K8, q8 for K9-K11,
      q17 for K13-K16, q7d for K17-K18, q5_topn for K19-K21, q2 for K22,
-     q6 for K23-K24, the global agg for K25, q5c for K26-K27), error,
-     times, bounds. K27 runs in every hash agg's flush, so every earlier
-     path drives it too.
+     q6 for K23-K24, the global agg for K25, q5c for K26-K27, lj_full
+     for K28, dynf for K29), error, times, bounds. K27 runs in every
+     hash agg's flush, so every earlier path drives it too.
 With --host-profile, phase 4 also runs q5 under cProfile and lists the
 host functions with the most own time.
 The last line is {"ok": true, "device": {...}}. Any failed phase exits
@@ -278,7 +309,11 @@ from risingwave_tpu_torch.stream.row_id import row_ids, row_ids_plain
 from risingwave_tpu_torch.stream.sorted_join import (
     HSENTINEL, NO_WATERMARK, SortedSideState, _Buffers, copy_side,
     empty_sorted_side, key_hash, merge, merge_plain, net_pk_runs,
-    net_pk_runs_plain, pack_diff_plain, probe, probe_plain, snapshot_diff, store_from_rows,
+    net_pk_runs_plain, outer_apply, outer_apply_plain, outer_segments,
+    pack_diff_plain, probe, probe_plain, snapshot_diff, store_from_rows,
+)
+from risingwave_tpu_torch.stream.dynamic import (
+    INT64_MAX, INT64_MIN, OPS, DynamicFilterExecutor, dynf_flush,
 )
 from risingwave_tpu_torch.interop import chunk_from_numpy
 from risingwave_tpu_torch.stream.project import (
@@ -2998,7 +3033,8 @@ KERNEL_PATH = {"nexmark_bid": "q5", "hop_window": "q5", "hash_table": "q5",
                "top_n_rank": "q5t", "top_n_diff": "q5t",
                "filter_ops": "q2", "window_scan": "q6",
                "window_diff": "q6", "simple_agg": "gagg",
-               "extrema_update": "q5c", "agg_flush": "q5c"}
+               "extrema_update": "q5c", "agg_flush": "q5c",
+               "outer_join": "lj", "dynamic_filter": "dynf"}
 
 
 def phase_q5_full(dev, repeats: int = 5) -> dict:
@@ -5614,8 +5650,19 @@ def phase_kernels_extrema(dev) -> dict:
         err = int((ck != cp).sum()) + int(
             (bk[:nd * wp] != bp[:nd * wp]).sum())
         n_bytes = C + nd * (wp * 8 + wp * 8)
+        # a retractable call's state is a tuple of [C, K] buffers
+        cols18 = list(st.table.keys) + [st.row_count] + [
+            t for a in st.agg_states
+            for t in (a if isinstance(a, tuple) else (a,))]
+
+        def library():
+            # the dirty rows' lanes gathered: torch.nonzero + index_select
+            sel = torch.nonzero(st.dirty).squeeze(1)
+            return [c.index_select(0, sel) for c in cols18]
+
         tm = timings(lambda: persist_pack(st, None, None),
-                     lambda: persist_pack_plain(st, None, None))
+                     lambda: persist_pack_plain(st, None, None),
+                     library_fn=library)
         out["k18_extrema_float64" if float_ else "k18_extrema"] = dict(
             max_abs_err=err, rows=nd, lanes=wp, n_bytes=n_bytes,
             bound_ms=bytes_bound_ms(n_bytes), **tm)
@@ -5797,6 +5844,809 @@ def phase_q5_sql(dev, per_chunks: int = 8, rounds: int = 6,
                 bids_per_s=r["bids"] / r["wall_s"], launches=r["launches"])
 
 
+
+# ------------------------------------- outer and temporal joins, NOW()
+
+OJ_CHUNK = 131072
+LJ_AUCTIONS = 1 << 22            # lj_full: auctions over 8 barriers
+LJ_BARRIERS = 8
+LJ_JOIN_CAP = 1 << 23
+OUTER_KERNELS = ("nexmark_auction", "nexmark_person", "sorted_join_probe",
+                 "outer_join", "sorted_join_merge", "radix_sort",
+                 "expr_eval")
+DYNF_KERNELS = ("nexmark_auction", "pk_net", "radix_sort",
+                "sorted_join_merge", "dynamic_filter")
+LJ_SELECT = ("SELECT A.id, P.id AS pid FROM auction A "
+             "LEFT OUTER JOIN person P ON A.seller = P.id "
+             "AND A.category = 10")
+FJ_SELECT = ("SELECT A.id, P.id AS pid FROM auction A "
+             "FULL OUTER JOIN person P ON A.seller = P.id "
+             "AND A.category = 10")
+LJR_SELECT = ("SELECT P.id, S.n FROM person P LEFT JOIN "
+              "(SELECT seller, count(*) AS n FROM auction "
+              "WHERE category = 10 GROUP BY seller) S ON P.id = S.seller")
+TJ_SELECT = ("SELECT B.auction, B.price, A.category FROM bid B "
+             "{} JOIN auction A FOR SYSTEM_TIME AS OF PROCTIME() "
+             "ON B.auction = A.id")
+
+
+def outer_ddl(select: str, name: str, *, auction_chunk: int = 0,
+              person_chunk: int = 0, bid_chunk: int = 0,
+              join_cap: int = LJ_JOIN_CAP, durable_: int = 0,
+              sink: bool = True, extra=()) -> list:
+    """Persons, auctions (both keyed on id) and keyless bids (chunks of
+    OJ_CHUNK rows unless given), and one flow over them: a blackhole
+    sink (a phase replaces its root with a device collect sink) or an
+    MV."""
+    auction_chunk = auction_chunk or OJ_CHUNK
+    person_chunk = person_chunk or OJ_CHUNK
+    bid_chunk = bid_chunk or OJ_CHUNK
+    body = (f"CREATE SINK {name} AS {select} "
+            "WITH (connector='blackhole_device')" if sink
+            else f"CREATE MATERIALIZED VIEW {name} AS {select}")
+    return [
+        f"SET streaming_durability = {durable_}",
+        f"SET streaming_join_capacity = {join_cap}",
+        *extra,
+        ("CREATE SOURCE auction WITH (connector='nexmark', "
+         f"table='auction', chunk_size={auction_chunk}, primary_key='id')"),
+        ("CREATE SOURCE person WITH (connector='nexmark', "
+         f"table='person', chunk_size={person_chunk}, primary_key='id')"),
+        ("CREATE SOURCE bid WITH (connector='nexmark', table='bid', "
+         f"chunk_size={bid_chunk})"),
+        body]
+
+
+def auction_cols_dev(n: int, dev, idx=(0, 6, 7, 8)) -> list:
+    """Columns `idx` of auctions [0, n) on the card (plain generator)."""
+    vocabs = {k: torch.tensor(v, dtype=torch.int32, device=dev)
+              for k, v in vocab_ids().items()}
+    parts = []
+    for off in range(0, n, 1 << 21):
+        cols = gen_auction_columns_plain(off, min(1 << 21, n - off),
+                                         NexmarkConfig(), vocabs, dev)
+        parts.append([cols[i] for i in idx])
+    return [torch.cat(x) for x in zip(*parts)]
+
+
+def sink_net(sink, key_fn):
+    """The collect sink's rows as (sorted distinct int64 keys, net
+    counts), zero counts dropped; key_fn(data, valid) -> int64 keys."""
+    k = min(int(sink.count), sink.capacity)
+    if int(sink.count) > sink.capacity:
+        raise AssertionError(f"collect sink overflow: {int(sink.count)}")
+    keys = key_fn([d[:k] for d in sink.data], [v[:k] for v in sink.valid])
+    u, inv = torch.unique(keys, return_inverse=True)
+    cnt = torch.zeros(u.shape[0], dtype=torch.int64, device=keys.device)
+    cnt.index_add_(0, inv, sink.sign[:k].to(torch.int64))
+    keep = cnt != 0
+    return u[keep], cnt[keep]
+
+
+def _id_key(d, v, i):
+    """Column i as id - 1000 + 1, 0 for NULL (24 bits)."""
+    return torch.where(v[i], d[i] - 999, 0)
+
+
+def pair_keys(d, v):
+    return (_id_key(d, v, 0) << 24) | _id_key(d, v, 1)
+
+
+def lj_recount(n_auctions: int, n_persons: int, dev, full: bool = False):
+    """Sorted keys of the LEFT (or FULL) join of auctions [0, n_auctions)
+    and persons [0, n_persons) on seller = id AND category = 10, as
+    pair_keys encodes (id, pid) rows."""
+    aid, _, seller, cat = auction_cols_dev(n_auctions, dev)
+    match = (cat == 10) & (seller - 1000 < n_persons)
+    keys = ((aid - 999) << 24) | torch.where(match, seller - 999, 0)
+    if full:
+        pids = torch.arange(n_persons, device=dev) + 1000
+        hit = torch.zeros(n_persons, dtype=torch.bool, device=dev)
+        hit[(seller[match] - 1000)] = True
+        keys = torch.cat([keys, pids[~hit] - 999])
+    return torch.sort(keys).values
+
+
+def profiled(fn):
+    """fn() under torch.profiler with device activity only (host ops are
+    not recorded, so the host runs near its own pace): (its result,
+    device busy seconds, top kernels)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    kev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name: dict = {}
+    for e in kev:
+        t, c = by_name.get(e.name[:60], (0.0, 0))
+        by_name[e.name[:60]] = (t + e.time_range.elapsed_us(), c + 1)
+    busy = sum(t for t, _ in by_name.values()) / 1e6
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return out, busy, [{"name": nm, "ms": t / 1e3, "count": c}
+                       for nm, (t, c) in top]
+
+
+def run_figures(r: dict, events: int) -> dict:
+    """events/s and barrier p50/max of an unprofiled run."""
+    coord = r["coord"]
+    return dict(events=events, barriers=r["barriers"], wall_s=r["wall_s"],
+                events_per_s=events / r["wall_s"],
+                barrier_p50_s=coord.barrier_latency_percentile(0.5),
+                barrier_max_s=coord.barrier_latency_percentile(1.0),
+                mem_peak_bytes=r["mem_peak_bytes"])
+
+
+def run_twice(run) -> tuple:
+    """run() unprofiled, for the phase's rates and barrier latencies and
+    its checks; then run() again, of the same geometry and length, under
+    `profiled`: the device busy time, the top kernels and the idle share
+    (1 - busy / that profiled run's own wall). Returns (the first run,
+    the profile's figures)."""
+    r = run()
+    pr, busy, top = profiled(run)
+    if busy <= 0:
+        raise AssertionError("the profiled run recorded no device time")
+    return r, dict(device_busy_s=busy,
+                   device_idle_share=1 - busy / pr["wall_s"],
+                   profiled_wall_s=pr["wall_s"], profiled_top=top)
+
+
+# ---- kernels_outer
+
+def _apply_outer_case(dev, other, chunk_cols, ops, vis, key_valid, key_idx,
+                      other_key_idx, mf, outer_own, outer_other, cond,
+                      side):
+    """K6 + K5 + K28 on the card against probe_plain + the plain
+    condition + outer_apply_plain on the same inputs. Returns (error,
+    visible rows per segment, the plain run's transitions)."""
+    N = ops.shape[0]
+    M = mf * N
+    active = vis & key_valid
+    null_key = vis & ~key_valid
+    key_cols = [chunk_cols[i].data for i in key_idx]
+    T = outer_segments(M, N, outer_own, outer_other)
+
+    def side_copy():
+        return SortedSideState(other.khash, other.cols, other.valids,
+                               other.degree.clone(), other.n)
+
+    def cond_cols(own_m, oth_m):
+        cols = own_m + oth_m if side == 0 else oth_m + own_m
+        return [Column(c.data[:M], None if c.valid is None
+                       else c.valid[:M]) for c in cols]
+
+    ok_, ek = side_copy(), torch.zeros(3, dtype=torch.int32, device=dev)
+    _, _, own_m, oth_m, opsm, emit, src, pos = probe(
+        key_cols, active, active, ops, ok_, other_key_idx, chunk_cols, M,
+        ek, _Buffers(torch.device(dev)), rows=T, slots=True)
+    if cond is not None:
+        cond.and_into(cond_cols(own_m, oth_m), emit[:M])
+    a = outer_apply(emit, src, pos, ops, active, null_key, ok_, chunk_cols,
+                    own_m, oth_m, opsm, M, outer_own, outer_other, ek,
+                    _Buffers(torch.device(dev)))
+    op_, ep = side_copy(), torch.zeros(3, dtype=torch.int32, device=dev)
+    _, _, own_p, oth_p, opsp, emitp, srcp, posp = probe_plain(
+        key_cols, active, active, ops, op_, other_key_idx, chunk_cols, M,
+        ep)
+    if cond is not None:
+        cond.and_into_plain(cond_cols(own_p, oth_p), emitp)
+    b = outer_apply_plain(emitp, srcp, posp, ops, active, null_key, op_,
+                          chunk_cols, own_p, oth_p, opsp, M, outer_own,
+                          outer_other, ep)
+    torch.cuda.synchronize()
+    vis_a, vis_b = a[5], b[5]
+    err = exact_err([a[0], a[1], vis_a, ek], [b[0], b[1], vis_b, ep])
+    sel = vis_b
+    err = max(err, int((a[4][sel] != b[4][sel]).sum()))
+    for ca, cb in zip(a[2] + a[3], b[2] + b[3]):
+        va, vb = ca.valid_mask()[sel], cb.valid_mask()[sel]
+        err = max(err, int((va != vb).sum()),
+                  int(((ca.data[sel] != cb.data[sel]) & vb).sum()))
+    segs = [int(vis_b[:M].sum())]
+    if outer_other:
+        segs.append(int(vis_b[M:2 * M].sum()))
+    if outer_own:
+        segs.append(int(vis_b[T - N:].sum()))
+    return err, segs, b
+
+
+def outer_store(dev, n: int, C: int, seed: int):
+    """The lj_full auction side at its end: n auctions (id, seller,
+    category) keyed on seller in C slots, degrees 0-2 (a third 0)."""
+    aid, _, seller, cat = auction_cols_dev(n, dev)
+    st = store_from_rows([seller, aid, cat], C)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    deg = torch.randint(0, 3, (C,), generator=g).to(dev, torch.int32)
+    st.degree.copy_(torch.where(torch.arange(C, device=dev) < st.n, deg, 0))
+    return st
+
+
+def person_chunk(dev, store: SortedSideState, N: int, seed: int,
+                 null_p: float = 0.0):
+    """N person rows (id) whose ids are sellers of the store, in U-/U+
+    pairs of one id (a degree that falls and rises in the chunk),
+    Deletes and Inserts; `null_p` of them with a NULL id."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    n = int(store.n)
+    ids = store.cols[0][torch.randint(0, n, (N,), generator=g).to(dev)]
+    ids[1::2] = ids[0::2]
+    ops = torch.randint(0, 2, (N,), generator=g).to(torch.int8)
+    ops[0::4], ops[1::4] = 2, 3            # U-/U+ pairs of one id
+    key_valid = (torch.rand(N, generator=g) >= null_p).to(dev)
+    return [Column(ids, key_valid)], ops.to(dev), \
+        torch.ones(N, dtype=torch.bool, device=dev), key_valid
+
+
+def phase_kernels_outer(dev, n: int = LJ_AUCTIONS, C: int = LJ_JOIN_CAP,
+                        N: int = OJ_CHUNK) -> dict:
+    """K28 (outer join degrees and NULL rows), K7 with degrees and K29
+    (the dynamic filter's flush) against their plain versions on the
+    card, exactly. K28 at lj_full's shapes: a person chunk (U-/U+ pairs,
+    deletes, NULL ids) probing the 2^22-row auction side (2^23 slots,
+    match factor 64) with the condition category = 10, as a LEFT, FULL
+    and RIGHT join, and an auction chunk probing the person side."""
+    res, out = {}, {}
+    astore = outer_store(dev, n, C, seed=28)
+    # the joined row is (seller, id, category | person id): category = 10
+    cond = ExprProgram([call("equal", col(2, DataType.INT64), lit(10))])
+    chunk_cols, ops, vis, kv = person_chunk(dev, astore, N, 1, 0.01)
+    err_all = 0
+    for name, oo, ot in (("left", False, True), ("full", True, True),
+                         ("right", True, False)):
+        err, segs, plain = _apply_outer_case(
+            dev, astore, chunk_cols, ops, vis, kv, (0,), (0,), 64, oo, ot,
+            cond, 1)
+        out[f"k28_person_{name}"] = dict(max_abs_err=err,
+                                         visible_rows=segs)
+        err_all = max(err_all, err)
+    # the auction side probing persons (ids 1000..): some sellers absent
+    pids = torch.arange(1000, 1000 + (n // 3), device=dev)
+    pstore = store_from_rows([pids], C >> 2)
+    acols = auction_cols_dev(N, dev, (0, 6, 7, 8))
+    akv = acols[2] % 97 != 0                     # NULL sellers
+    a_chunk = [Column(acols[0]), Column(acols[2], akv), Column(acols[3])]
+    aops = torch.zeros(N, dtype=torch.int8, device=dev)
+    aops[1::5] = 1
+    avis = torch.ones(N, dtype=torch.bool, device=dev)
+    cond_l = ExprProgram([call("equal", col(2, DataType.INT64), lit(10))])
+    for name, oo, ot in (("left", True, False), ("full", True, True)):
+        err, segs, _ = _apply_outer_case(
+            dev, pstore, a_chunk, aops, avis, akv, (1,), (0,), 2, oo, ot,
+            cond_l, 0)
+        out[f"k28_auction_{name}"] = dict(max_abs_err=err,
+                                          visible_rows=segs)
+        err_all = max(err_all, err)
+    # ---- K28 timing: the LEFT join's person chunk (the lj_full path)
+    M = 64 * N
+    T = outer_segments(M, N, False, True)
+    active = vis & kv
+    null_key = vis & ~kv
+    ek = torch.zeros(3, dtype=torch.int32, device=dev)
+    deg0 = astore.degree.clone()
+    _, _, own_m, oth_m, opsm, emit_k, src, pos = probe(
+        [chunk_cols[0].data], active, active, ops, astore, (0,), chunk_cols,
+        M, ek, _Buffers(torch.device(dev)), rows=T, slots=True)
+    cond.and_into([Column(c.data[:M], c.valid[:M]) for c in oth_m + own_m],
+                  emit_k[:M])
+    emit0 = emit_k[:M].clone()
+    _, _, own_p, oth_p, opsp, emitp, srcp, posp = probe_plain(
+        [chunk_cols[0].data], active, active, ops, astore, (0,), chunk_cols,
+        M, ek)
+    cond.and_into_plain(oth_p + own_p, emitp)
+    bufs = _Buffers(torch.device(dev))
+    plain = outer_apply_plain(emitp, srcp, posp, ops, active, null_key,
+                              astore, chunk_cols, own_p, oth_p, opsp, M,
+                              False, True, ek)
+    n_emit = int(emit0.sum())
+    touched = int(torch.unique(posp[emitp]).numel())
+    rows_hit = int(torch.unique(srcp[emitp]).numel())
+    n_trans = int(plain[5][M:].sum())
+    oth_row = sum(c.element_size() + 1 for c in astore.cols)
+    # what this chunk needs: every slot's emit flag; the emitting slots'
+    # chunk row and other-side row (src, pos); the op of each chunk row
+    # that emits; the match counts written; the touched rows' degree
+    # read and written; each transition row's other-side columns and
+    # valids gathered and written, its own side's valid bytes (NULL) and
+    # op; the transition segment's vis
+    k28_bytes = (M + n_emit * 8 + rows_hit + N * 4 + touched * 8
+                 + n_trans * (2 * oth_row + len(chunk_cols) + 1) + M)
+
+    def restore():
+        astore.degree.copy_(deg0)
+        emit_k[:M].copy_(emit0)
+
+    tm = timings(
+        lambda: outer_apply(emit_k, src, pos, ops, active, null_key, astore,
+                            chunk_cols, own_m, oth_m, opsm, M, False, True,
+                            ek, bufs),
+        lambda: outer_apply_plain(emitp, srcp, posp, ops, active, null_key,
+                                  astore, chunk_cols, own_p, oth_p, opsp, M,
+                                  False, True, ek),
+        setup=restore)
+    astore.degree.copy_(deg0)
+    res["outer_join"] = dict(
+        max_abs_err=err_all, bound_ms=bytes_bound_ms(k28_bytes),
+        bound_by="bytes", **{k: tm[k] for k in
+                             ("ms", "plain_ms", "library_ms")})
+    out["k28_timing"] = dict(slots=M, emitting=n_emit, touched=touched,
+                             chunk_rows_emitting=rows_hit,
+                             transitions=n_trans, n_bytes=k28_bytes,
+                             bound_ms=bytes_bound_ms(k28_bytes), **tm)
+    # ---- K7 with degrees: auction chunk rows merged with match counts
+    nh, iorder = torch.sort(key_hash([acols[2]]), stable=True)
+    n_new = torch.tensor(N, dtype=torch.int32, device=dev)
+    mcnt = torch.randint(0, 4, (N,), generator=torch.Generator(
+        device="cpu").manual_seed(7)).to(dev, torch.int32)
+    mcols = [Column(acols[2]), Column(acols[0]), Column(acols[3])]
+    margs = (astore, nh, iorder, n_new, mcols, None, None, 2 * N, (0, 1),
+             None, NO_WATERMARK)
+    spare = empty_sorted_side(C, [c.dtype for c in astore.cols], dev)
+    e7k = torch.zeros(3, dtype=torch.int32, device=dev)
+    e7p = torch.zeros(3, dtype=torch.int32, device=dev)
+    k7a = merge(*margs, e7k, spare, _Buffers(torch.device(dev)),
+                match_cnt=mcnt)
+    k7b = merge_plain(*margs, e7p, match_cnt=mcnt)
+    torch.cuda.synchronize()
+    e7 = max(store_err(k7a, k7b), exact_err([e7k], [e7p]))
+    n_live, n_after = int(astore.n), int(k7b.n)
+    k7_bytes = (n_live * _store_row_bytes(astore)
+                + N * (8 + 8 + 4 + sum(c.data.element_size()
+                                       for c in mcols))
+                + n_after * _store_row_bytes(astore))
+    b7 = _Buffers(torch.device(dev))
+    tm7 = timings(lambda: merge(*margs, e7k, spare, b7, match_cnt=mcnt),
+                  lambda: merge_plain(*margs, e7p, match_cnt=mcnt))
+    out["k7_degrees"] = dict(max_abs_err=e7, rows_before=n_live,
+                             rows_after=n_after,
+                             bound_ms=bytes_bound_ms(k7_bytes), **tm7)
+    # ---- K29: the four ops, a retracted rhs, NULL and float keys
+    out.update(k29_checks(dev, n, C))
+    res["dynamic_filter"] = out.pop("k29_row")
+    bad = {k: v["max_abs_err"] for k, v in out.items()
+           if isinstance(v, dict) and v.get("max_abs_err")}
+    if bad or err_all or e7:
+        raise AssertionError(f"outer kernels disagree with their plain "
+                             f"versions: {bad}")
+    emit({"phase": "kernels_outer", **out})
+    return res
+
+
+def k29_checks(dev, n: int, C: int) -> dict:
+    """K29's flush against its plain version: a store of n auctions (all
+    ten columns, as the dynf path stores them) in C slots, filtered on
+    expires, an emitted set from a first flush, then each op at a second
+    rhs; a retracted rhs (the sentinel); a float64 key with NaN, +-0,
+    subnormals and infinities; NULL filter values."""
+    acols = auction_cols_dev(n, dev, tuple(range(10)))
+    aid, expires = acols[0], acols[6]
+    g = torch.Generator(device="cpu").manual_seed(29)
+    st = store_from_rows(acols, C)
+    live = int(st.n)
+    st.valids[6][:live] = (torch.rand(live, generator=g) > 0.01).to(dev)
+    lo, hi = int(expires.min()), int(expires.max())
+    out = {}
+
+    def empty_em(store):
+        return (torch.full((C,), HSENTINEL, dtype=torch.int64, device=dev),
+                tuple(torch.zeros(C, dtype=c.dtype, device=dev)
+                      for c in store.cols),
+                tuple(torch.zeros(C, dtype=torch.bool, device=dev)
+                      for _ in store.cols),
+                torch.zeros((), dtype=torch.int32, device=dev))
+
+    def case(store, op, rhs0, rhs1, kc=6):
+        em = dynf_flush(store, kc, op, rhs0, *empty_em(store),
+                        plain=True)[:4]
+        a = dynf_flush(store, kc, op, rhs1, *em)
+        b = dynf_flush(store, kc, op, rhs1, *em, plain=True)
+        torch.cuda.synchronize()
+        err = exact_err([a[0], a[3], a[6], a[7], *a[4], *a[5]],
+                        [b[0], b[3], b[6], b[7], *b[4], *b[5]])
+        return err, int(b[7].sum()), em
+
+    mid1, mid2 = lo + (hi - lo) // 3, lo + 2 * (hi - lo) // 3
+    for op in OPS:
+        err, vis, _ = case(st, op, mid1, mid2)
+        out[f"k29_{op}"] = dict(max_abs_err=err, visible_rows=vis)
+    err, vis, _ = case(st, "greater_than", mid1, INT64_MAX)
+    out["k29_retracted"] = dict(max_abs_err=err, visible_rows=vis)
+    err, vis, _ = case(st, "less_than_or_equal", mid1, INT64_MIN)
+    out["k29_retracted_le"] = dict(max_abs_err=err, visible_rows=vis)
+    fx = (expires - lo).to(torch.float64) / 1e6 - 50.0
+    edge = torch.tensor([float("nan"), 0.0, -0.0, 5e-324, -5e-324,
+                         float("inf"), -float("inf"), 2.0 ** 62],
+                        dtype=torch.float64, device=dev)
+    reps = min(1024, n // 64)
+    fx[: 8 * reps] = edge.repeat(reps)
+    fst = store_from_rows([aid, fx], C)
+    for op in ("greater_than", "less_than_or_equal"):
+        err, vis, _ = case(fst, op, -10, 0, kc=1)
+        out[f"k29_float_{op}"] = dict(max_abs_err=err, visible_rows=vis)
+    # timing at the dynf shape (ten columns, 2^22 rows in 2^23 slots):
+    # the set at one rhs, then a flush at a third of the range higher
+    em = dynf_flush(st, 6, "greater_than", mid1, *empty_em(st),
+                    plain=True)[:4]
+    ref = dynf_flush(st, 6, "greater_than", mid2, *em, plain=True)
+    old_n, new_n = int(em[3]), int(ref[3])
+    n_del = int(ref[7][:C].sum())
+    K = len(st.cols)
+    row = sum(c.element_size() + 1 for c in st.cols)
+    key_w = st.cols[6].element_size() + 1
+    # what this flush needs: the filter column and its valid of every
+    # live row; each passing row's columns and valids read, its hash and
+    # its row in the new set (the output's second half) written; the old
+    # set's hashes read for `member`; each row that left the set read
+    # from the old set and written as a Delete; every output row's op
+    # and vis
+    k29_bytes = (live * key_w + new_n * (2 * row + 8) + old_n * 8
+                 + n_del * 2 * row + 2 * C * 2)
+    tm = timings(lambda: dynf_flush(st, 6, "greater_than", mid2, *em),
+                 lambda: dynf_flush(st, 6, "greater_than", mid2, *em,
+                                    plain=True))
+    out["k29_timing"] = dict(slots=C, live=live, columns=K,
+                             old_set=old_n, new_set=new_n,
+                             deletes=n_del, n_bytes=k29_bytes,
+                             bound_ms=bytes_bound_ms(k29_bytes), **tm)
+    worst = max(v["max_abs_err"] for v in out.values()
+                if "max_abs_err" in v)
+    out["k29_row"] = dict(max_abs_err=worst,
+                          bound_ms=bytes_bound_ms(k29_bytes),
+                          bound_by="bytes",
+                          **{k: tm[k] for k in ("ms", "plain_ms",
+                                                "library_ms")})
+    return out
+
+
+# ---- lj_full, lj_retract, fj_check, lj_recover
+
+def collect_join(dev, ddl, name, rounds, pace, collect, **kw):
+    """session_run of a join flow into a device collect sink; the join's
+    errs must be [0, 0, 0]."""
+    r = session_run(dev, ddl, rounds, 0, name=name, pace=pace,
+                    collect=collect, **kw)
+    if r["join"] is not None and r["join"].errs() != [0, 0, 0]:
+        raise AssertionError(f"{name}: join errs {r['join'].errs()}")
+    return r
+
+
+def phase_lj_full(dev, rounds: int = LJ_BARRIERS) -> dict:
+    """auction A LEFT OUTER JOIN person P ON A.seller = P.id AND
+    A.category = 10 through Session(device="cuda") at 2^22 auctions (8
+    barriers of 2^19) and persons lagging at 0.75 of their event time:
+    auctions whose seller arrives later emit a NULL-padded row that the
+    person's arrival retracts (K28's transitions). The net output equals
+    the numpy recount, one row per auction, NULL-padded and matched rows
+    both present; errs [0, 0, 0]; every outer-join kernel launched."""
+    per = LJ_AUCTIONS // rounds
+    # the generator gives a person per three auctions of event time: at a
+    # quarter of the auctions' count a barrier, persons lag, so an
+    # auction's seller often arrives barriers after it
+    pace = {"auction": per, "person": per // 4}
+    ddl = outer_ddl(LJ_SELECT, "lj", auction_chunk=OJ_CHUNK,
+                    person_chunk=OJ_CHUNK)
+    r, prof = run_twice(lambda: collect_join(
+        dev, ddl, "lj", rounds + 1, pace, 3 * LJ_AUCTIONS))
+    missing = [k for k in OUTER_KERNELS if r["launches"][k] == 0]
+    if missing and torch.device(dev).type == "cuda":
+        raise AssertionError(f"kernels never launched on lj: {missing}")
+    nA, nP = r["offsets"]["auction"], r["offsets"]["person"]
+    keys, cnt = sink_net(r["sink"], pair_keys)
+    want = lj_recount(nA, nP, dev)
+    nulls = int(((keys & ((1 << 24) - 1)) == 0).sum())
+    if not (bool((cnt == 1).all()) and torch.equal(keys, want)) \
+            or not 0 < nulls < nA:
+        raise AssertionError(f"lj_full: {keys.numel()} net rows against "
+                             f"{want.numel()} recounted, {nulls} NULL")
+    join = r["join"]
+    emitted = int(r["sink"].count)
+    return dict(run_figures(r, nA + nP), **prof, auctions=nA, persons=nP,
+                net_rows=int(keys.numel()), null_rows=nulls,
+                rows_emitted=emitted,
+                retracted_null_rows=(emitted - nA) // 2,
+                join_live_rows=[int(s_.n) for s_ in join.sides],
+                join_errs=join.errs(), launches=r["launches"])
+
+
+def phase_lj_retract(dev, rounds: int = 8, per: int = 65536) -> dict:
+    """person P LEFT JOIN (SELECT seller, count(*) AS n FROM auction
+    WHERE category = 10 GROUP BY seller) S ON P.id = S.seller: every
+    count update is a U-/U+ pair, so a person's degree falls and rises
+    inside one chunk. After every barrier of both runs (`run_twice`) the
+    net output equals the recount (one row per person: its count, or
+    NULL)."""
+    pace = {"auction": per, "person": per // 4}     # persons lag
+    ddl = outer_ddl(LJR_SELECT, "ljr", auction_chunk=per // 4,
+                    person_chunk=per // 4)
+    checked = []
+    held = {}
+
+    def keyf(d, v):
+        return (_id_key(d, v, 0) << 24) | torch.where(v[1], d[1], 0)
+
+    def on_barrier(k, s, rows):
+        keys, cnt = sink_net(held["sink"], keyf)
+        nA, nP = rows["auction"], rows["person"]
+        _, _, seller, cat = auction_cols_dev(nA, dev)
+        sel = seller[cat == 10] - 1000
+        per_seller = torch.bincount(sel[sel < nP], minlength=nP)[:nP]
+        want = (torch.arange(nP, device=dev) + 1) << 24 | per_seller
+        if not (bool((cnt == 1).all())
+                and torch.equal(keys, torch.sort(want).values)):
+            raise AssertionError(f"lj_retract: barrier {k}: "
+                                 f"{keys.numel()} rows against {nP}")
+        checked.append(k)
+
+    def on_flow(s, dep):
+        held["sink"] = next(a.consumer for a in dep.actors
+                            if isinstance(a.consumer,
+                                          DeviceCollectSinkExecutor))
+
+    r, prof = run_twice(lambda: collect_join(
+        dev, ddl, "ljr", rounds + 1, pace, 1 << 22, on_flow=on_flow,
+        on_barrier=on_barrier))
+    if len(checked) < 2 * rounds:
+        raise AssertionError(f"lj_retract: {len(checked)} barriers checked")
+    return dict(run_figures(r, sum(r["offsets"].values())), **prof,
+                barriers_checked=len(checked), launches=r["launches"])
+
+
+def phase_fj_check(dev, rounds: int = 8, per: int = 1 << 17) -> dict:
+    """The FULL join of tests/test_outer_join_sql.py's golden (auction A
+    FULL OUTER JOIN person P ON A.seller = P.id AND A.category = 10):
+    most persons have no category-10 auction, so right-only NULL rows
+    are many (at least a third of the persons). Exact against the
+    recount."""
+    pace = {"auction": per, "person": per // 4}     # persons lag
+    ddl = outer_ddl(FJ_SELECT, "fj", auction_chunk=per // 2,
+                    person_chunk=per // 4)
+    r, prof = run_twice(lambda: collect_join(
+        dev, ddl, "fj", rounds + 1, pace, 1 << 22))
+    nA, nP = r["offsets"]["auction"], r["offsets"]["person"]
+    keys, cnt = sink_net(r["sink"], pair_keys)
+    want = lj_recount(nA, nP, dev, full=True)
+    right_only = int((keys < (1 << 24)).sum())
+    if not (bool((cnt == 1).all()) and torch.equal(keys, want)) \
+            or right_only < nP // 3:
+        raise AssertionError(f"fj_check: {keys.numel()} rows against "
+                             f"{want.numel()}, {right_only} right-only")
+    return dict(run_figures(r, nA + nP), **prof, auctions=nA,
+                persons=nP, net_rows=int(keys.numel()),
+                right_only_rows=right_only, launches=r["launches"])
+
+
+def phase_tj_full(dev, rounds: int = 4) -> dict:
+    """bid B LEFT JOIN auction A FOR SYSTEM_TIME AS OF PROCTIME() ON
+    B.auction = A.id at 131072-bid chunks against 2^22 auctions (2^20 a
+    barrier), then the inner form: exactly one output row per bid (LEFT;
+    at most one, INNER), no retraction, every matched row's category the
+    generator's."""
+    cats = auction_cols_dev(LJ_AUCTIONS, dev, (8,))[0]
+    out = {}
+    for jt in ("LEFT", "INNER"):
+        pace = {"auction": LJ_AUCTIONS // rounds, "bid": OJ_CHUNK}
+        ddl = outer_ddl(TJ_SELECT.format(jt), "tj")
+        r, prof = run_twice(lambda: collect_join(
+            dev, ddl, "tj", rounds + 1, pace, 1 << 21))
+        sink = r["sink"]
+        k = int(sink.count)
+        d, v = [x[:k] for x in sink.data], [x[:k] for x in sink.valid]
+        nB = r["offsets"]["bid"]
+        matched = v[2]
+        got_cat = d[2][matched]
+        want_cat = cats[d[0][matched] - 1000]
+        if bool((sink.sign[:k] != 1).any()) or (
+                k != nB if jt == "LEFT" else k > nB) \
+                or not torch.equal(got_cat, want_cat) \
+                or int(matched.sum()) == 0:
+            raise AssertionError(f"tj_full {jt}: {k} rows for {nB} bids, "
+                                 f"{int(matched.sum())} matched")
+        out[jt.lower()] = dict(run_figures(r, sum(r["offsets"].values())),
+                               **prof, bids=nB, rows=k,
+                               matched=int(matched.sum()),
+                               launches=r["launches"])
+    return out
+
+
+def phase_lj_recover(dev, r1: int = 4, r2: int = 4,
+                     per: int = 1 << 15) -> dict:
+    """The LEFT join as a durable MV (ids only) on a Hummock store over a
+    local-fs object store, persons lagging: crash at barrier r1,
+    HummockStateStore.open, a new Session, recover() (both sides'
+    degrees rebuilt by replay), on to r1 + r2 barriers: the MV equals an
+    uninterrupted durable run's and the recount, and rows NULL-padded at
+    the crash carry their match after it (their NULL rows were
+    retracted through the rebuilt degrees)."""
+    pace = {"auction": per, "person": per // 8}     # persons lag
+    ddl = outer_ddl(LJ_SELECT, "lj", auction_chunk=per // 2,
+                    person_chunk=per // 8, durable_=1, sink=False,
+                    join_cap=1 << 20)
+
+    def mv_keys(rows):
+        a = torch.tensor([[x if x is not None else 0 for x in r[:2]]
+                          for r in rows], dtype=torch.int64, device=dev)
+        ok = torch.tensor([r[1] is not None for r in rows], device=dev)
+        return torch.sort(((a[:, 0] - 999) << 24)
+                          | torch.where(ok, a[:, 1] - 999, 0)).values
+
+    with tempfile.TemporaryDirectory(prefix="ljr_") as d:
+        a = session_run(dev, ddl, r1, 0, name="lj", crash=True, pace=pace,
+                        store=HummockStateStore(LocalFsObjectStore(d)))
+        b = session_run(dev, ddl, 0, 0, name="lj", pace=pace,
+                        recover_to=r1 + r2, store=lambda: HummockStateStore
+                        .open(LocalFsObjectStore(d)))
+    with tempfile.TemporaryDirectory(prefix="lju_") as d:
+        u = session_run(dev, ddl, r1 + r2, 0, name="lj", pace=pace,
+                        store=HummockStateStore(LocalFsObjectStore(d)))
+    got, ref = mv_keys(b["mv"]), mv_keys(u["mv"])
+    want = lj_recount(b["offsets"]["auction"], b["offsets"]["person"], dev)
+    null_then = {r[0] for r in a["mv"] if r[1] is None}
+    fixed = sum(1 for r in b["mv"] if r[1] is not None and r[0] in null_then)
+    if not (torch.equal(got, ref) and torch.equal(got, want)) or not fixed \
+            or b["join"].errs() != [0, 0, 0]:
+        raise AssertionError(f"lj_recover: {got.numel()} MV rows, "
+                             f"uninterrupted {ref.numel()}, recount "
+                             f"{want.numel()}, {fixed} NULL rows fixed")
+    return dict(run_figures(b, sum(b["offsets"].values())),
+                barriers_before_crash=r1,
+                barriers_after_recovery=b["barriers"],
+                recovery_ms=b["recovery_s"] * 1e3, mv_rows=len(b["mv"]),
+                null_rows_at_crash=len(null_then),
+                null_rows_matched_after_recovery=fixed,
+                launches=b["launches"])
+
+
+# ---- dynf
+
+DYNF_GT = "SELECT id, expires FROM auction WHERE expires > now()"
+DYNF_LT = "SELECT id, expires FROM auction WHERE expires < now()"
+
+
+class Scripted(Executor):
+    """A scripted input: its messages in order (the CPU tests feed JAX's
+    executors and the port's with it too)."""
+
+    def __init__(self, sch, msgs=(), pk=()):
+        self.schema = sch
+        self.pk_indices = pk
+        self._msgs = list(msgs)
+        self.identity = "Scripted"
+
+    async def execute(self):
+        for m in self._msgs:
+            yield m
+            await asyncio.sleep(0)
+
+
+def phase_dynf(dev, rounds: int = 4, steps: int = 16) -> dict:
+    """`WHERE expires > now()` through Session(device="cuda") over 2^22
+    auctions (2^20 a barrier; the generator's event time, 2017 in unix
+    us, is above the epoch clock's now, which counts from 2022: every
+    row passes and each barrier's flush recomputes the whole store),
+    net output equal to every auction's (id, expires); `< now()` over
+    2^20 auctions: nothing passes. Then the executor over the 2^22
+    auctions with a scripted rhs stepping through their expires range in
+    `steps` barriers: each barrier's changelog equals the recount of the
+    rows that crossed."""
+    from risingwave_tpu_torch.common.epoch import EpochPair
+    from risingwave_tpu_torch.stream.message import Barrier
+    out = {}
+    cap = ["SET streaming_dynamic_filter_capacity = 8388608"]
+
+    def id_key(d, v):
+        return d[0] - 1000
+
+    for name, sel, n in (("gt", DYNF_GT, LJ_AUCTIONS),
+                         ("lt", DYNF_LT, LJ_AUCTIONS // 4)):
+        pace = {"auction": n // rounds}
+        ddl = outer_ddl(sel, "dynf", extra=cap)
+        r, prof = run_twice(lambda: session_run(
+            dev, ddl, rounds + 1, 0, name="dynf", pace=pace,
+            collect=2 * n))
+        missing = [k for k in DYNF_KERNELS if r["launches"][k] == 0]
+        nA = r["offsets"]["auction"]
+        keys, cnt = sink_net(r["sink"], id_key)
+        ok = (torch.equal(keys, torch.arange(nA, device=dev))
+              and bool((cnt == 1).all())) if name == "gt" \
+            else keys.numel() == 0
+        if not ok or (missing and name == "gt"
+                      and torch.device(dev).type == "cuda"):
+            raise AssertionError(f"dynf {name}: {keys.numel()} rows for "
+                                 f"{nA} auctions; unlaunched {missing}")
+        out[name] = dict(run_figures(r, nA), **prof, auctions=nA,
+                         net_rows=int(keys.numel()),
+                         launches=r["launches"])
+        if name == "gt":
+            launches = r["launches"]
+    # the executor with a scripted rhs
+    n = LJ_AUCTIONS
+    aid, expires = auction_cols_dev(n, dev, (0, 6))
+    lo, hi = int(expires.min()), int(expires.max())
+    rhs = [lo - 1] + [lo + (hi - lo) * k // steps
+                      for k in range(1, steps + 1)]
+    lsch = make_schema(("id", DataType.INT64), ("expires", DataType.INT64))
+    rsch = make_schema(("now", DataType.TIMESTAMP))
+    e0 = 1 << 16
+
+    def barrier(k):
+        return Barrier(EpochPair(e0 * (k + 2), e0 * (k + 1) if k else 0),
+                       BarrierKind.INITIAL if k == 0
+                       else BarrierKind.CHECKPOINT)
+
+    def rchunk(rows):
+        ops = torch.zeros(4, dtype=torch.int8)
+        vals = torch.zeros(4, dtype=torch.int64)
+        for i, (o, v_) in enumerate(rows):
+            ops[i], vals[i] = o, v_
+        return StreamChunk((Column(vals.to(dev)),), ops.to(dev),
+                           (torch.arange(4) < len(rows)).to(dev), rsch)
+
+    left, right = [barrier(0)], [barrier(0)]
+    for off in range(0, n, OJ_CHUNK):
+        left.append(StreamChunk(
+            (Column(aid[off:off + OJ_CHUNK]),
+             Column(expires[off:off + OJ_CHUNK])),
+            torch.zeros(OJ_CHUNK, dtype=torch.int8, device=dev),
+            torch.ones(OJ_CHUNK, dtype=torch.bool, device=dev), lsch))
+    right.append(rchunk([(0, rhs[0])]))
+    for k in range(1, steps + 2):
+        left.append(barrier(k))
+        right.append(barrier(k))
+        if k <= steps:
+            right.append(rchunk([(1, rhs[k - 1]), (0, rhs[k])]))
+    ex = DynamicFilterExecutor(Scripted(lsch, left, (0,)),
+                               Scripted(rsch, right), 1, "greater_than",
+                               capacity=1 << 23, device=dev)
+
+    async def go():
+        logs, cur = [], []
+        async for m in ex.execute():
+            if isinstance(m, StreamChunk):
+                cur.append(m)
+            else:
+                logs.append(cur)
+                cur = []
+        return logs
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    logs = asyncio.run(go())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    checked = 0
+    for k in range(1, steps + 2):
+        chunks = logs[k]
+        if k == 1:
+            want_ins, want_del = expires > rhs[0], None
+        else:
+            want_ins = None
+            want_del = (expires > rhs[k - 2]) & (expires <= rhs[k - 1])
+        ids_ins, ids_del = [], []
+        for c in chunks:
+            ids = c.columns[0].data[c.vis]
+            ins = op_sign(c.ops)[c.vis] > 0
+            ids_ins.append(ids[ins])
+            ids_del.append(ids[~ins])
+        gi = torch.sort(torch.cat(ids_ins)).values if ids_ins else None
+        gd = torch.sort(torch.cat(ids_del)).values if ids_del else None
+        wi = aid[want_ins] if want_ins is not None else aid[:0]
+        wd = aid[want_del] if want_del is not None else aid[:0]
+        ok = ((gi if gi is not None else aid[:0]).numel() == wi.numel()
+              and (gd if gd is not None else aid[:0]).numel()
+              == wd.numel()
+              and (gi is None or torch.equal(gi, torch.sort(wi).values))
+              and (gd is None or torch.equal(gd, torch.sort(wd).values)))
+        if not ok:
+            raise AssertionError(f"dynf executor: barrier {k} differs")
+        checked += 1
+    out["scripted"] = dict(barriers_checked=checked, rows=n,
+                           wall_s=wall, barrier_wall_s=wall / (steps + 1),
+                           k29_launches=kernels.KERNELS[
+                               "dynamic_filter"].launches)
+    out["launches"] = launches
+    return out
+
+
 def main(argv) -> int:
     unknown = [a for a in argv if a != "--host-profile"]
     if unknown:
@@ -5878,8 +6728,20 @@ def main(argv) -> int:
     emit({"phase": "q5c_recover", "nvidia_smi": smi,
           **phase_q5c_recover(dev)})
     emit({"phase": "q5_sql", "nvidia_smi": smi, **phase_q5_sql(dev)})
+    res.update(phase_kernels_outer(dev))
+    lj = phase_lj_full(dev)
+    emit({"phase": "lj_full", "nvidia_smi": smi, **lj})
+    emit({"phase": "lj_retract", "nvidia_smi": smi,
+          **phase_lj_retract(dev)})
+    emit({"phase": "fj_check", "nvidia_smi": smi, **phase_fj_check(dev)})
+    emit({"phase": "tj_full", "nvidia_smi": smi, **phase_tj_full(dev)})
+    dynf = phase_dynf(dev)
+    emit({"phase": "dynf", "nvidia_smi": smi, **dynf})
+    emit({"phase": "lj_recover", "nvidia_smi": smi,
+          **phase_lj_recover(dev)})
     paths = {"q5": q5, "q7": q7, "q8": q8, "q17": q17, "q7d": q7d,
-             "q5t": q5t, "q2": q2, "q6": q6, "gagg": gagg, "q5c": q5c}
+             "q5t": q5t, "q2": q2, "q6": q6, "gagg": gagg, "q5c": q5c,
+             "lj": lj, "dynf": dynf}
     rows = []
     for name, k in kernels.KERNELS.items():
         r = res[name]

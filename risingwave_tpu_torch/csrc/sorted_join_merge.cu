@@ -35,7 +35,9 @@
 //   the merge position by a binary search over nh, a row copy;
 //   scatter_new: one thread per new row: its position by a binary search
 //   over the old khash and the kept-rank prefix, a row copy gathered
-//   through iorder from the chunk; finish: n, errs[2];
+//   through iorder from the chunk, and its degree: 0, or in an outer
+//   join its chunk row's count of matches (match_cnt[iorder[r]], from
+//   K28; the reference's lines 604-607); finish: n, errs[2];
 //   clear_tail: the second store's rows in [n, its previous n) get the
 //   sentinel and zeros, so every slot equals the reference's store.
 
@@ -44,10 +46,16 @@
 
 namespace {
 
-constexpr int kMaxCols = 8;
+// a store's columns: the sorted stores keep a whole input row (the
+// dynamic filter over Nexmark's 10-column auctions). The kernels are
+// instantiated for 8 and for 16 columns: the unrolled column loops of
+// the 8-column form keep the joins' narrower rows as fast as before.
+constexpr int kNarrowCols = 8;
+constexpr int kWideCols = 16;
 constexpr int kMaxMatch = 8;   // key + pk columns a retraction compares
 constexpr int kTailBlocks = 264;
 
+template <int kMaxCols>
 struct Store {
   const i64* khash;
   const void* col[kMaxCols];
@@ -56,6 +64,7 @@ struct Store {
   const int* n;
 };
 
+template <int kMaxCols>
 struct OutStore {
   i64* khash;
   void* col[kMaxCols];
@@ -64,6 +73,7 @@ struct OutStore {
   int* n;
 };
 
+template <int kMaxCols>
 struct Layout {
   int width[kMaxCols];
   int n_cols;
@@ -73,12 +83,15 @@ struct Layout {
   int n_match;
 };
 
+template <int kMaxCols>
 struct Chunk {
   const void* col[kMaxCols];
   const unsigned char* valid[kMaxCols];
 };
 
-__device__ __forceinline__ bool keep_init(const Store& st, const Layout& L,
+template <int kMaxCols>
+__device__ __forceinline__ bool keep_init(const Store<kMaxCols>& st,
+                                          const Layout<kMaxCols>& L,
                                           long long t) {
   if (t >= *st.n) return false;
   if (L.clean_col >= 0) {
@@ -88,8 +101,9 @@ __device__ __forceinline__ bool keep_init(const Store& st, const Layout& L,
   return true;
 }
 
+template <int kMaxCols>
 __global__ void __launch_bounds__(kScanThreads)
-victims_rows(Store st, long long C, const i64* __restrict__ h,
+victims_rows(Store<kMaxCols> st, long long C, const i64* __restrict__ h,
              const unsigned char* __restrict__ is_del, long long N,
              i64* __restrict__ dlo, i64* __restrict__ dlens,
              int* __restrict__ victim, i64* __restrict__ sums) {
@@ -109,8 +123,10 @@ victims_rows(Store st, long long C, const i64* __restrict__ h,
   if (threadIdx.x == 0) sums[blockIdx.x] = total;
 }
 
+template <int kMaxCols>
 __global__ void __launch_bounds__(kScanThreads)
-victims_expand(Store st, Layout L, Chunk ch, long long C,
+victims_expand(Store<kMaxCols> st, Layout<kMaxCols> L, Chunk<kMaxCols> ch,
+               long long C,
                const i64* __restrict__ doffs, const i64* __restrict__ dlo,
                long long N, long long M, int* __restrict__ victim) {
   const long long j = static_cast<long long>(blockIdx.x) * kScanThreads
@@ -152,15 +168,18 @@ __global__ void victims_apply(const unsigned char* __restrict__ is_del,
   }
 }
 
-__device__ __forceinline__ bool kept(const Store& st, const Layout& L,
+template <int kMaxCols>
+__device__ __forceinline__ bool kept(const Store<kMaxCols>& st,
+                                     const Layout<kMaxCols>& L,
                                      const unsigned char* removed,
                                      long long t) {
   return keep_init(st, L, t) && !(removed && removed[t]);
 }
 
+template <int kMaxCols>
 __global__ void __launch_bounds__(kScanThreads)
-keep_reduce(Store st, Layout L, const unsigned char* __restrict__ removed,
-            long long C, const int* __restrict__ spare_n,
+keep_reduce(Store<kMaxCols> st, Layout<kMaxCols> L,
+            const unsigned char* __restrict__ removed, long long C, const int* __restrict__ spare_n,
             int* __restrict__ hw, int* __restrict__ sums) {
   const long long t = static_cast<long long>(blockIdx.x) * kScanThreads
                       + threadIdx.x;
@@ -172,10 +191,13 @@ keep_reduce(Store st, Layout L, const unsigned char* __restrict__ removed,
   if (t == 0) *hw = *spare_n;
 }
 
-__device__ __forceinline__ void copy_row(const OutStore& out, long long to,
+template <int kMaxCols>
+__device__ __forceinline__ void copy_row(const OutStore<kMaxCols>& out,
+                                         long long to,
                                          const void* const* col,
                                          const unsigned char* const* valid,
-                                         const Layout& L, long long from) {
+                                         const Layout<kMaxCols>& L,
+                                         long long from) {
 #pragma unroll
   for (int c = 0; c < kMaxCols; ++c) {
     if (c < L.n_cols) {
@@ -185,8 +207,10 @@ __device__ __forceinline__ void copy_row(const OutStore& out, long long to,
   }
 }
 
+template <int kMaxCols>
 __global__ void __launch_bounds__(kScanThreads)
-scatter_state(Store st, OutStore out, Layout L,
+scatter_state(Store<kMaxCols> st, OutStore<kMaxCols> out,
+              Layout<kMaxCols> L,
               const unsigned char* __restrict__ removed, long long C,
               const i64* __restrict__ nh, long long N,
               const int* __restrict__ sums, int* __restrict__ kept_incl) {
@@ -206,11 +230,14 @@ scatter_state(Store st, OutStore out, Layout L,
   out.degree[pos] = st.degree[t];
 }
 
+template <int kMaxCols>
 __global__ void __launch_bounds__(kScanThreads)
-scatter_new(Store st, OutStore out, Layout L, Chunk ch, long long C,
+scatter_new(Store<kMaxCols> st, OutStore<kMaxCols> out, Layout<kMaxCols> L,
+            Chunk<kMaxCols> ch, long long C,
             const i64* __restrict__ nh, const i64* __restrict__ iorder,
             const int* __restrict__ n_new, long long N,
-            const int* __restrict__ kept_incl) {
+            const int* __restrict__ kept_incl,
+            const int* __restrict__ match_cnt) {
   const long long r = static_cast<long long>(blockIdx.x) * kScanThreads
                       + threadIdx.x;
   if (r >= N || r >= *n_new) return;
@@ -219,8 +246,9 @@ scatter_new(Store st, OutStore out, Layout L, Chunk ch, long long C,
   const long long pos = r + (idx > 0 ? kept_incl[idx - 1] : 0);
   if (pos >= C) return;
   out.khash[pos] = v;
-  copy_row(out, pos, ch.col, ch.valid, L, iorder[r]);
-  out.degree[pos] = 0;
+  const i64 src = iorder[r];
+  copy_row(out, pos, ch.col, ch.valid, L, src);
+  out.degree[pos] = match_cnt ? match_cnt[src] : 0;
 }
 
 __global__ void finish(const int* __restrict__ kept_incl, long long C,
@@ -235,7 +263,8 @@ __global__ void finish(const int* __restrict__ kept_incl, long long C,
   *n_out = static_cast<int>(after < C ? after : C);
 }
 
-__global__ void clear_tail(OutStore out, Layout L,
+template <int kMaxCols>
+__global__ void clear_tail(OutStore<kMaxCols> out, Layout<kMaxCols> L,
                            const int* __restrict__ hw) {
   const long long lo = *out.n;
   const long long hi = *hw;
@@ -259,9 +288,8 @@ __global__ void clear_tail(OutStore out, Layout L,
   }
 }
 
-}  // namespace
-
-extern "C" int rw_sj_merge(
+template <int kMaxCols>
+int merge_launch(
     const long long* khash, int n_cols, void* const* cols,
     void* const* valids, const int* widths, const int* degree,
     const int* own_n, long long C, long long* khash2, void* const* cols2,
@@ -271,15 +299,11 @@ extern "C" int rw_sj_merge(
     const unsigned char* is_del, const long long* h, long long M,
     int n_match, const int* match, long long* dlo, long long* doffs,
     long long* sums64, int* victim, unsigned char* removed, int* kept_incl,
-    int* sums32, int* hw, int* errs, void* stream) {
-  if (n_cols < 1 || n_cols > kMaxCols || n_match < 0 || n_match > kMaxMatch
-      || C < 1 || N < 0 || clean_col >= n_cols) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  Store st = {};
-  OutStore out = {};
-  Layout L = {};
-  Chunk ch = {};
+    int* sums32, int* hw, const int* match_cnt, int* errs, void* stream) {
+  Store<kMaxCols> st = {};
+  OutStore<kMaxCols> out = {};
+  Layout<kMaxCols> L = {};
+  Chunk<kMaxCols> ch = {};
   st.khash = khash;
   st.degree = degree;
   st.n = own_n;
@@ -308,28 +332,60 @@ extern "C" int rw_sj_merge(
     cudaError_t e = cudaMemsetAsync(removed, 0, C, s);
     if (e != cudaSuccess) return static_cast<int>(e);
     const long long nb = (N + kScanThreads - 1) / kScanThreads;
-    victims_rows<<<static_cast<unsigned>(nb), kScanThreads, 0, s>>>(
+    victims_rows<kMaxCols>
+        <<<static_cast<unsigned>(nb), kScanThreads, 0, s>>>(
         st, C, h, is_del, N, dlo, doffs, victim, sums64);
     rw_scan_sums<long long><<<1, kSumsThreads, 0, s>>>(sums64, nb);
     rw_scan_apply<long long><<<static_cast<unsigned>(nb), kScanThreads, 0,
                                s>>>(doffs, N, sums64);
-    victims_expand<<<rw_blocks(M, kScanThreads), kScanThreads, 0, s>>>(
+    victims_expand<kMaxCols>
+        <<<rw_blocks(M, kScanThreads), kScanThreads, 0, s>>>(
         st, L, ch, C, doffs, dlo, N, M, victim);
     victims_apply<<<rw_blocks(N, kScanThreads), kScanThreads, 0, s>>>(
         is_del, victim, N, C, removed, errs);
     rm = removed;
   }
   const long long cb = (C + kScanThreads - 1) / kScanThreads;
-  keep_reduce<<<static_cast<unsigned>(cb), kScanThreads, 0, s>>>(
+  keep_reduce<kMaxCols>
+      <<<static_cast<unsigned>(cb), kScanThreads, 0, s>>>(
       st, L, rm, C, n2, hw, sums32);
   rw_scan_sums<int><<<1, kSumsThreads, 0, s>>>(sums32, cb);
-  scatter_state<<<static_cast<unsigned>(cb), kScanThreads, 0, s>>>(
+  scatter_state<kMaxCols>
+      <<<static_cast<unsigned>(cb), kScanThreads, 0, s>>>(
       st, out, L, rm, C, nh, N, sums32, kept_incl);
   if (N > 0) {
-    scatter_new<<<rw_blocks(N, kScanThreads), kScanThreads, 0, s>>>(
-        st, out, L, ch, C, nh, iorder, n_new, N, kept_incl);
+    scatter_new<kMaxCols>
+        <<<rw_blocks(N, kScanThreads), kScanThreads, 0, s>>>(
+        st, out, L, ch, C, nh, iorder, n_new, N, kept_incl, match_cnt);
   }
   finish<<<1, 1, 0, s>>>(kept_incl, C, N > 0 ? n_new : nullptr, n2, errs);
-  clear_tail<<<kTailBlocks, kScanThreads, 0, s>>>(out, L, hw);
+  clear_tail<kMaxCols><<<kTailBlocks, kScanThreads, 0, s>>>(out, L, hw);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int rw_sj_merge(
+    const long long* khash, int n_cols, void* const* cols,
+    void* const* valids, const int* widths, const int* degree,
+    const int* own_n, long long C, long long* khash2, void* const* cols2,
+    void* const* valids2, int* degree2, int* n2, int clean_col,
+    long long wm, long long N, const long long* nh, const long long* iorder,
+    const int* n_new, void* const* chunk_cols, void* const* chunk_valids,
+    const unsigned char* is_del, const long long* h, long long M,
+    int n_match, const int* match, long long* dlo, long long* doffs,
+    long long* sums64, int* victim, unsigned char* removed, int* kept_incl,
+    int* sums32, int* hw, const int* match_cnt, int* errs, void* stream) {
+  if (n_cols < 1 || n_cols > kWideCols || n_match < 0 || n_match > kMaxMatch
+      || C < 1 || N < 0 || clean_col >= n_cols) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto launch = n_cols <= kNarrowCols ? merge_launch<kNarrowCols>
+                                      : merge_launch<kWideCols>;
+  return launch(
+      khash, n_cols, cols, valids, widths, degree, own_n, C, khash2,
+      cols2, valids2, degree2, n2, clean_col, wm, N, nh, iorder, n_new,
+      chunk_cols, chunk_valids, is_del, h, M, n_match, match, dlo, doffs,
+      sums64, victim, removed, kept_incl, sums32, hw, match_cnt, errs,
+      stream);
 }

@@ -31,7 +31,9 @@
 //      key whose row owns a long range spreads over many threads; it
 //      finds its row by a binary search over the offsets, exactly as the
 //      reference does, so every slot, visible or not, holds the same
-//      values as the reference's buffer.
+//      values as the reference's buffer. An outer join also gets each
+//      slot's chunk row and other-side row (slot_src, slot_pos, int32),
+//      which K28 (csrc/outer_join.cu) reads after the join condition.
 
 #include "key_hash.cuh"
 #include "scan.cuh"
@@ -95,7 +97,8 @@ expand(Keys keys, const i64* __restrict__ offs, const i64* __restrict__ lo,
        long long N, const int* __restrict__ other_n, long long Co,
        const signed char* __restrict__ ops, Gather own, Gather oth,
        long long M, signed char* __restrict__ ops_out,
-       unsigned char* __restrict__ emit, int* __restrict__ errs) {
+       unsigned char* __restrict__ emit, int* __restrict__ slot_src,
+       int* __restrict__ slot_pos, int* __restrict__ errs) {
   const long long j = static_cast<long long>(blockIdx.x) * kScanThreads
                       + threadIdx.x;
   if (j >= M) return;
@@ -131,6 +134,10 @@ expand(Keys keys, const i64* __restrict__ offs, const i64* __restrict__ lo,
   const signed char op = ops[srcc];
   ops_out[j] = (op == 0 || op == 3) ? 0 : 1;   // Insert : Delete
   emit[j] = e;
+  if (slot_src) {
+    slot_src[j] = static_cast<int>(srcc);
+    slot_pos[j] = static_cast<int>(pos);
+  }
   if (j == 0 && total > M) {
     // int32 accumulator, as the reference's errs (wraps the same way)
     errs[0] = static_cast<int>(static_cast<unsigned>(errs[0])
@@ -151,7 +158,8 @@ extern "C" int rw_sj_probe(
     void* const* oth_dst, void* const* oth_dst_valid, const int* oth_width,
     long long M, long long* h, long long* ins_h, long long* lo,
     long long* offs, long long* sums, signed char* ops_out,
-    unsigned char* emit, int* errs, void* stream) {
+    unsigned char* emit, int* slot_src, int* slot_pos, int* errs,
+    void* stream) {
   if (n_keys < 1 || n_keys > kMaxKeys || n_own < 0 || n_own > kMaxCols
       || n_oth < 0 || n_oth > kMaxCols || N < 1 || M < 1 || Co < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -189,6 +197,6 @@ extern "C" int rw_sj_probe(
   rw_scan_apply<long long><<<static_cast<unsigned>(nb), kScanThreads, 0, s>>>(offs, N, sums);
   expand<<<rw_blocks(M, kScanThreads), kScanThreads, 0, s>>>(
       keys, offs, lo, N, other_n, Co, ops, own, oth, M, ops_out, emit,
-      errs);
+      slot_src, slot_pos, errs);
   return static_cast<int>(cudaGetLastError());
 }

@@ -28,12 +28,18 @@ and executor arguments:
                             EMIT ON WINDOW CLOSE) over the relation, a
                             row_id_gen first for a keyless input, then
                             the final projection
-  JOIN ... ON            -> sorted_join fragment (equi conjunctions are
+  [LEFT|RIGHT|FULL [OUTER]] JOIN ... ON
+                         -> sorted_join fragment (equi conjunctions are
                             key columns, the rest the non-equi
                             condition), watermark-derived state cleaning
-                            ("pair" for windowed equi-joins, "band" for
-                            interval joins), join-input pruning pushed
-                            into the upstream fragments
+                            for inner joins ("pair" for windowed
+                            equi-joins, "band" for interval joins),
+                            join-input pruning pushed into the upstream
+                            fragments; outer joins never clean, carry no
+                            watermark and are not append-only
+  JOIN t FOR SYSTEM_TIME AS OF PROCTIME() ON ...
+                         -> a temporal sorted_join (inner or left, over
+                            an append-only stream side)
   global aggs over L JOIN dim JOIN (SELECT k, aggs FROM L GROUP BY k) A
                          -> one snapshot_join_agg fragment fed by the two
                             sources (TPC-H q17's shape, append-only
@@ -41,17 +47,19 @@ and executor arguments:
   WHERE                  -> a filter node above the relation; over an
                             inner join, the conjuncts of one side are
                             pushed below the join first
+  WHERE col OP now()     -> a dynamic_filter node against a now
+                            fragment (the static conjuncts filter first;
+                            a keyless input gets a row_id first)
   ORDER BY ... LIMIT     -> a retract_top_n fragment (one actor) over the
                             query's changelog
   plain SELECT           -> project (+ row_id for a keyless MV pk)
   CREATE SINK            -> the plan ends in a sink node
 
 What the JAX planner also plans raises `BindError("... not ported yet
-(ROADMAP A9)")` here, never a different plan: NOW() dynamic filters,
-bool_and / bool_or / approx_count_distinct, MV-on-MV scans, the
-mesh top-N and the sharded over-window (`streaming_parallelism_devices`
-> 1), outer and temporal joins, non-integer join keys (hash join),
-parallelism > 1 and remote fragment placement.
+(ROADMAP A9)")` here, never a different plan: bool_and / bool_or /
+approx_count_distinct, MV-on-MV scans, the mesh top-N and the sharded
+over-window (`streaming_parallelism_devices` > 1), non-integer inner
+join keys (hash join), parallelism > 1 and remote fragment placement.
 """
 
 from __future__ import annotations
@@ -294,11 +302,6 @@ class StreamPlanner:
         raise BindError(f"cannot plan relation {rel!r}")
 
     def _plan_join(self, rel: ast.JoinRel) -> tuple[int, Scope, RelInfo]:
-        jt = getattr(rel, "join_type", "inner")
-        if jt != "inner":
-            raise not_ported(f"{jt.upper()} joins")
-        if getattr(rel, "temporal", False):
-            raise not_ported("temporal joins")
         lf, ls, li = self.plan_rel(rel.left)
         rf, rs, ri = self.plan_rel(rel.right)
 
@@ -334,19 +337,32 @@ class StreamPlanner:
             for r in residue[1:]:
                 e = ast.BinOp("and", e, r)
             cond = bind_scalar(e, jscope)
-        # watermark-driven state cleaning (inner joins): a side evicts
-        # rows below its watermark on column c when future matches are
-        # impossible — (1) c is an equi-key whose partner column is also
-        # watermarked ("pair": windowed joins), or (2) a residual
-        # conjunct bands c against a watermarked column of the other
-        # side ("band": interval joins)
+        jt = getattr(rel, "join_type", "inner")
+        temporal = getattr(rel, "temporal", False)
+        if temporal and jt not in ("inner", "left"):
+            raise BindError("temporal joins are INNER or LEFT")
+        if temporal and not li.append_only:
+            # a retracting stream side would emit deletes for rows
+            # downstream never saw (the table side's emissions are
+            # suppressed)
+            raise BindError(
+                "temporal joins need an append-only stream side")
+        # watermark-driven state cleaning (inner joins; outer joins never
+        # clean, for their degrees): a side evicts rows below its
+        # watermark on column c when future matches are impossible — (1)
+        # c is an equi-key whose partner column is also watermarked
+        # ("pair": windowed joins), or (2) a residual conjunct bands c
+        # against a watermarked column of the other side ("band":
+        # interval joins)
         clean_l = clean_r = None
         for kpos, (lk, rk) in enumerate(zip(lkeys, rkeys)):
+            if jt != "inner":
+                break
             if lk in li.wm_cols and rk in ri.wm_cols:
                 clean_l = ("pair", lk, kpos)
                 clean_r = ("pair", rk, kpos)
                 break
-        if clean_l is None and clean_r is None:
+        if clean_l is None and clean_r is None and jt == "inner":
             for conj in residue:
                 b = band_bound(conj, ls, rs, li.wm_cols, ri.wm_cols)
                 if b is None:
@@ -374,6 +390,9 @@ class StreamPlanner:
             np.issubdtype(sc.schema[i].data_type.np_dtype, np.integer)
             for sc, keys in ((ls, lkeys), (rs, rkeys)) for i in keys)
         if not key_int:
+            if jt != "inner" or temporal:
+                raise BindError(
+                    "outer/temporal joins require integer-comparable keys")
             raise not_ported("hash join (non-integer join keys)")
         wd = 1 if self.cfg("streaming_watchdog", 1) else None
         # per-side match buffers: probing a side whose rows are unique
@@ -384,7 +403,7 @@ class StreamPlanner:
         node = Node("sorted_join", dict(
             left_key_indices=lkeys, right_key_indices=rkeys,
             left_pk_indices=list(lpk), right_pk_indices=list(rpk),
-            condition=cond, join_type=jt, temporal=False,
+            condition=cond, join_type=jt, temporal=temporal,
             capacity=self.cfg("streaming_join_capacity", 1 << 17),
             match_factor=mf, match_factors=(mf_l, mf_r),
             append_only=(li.append_only, ri.append_only),
@@ -399,12 +418,17 @@ class StreamPlanner:
         off = len(ls.schema)
         jkey = tuple(lpk) + tuple(off + i for i in rpk)
         # min-of-sides watermarks flow on equi-key columns watermarked on
-        # both sides
+        # both sides; inner joins only: an outer join's NULL-padded rows
+        # emit values on the padded side's key column at any later time
         out_wm = set()
         for lk, rk in zip(lkeys, rkeys):
-            if lk in li.wm_cols and rk in ri.wm_cols:
+            if jt == "inner" and lk in li.wm_cols and rk in ri.wm_cols:
                 out_wm |= {lk, off + rk}
-        ao_out = li.append_only and ri.append_only
+        # temporal: the table side's updates emit nothing, so the output
+        # is append-only iff the stream side is
+        ao_out = ((li.append_only and jt == "inner") if temporal
+                  else (li.append_only and ri.append_only
+                        and jt == "inner"))
         return (f.fid, jscope,
                 RelInfo(stream_key=jkey, append_only=ao_out,
                         wm_cols=frozenset(out_wm)))
@@ -480,11 +504,51 @@ class StreamPlanner:
             scope, info, sel = self._optimize_join(jinfo, scope, info, sel)
 
         if sel.where is not None:
-            # `col > now()`-style conjuncts lower to a dynamic filter in
-            # the JAX planner
-            if any(_compares_with_now(c)
-                   for c in split_conjuncts(sel.where)):
-                raise not_ported("NOW() dynamic filters")
+            # `col OP now()` conjuncts lower to a dynamic filter against a
+            # now fragment; the rest become a plain filter
+            plain, dynamic = [], []
+            for conj in split_conjuncts(sel.where):
+                df = _now_conjunct(conj, scope)
+                if df is None:
+                    plain.append(conj)
+                else:
+                    dynamic.append(df)
+            # static predicates graft FIRST: rows they reject must never
+            # occupy the dynamic filter's bounded device state
+            if dynamic and plain:
+                frag.root = Node("filter", dict(
+                    predicate=bind_scalar(_and_all(plain), scope)),
+                    inputs=(frag.root,))
+                plain = []
+            for key_col, op in dynamic:
+                if info.stream_key is None:
+                    if not info.append_only:
+                        raise BindError(
+                            "keyless retracting dynamic-filter input")
+                    frag.root = Node("row_id_gen", {},
+                                     inputs=(frag.root,))
+                    sch2 = Schema(tuple(scope.schema) + (
+                        Field("_row_id", DataType.SERIAL),))
+                    scope = Scope(sch2, dict(scope.names))
+                    info = RelInfo((len(sch2) - 1,), True, info.wm_cols)
+                now_f = self.graph.add(Fragment(
+                    self.fid(), Node("now", {}), dispatch="broadcast"))
+                frag.root = Node("dynamic_filter", dict(
+                    key_col=key_col, op=op,
+                    pk_indices=list(info.stream_key),
+                    capacity=self.cfg("streaming_dynamic_filter_capacity",
+                                      1 << 14),
+                    watchdog_interval=(
+                        1 if self.cfg("streaming_watchdog", 1) else None)),
+                    inputs=(frag.root, Exchange(now_f.fid)))
+                # the output retracts when the threshold moves
+                info = RelInfo(info.stream_key, False, info.wm_cols)
+            sel = ast.Select(sel.items, sel.rel,
+                             _and_all(plain) if plain else None,
+                             sel.group_by, sel.order_by, sel.limit,
+                             sel.offset, emit_on_close=getattr(
+                                 sel, "emit_on_close", False))
+        if sel.where is not None:
             frag.root = Node("filter", dict(
                 predicate=bind_scalar(sel.where, scope)),
                 inputs=(frag.root,))
@@ -1390,19 +1454,33 @@ class StreamPlanner:
         return True
 
 
-def _compares_with_now(conj) -> bool:
-    """Whether the conjunct is `col OP now()` (either side, OP an order
-    comparison): what the JAX planner lowers to a dynamic filter."""
+def _now_conjunct(conj, scope: Scope):
+    """`col OP now()` (either side, OP an order comparison) -> (column
+    index, the dynamic filter's op), else None."""
     if not isinstance(conj, ast.BinOp) or conj.op not in (
             "greater_than", "greater_than_or_equal", "less_than",
             "less_than_or_equal"):
-        return False
+        return None
 
     def is_now(e):
         return isinstance(e, ast.Func) and e.name == "now" and not e.args
 
-    return (isinstance(conj.left, ast.ColRef) and is_now(conj.right)) or \
-        (is_now(conj.left) and isinstance(conj.right, ast.ColRef))
+    flip = {"greater_than": "less_than",
+            "greater_than_or_equal": "less_than_or_equal",
+            "less_than": "greater_than",
+            "less_than_or_equal": "greater_than_or_equal"}
+    if isinstance(conj.left, ast.ColRef) and is_now(conj.right):
+        return scope.resolve(conj.left)[0], conj.op
+    if is_now(conj.left) and isinstance(conj.right, ast.ColRef):
+        return scope.resolve(conj.right)[0], flip[conj.op]
+    return None
+
+
+def _and_all(conjs: list):
+    e = conjs[0]
+    for c in conjs[1:]:
+        e = ast.BinOp("and", e, c)
+    return e
 
 
 def split_conjuncts(e) -> list:

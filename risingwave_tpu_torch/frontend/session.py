@@ -170,6 +170,8 @@ class Session:
         "streaming_top_n_capacity": int,
         # the over-window's store (it grows at 0.7 occupancy)
         "streaming_over_window_capacity": int,
+        # the NOW() dynamic filter's store (it grows at 0.7 occupancy)
+        "streaming_dynamic_filter_capacity": int,
         "streaming_parallelism_devices": int,
         # 0 disables the snapshot join-agg fusion (the shape then plans
         # as a changelog join cascade under a simple agg)

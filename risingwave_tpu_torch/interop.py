@@ -227,3 +227,28 @@ def simple_agg_state_to_numpy(ex) -> dict:
                 prev_emit=(None if ex._prev_emit is None
                            else [np.asarray(v) for v in ex._prev_emit]),
                 emitted=bool(ex._emitted))
+
+
+def dynamic_filter_state_from_numpy(ex, khash: np.ndarray,
+                                    cols: Sequence[np.ndarray],
+                                    valids: Sequence[np.ndarray], n: int,
+                                    em_hash: np.ndarray,
+                                    em_cols: Sequence[np.ndarray],
+                                    em_valids: Sequence[np.ndarray],
+                                    em_n: int, rhs: Optional[int] = None,
+                                    errs: Optional[Sequence[int]] = None
+                                    ) -> None:
+    """Install a dynamic filter's state in the port's executor `ex`: the
+    sorted store, the last emitted (passing) set and the rhs scalar, the
+    JAX package's `DynamicFilterExecutor` fields (khash, cols, valids,
+    n, em_*, _rhs), same layout; `errs` in its [row overflow, delete
+    miss] order."""
+    over_window_state_from_numpy(ex, khash, cols, valids, n, em_hash,
+                                 em_cols, em_valids, em_n, errs)
+    ex._rhs = rhs
+
+
+def dynamic_filter_state_to_numpy(ex) -> dict:
+    """A dynamic filter's store, last emitted set, rhs and errs as numpy
+    arrays and host values."""
+    return dict(over_window_state_to_numpy(ex), rhs=ex._rhs)

@@ -19,8 +19,9 @@ placement (`build_partial_graph`, `cluster_remote_edges`,
 `_infer_fragment_schema`), per-fragment rebuild and channel replay,
 mesh-chain fusion, memory and stats registration, and the builders of
 node kinds the port cannot plan yet (the stateless simple
-and the other aggregates, dynamic filters, joins other than sorted, the
-group and sharded top-Ns, the sharded over-window, stream_scan, dedup);
+and the other aggregates, joins other than sorted, the
+group and sharded top-Ns, the sharded over-window, stream_scan, dedup,
+project_set);
 durable snapshot join-agg state; sinks other than `blackhole_device`;
 connectors other than `nexmark` and `tpch`.
 """
@@ -38,10 +39,11 @@ from ..state.state_table import StateTable
 from ..state.store import StateStore
 from ..stream import (
     Actor, BroadcastDispatcher, Channel, ChannelInput,
-    DeviceBlackholeSinkExecutor, EowcOverWindowExecutor, FilterExecutor,
+    DeviceBlackholeSinkExecutor, DynamicFilterExecutor,
+    EowcOverWindowExecutor, FilterExecutor,
     GeneralOverWindowExecutor, HashAggExecutor, HopWindowExecutor,
     MaterializeExecutor,
-    NoOpExecutor, ProjectExecutor, RetractableTopNExecutor,
+    NoOpExecutor, NowExecutor, ProjectExecutor, RetractableTopNExecutor,
     RowIdGenExecutor, SimpleAggExecutor, SimpleDispatcher,
     SnapshotJoinAggExecutor, SortedJoinExecutor, SourceExecutor,
 )
@@ -367,9 +369,6 @@ def _build_sorted_join(args, inputs, ctx: ActorCtx, key):
                 tuple(args["left_pk_indices" if s == 0
                            else "right_pk_indices"]))
             for s, inp in enumerate(inputs))
-    if args.get("temporal"):
-        raise NotImplementedError("temporal joins are not ported yet "
-                                  "(ROADMAP A7)")
     return SortedJoinExecutor(
         inputs[0], inputs[1],
         left_key_indices=args["left_key_indices"],
@@ -388,6 +387,28 @@ def _build_sorted_join(args, inputs, ctx: ActorCtx, key):
         clean_specs=(tuple(args["clean_specs"])
                      if args.get("clean_specs") is not None else None),
         state_tables=state_tables,
+        temporal=bool(args.get("temporal", False)),
+        watchdog_interval=args.get("watchdog_interval", 1),
+        device=ctx.env.device)
+
+
+@register_builder("now")
+def _build_now(args, inputs, ctx: ActorCtx, key):
+    # the now fragment is a source of its own: the coordinator's barriers
+    # reach it through a queue, as they reach a source
+    barrier_q: asyncio.Queue = asyncio.Queue()
+    ctx.env.coord.register_source(barrier_q)
+    ctx.env.pending_source_queues.append(barrier_q)
+    return NowExecutor(barrier_q, device=ctx.env.device)
+
+
+@register_builder("dynamic_filter")
+def _build_dynamic_filter(args, inputs, ctx: ActorCtx, key):
+    return DynamicFilterExecutor(
+        inputs[0], inputs[1], args["key_col"],
+        op=args.get("op", "greater_than"),
+        capacity=args.get("capacity", 1 << 14),
+        pk_indices=args.get("pk_indices"),
         watchdog_interval=args.get("watchdog_interval", 1),
         device=ctx.env.device)
 
@@ -600,8 +621,10 @@ def infer_fragment_schemas(graph: StreamGraph,
             return Schema(tuple(SchemaField(nm, e.ret_type)
                                 for nm, e in zip(names, a["exprs"])))
         if k in ("filter", "no_op", "retract_top_n", "materialize",
-                 "sink"):
+                 "sink", "dynamic_filter"):
             return ins[0]
+        if k == "now":
+            return Schema((SchemaField("now", DataType.TIMESTAMP),))
         if k == "hop_window":
             fields = tuple(ins[0]) + (
                 SchemaField("window_start", DataType.TIMESTAMP),

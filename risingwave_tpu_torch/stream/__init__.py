@@ -1,5 +1,6 @@
 from .actor import Actor
 from .align import barrier_align
+from .dynamic import DynamicFilterExecutor, NowExecutor
 from .exchange import (
     BroadcastDispatcher, Channel, ChannelInput, Dispatcher, SimpleDispatcher,
 )
@@ -24,6 +25,7 @@ from .source import SourceExecutor
 
 __all__ = ["Actor", "barrier_align", "BroadcastDispatcher", "Channel",
            "ChannelInput", "Dispatcher", "SimpleDispatcher", "Executor",
+           "DynamicFilterExecutor", "NowExecutor",
            "StatefulUnaryExecutor", "StatelessUnaryExecutor",
            "EowcOverWindowExecutor", "GeneralOverWindowExecutor",
            "SimpleAggExecutor", "WindowSpec",

@@ -1,5 +1,5 @@
-"""Sorted-merge streaming join, inner joins (port of
-risingwave_tpu/stream/sorted_join.py).
+"""Sorted-merge streaming join: inner, LEFT, RIGHT and FULL outer, and
+temporal joins (port of risingwave_tpu/stream/sorted_join.py).
 
 Semantics match the reference's two-sided streaming equi-join: a chunk
 from one side probes the OTHER side's stored rows and emits joined
@@ -21,16 +21,32 @@ collision only costs a compare). One chunk's apply is:
             match_factor x chunk rows), exact key recheck, the gather of
             both sides' columns;
   condition kernel K5 AND-s the non-equi condition into the emit mask;
+  outer     kernel K28 (`csrc/outer_join.cu`), outer joins only: each
+            chunk row's count of condition-passing matches, the signed
+            degree delta onto the other side's rows, the NET 0 <-> >0
+            transitions of those rows (their NULL-padded rows retracted
+            or re-emitted) and this side's unmatched rows, NULL keys
+            included, NULL-padded: the output grows to [M matches | M
+            transitions | N own rows] (the reference's managed_state/
+            join/mod.rs:252-261 degree design);
   sort      the new rows by hash (kernel K11, `csrc/radix_sort.cu`, a
             stable radix sort over the hash's 63 bits);
   merge     kernel K7 (`csrc/sorted_join_merge.cu`): retraction victims,
             inline watermark eviction, and the merge of the kept rows
-            with the new rows into the side's second store, which is then
+            with the new rows (an outer join's new rows take their match
+            count as degree) into the side's second store, which is then
             swapped in. Barrier-time eviction of an idle side is the same
             kernel with no new rows.
 
-Errors accumulate on the device in `errs` [match overflow, delete miss,
-row overflow] and are read only by the watchdog (or by a caller).
+A temporal join (FOR SYSTEM_TIME AS OF PROCTIME(), inner or left; the
+reference's temporal_join.rs) is the same executor: the right side is a
+table whose updates maintain its state and the degrees they scatter onto
+left rows, but emit nothing. Outer joins refuse watermark state
+cleaning: an evicted row could not retract its matches' degrees.
+
+Errors accumulate on the device in `errs` [match overflow (transitions
+past their buffer included), delete miss, row overflow] and are read
+only by the watchdog (or by a caller).
 
 Durable state (one state table a side): at every barrier a side that
 changed is diffed against a device copy of itself as of the last
@@ -38,20 +54,20 @@ checkpoint (kernel K17, `csrc/snapshot_diff.cu`: row hashes, two K11
 sorts, an exact compare against the first candidate, a compaction
 straight into one packed int64 buffer), the counts and then the packed
 rows are fetched, and deletes then inserts are written to the side's
-state table. Recovery replays the stored RIGHT rows, then the LEFT
-rows, through the apply (K6/K7) with a generous match buffer, so the
-degrees need no table of their own.
+state table. Degrees are not persisted: recovery replays the stored
+RIGHT rows, then the LEFT rows, through the apply (K6, K28, K7) with a
+generous match buffer, which rebuilds both sides' degrees.
 
-On a CUDA device the match buffers, the second stores and the kernels'
+On a CUDA device the probe scratch, the second stores and the kernels'
 scratch are allocated once per side and reused: an output chunk's
 tensors are valid until this side's next apply, so a consumer that
 keeps rows past that copies them (the device sinks reduce or copy at
 once). On the CPU every apply allocates, as the reference does.
 
-Left out of this slice (ROADMAP Queue A, A7): outer joins and degree
-transitions, temporal joins, the memory manager (spill/reload),
-capacity growth (`_maybe_grow`; `grow_sorted_arrays` serves the sorted
-store of the top-N) and the sharded subclass.
+Left out of this slice (ROADMAP Queue A, A7): the memory manager
+(spill/reload; the reference refuses it for outer joins too), capacity
+growth (`_maybe_grow`; `grow_sorted_arrays` serves the sorted store of
+the top-N and the dynamic filter) and the sharded subclass.
 """
 
 from __future__ import annotations
@@ -86,6 +102,9 @@ HASH_BITS = 63
 # "no watermark yet" eviction threshold, below any real event time
 NO_WATERMARK = -(1 << 62)
 MAX_KEYS, MAX_COLS, MAX_MATCH = 4, 8, 8   # csrc/sorted_join_*.cu
+# columns of a store that K7 merges (csrc/sorted_join_merge.cu) and that
+# K29 and K21's diff read (csrc/dynamic_filter.cu, csrc/set_diff.cuh)
+MAX_STORE_COLS = 16
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -101,7 +120,7 @@ K_PROBE = kernels.register(kernels.CudaKernel(
     functions={"rw_sj_probe": [
         _I, _PP, _PP, _PI, _P, _P, _P, _L, _P, _P, _L,
         _I, _PP, _PP, _PP, _PP, _PI, _I, _PP, _PP, _PP, _PP, _PI,
-        _L, _P, _P, _P, _P, _P, _P, _P, _P, _P]}))
+        _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P]}))
 
 # K7. Replaces stream/sorted_join.py:_apply_impl's side update (535-612)
 # and _evict_impl (615).
@@ -111,7 +130,16 @@ K_MERGE = kernels.register(kernels.CudaKernel(
     functions={"rw_sj_merge": [
         _P, _I, _PP, _PP, _PI, _P, _P, _L, _P, _PP, _PP, _P, _P, _I, _L,
         _L, _P, _P, _P, _PP, _PP, _P, _P, _L, _I, _PI,
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P]}))
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P]}))
+
+# K28. Replaces stream/sorted_join.py:_apply_impl's outer half (443-533).
+K_OUTER = kernels.register(kernels.CudaKernel(
+    "outer_join",
+    replaces="risingwave_tpu/stream/sorted_join.py:443",
+    functions={"rw_oj_apply": [
+        _L, _L, _L, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _PP, _PP, _PP, _PP, _PI, _I, _PP, _PP, _PP, _PP, _PI,
+        _P, _P, _P, _P, _P, _P, _P, _P]}))
 
 
 # K17. Replaces stream/sorted_join.py:_diff_impl (655) with _row_lanes
@@ -324,8 +352,9 @@ def probe_plain(key_cols, active, is_ins, ops, other: SortedSideState,
                 other_key_idx, own_cols: Sequence[Column], M: int,
                 errs: torch.Tensor, bufs=None):
     """Plain PyTorch version of kernel K6. Returns (h, ins_h, own match
-    columns, other match columns, ops, emit); adds the match overflow to
-    errs[0] in place."""
+    columns, other match columns, ops, emit, src, pos): src and pos are
+    each match slot's chunk row and other-side row (int64). Adds the
+    match overflow to errs[0] in place."""
     N = active.shape[0]
     Co = other.capacity
     h = key_hash(key_cols)
@@ -346,18 +375,23 @@ def probe_plain(key_cols, active, is_ins, ops, other: SortedSideState,
     oth_m = [Column(r[pos], v[pos]) for r, v in zip(other.cols, other.valids)]
     ops_out = torch.where(op_sign(ops)[srcc] > 0, OP_INSERT,
                           OP_DELETE).to(torch.int8)
-    return h, ins_h, own_m, oth_m, ops_out, emit
+    return h, ins_h, own_m, oth_m, ops_out, emit, srcc, pos
 
 
 def probe(key_cols, active, is_ins, ops, other: SortedSideState,
           other_key_idx, own_cols: Sequence[Column], M: int,
-          errs: torch.Tensor, bufs: Optional[_Buffers] = None):
+          errs: torch.Tensor, bufs: Optional[_Buffers] = None,
+          rows: Optional[int] = None, slots: bool = False):
     """Kernel K6 on a CUDA device, the plain version on the CPU. Same
-    contract as `probe_plain`. The per-row scratch (h, ins_h, lo, offs)
+    contract as `probe_plain`, except: the match columns, ops and emit
+    have `rows` (>= M, default M) rows, of which K6 writes the first M
+    (an outer join's K28 writes the rest), every column has a valid mask
+    when rows > M, and src and pos (int32, in `bufs`) are written only
+    with `slots` (else None). The per-row scratch (h, ins_h, lo, offs)
     lives in `bufs` and is valid until the side's next apply; the match
-    buffer (own and other columns, ops, emit) is allocated fresh on
-    every call, because it leaves the join as an output chunk and a
-    downstream channel may still hold it when the next apply runs."""
+    buffer is allocated fresh on every call, because it leaves the join
+    as an output chunk and a downstream channel may still hold it when
+    the next apply runs."""
     dev = active.device
     if dev.type == "cpu":
         return probe_plain(key_cols, active, is_ins, ops, other,
@@ -365,6 +399,9 @@ def probe(key_cols, active, is_ins, ops, other: SortedSideState,
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     N = active.shape[0]
+    T = M if rows is None else rows
+    if T < M:
+        raise ValueError("K6's output rows hold at least its M slots")
     other_keys = [other.cols[oi] for oi in other_key_idx]
     if not 1 <= len(key_cols) <= MAX_KEYS or len(own_cols) > MAX_COLS \
             or len(other.cols) > MAX_COLS:
@@ -390,14 +427,16 @@ def probe(key_cols, active, is_ins, ops, other: SortedSideState,
     lo = bufs.get("lo", N, i64)
     offs = bufs.get("offs", N, i64)
     sums = bufs.get("sums", (N + 255) // 256, i64)
-    ops_out = torch.empty(M, dtype=torch.int8, device=dev)
-    emit = torch.empty(M, dtype=torch.bool, device=dev)
-    own_m = [Column(torch.empty(M, dtype=c.data.dtype, device=dev),
-                    None if c.valid is None
-                    else torch.empty(M, dtype=torch.bool, device=dev))
+    src = bufs.get("slot_src", M, torch.int32) if slots else None
+    pos = bufs.get("slot_pos", M, torch.int32) if slots else None
+    ops_out = torch.empty(T, dtype=torch.int8, device=dev)
+    emit = torch.empty(T, dtype=torch.bool, device=dev)
+    own_m = [Column(torch.empty(T, dtype=c.data.dtype, device=dev),
+                    None if c.valid is None and T == M
+                    else torch.empty(T, dtype=torch.bool, device=dev))
              for c in own_cols]
-    oth_m = [Column(torch.empty(M, dtype=c.dtype, device=dev),
-                    torch.empty(M, dtype=torch.bool, device=dev))
+    oth_m = [Column(torch.empty(T, dtype=c.dtype, device=dev),
+                    torch.empty(T, dtype=torch.bool, device=dev))
              for c in other.cols]
     P = kernels.ptr_array
     K_PROBE.launches += 1
@@ -415,8 +454,156 @@ def probe(key_cols, active, is_ins, ops, other: SortedSideState,
         kernels.int_array(c.element_size() for c in other.cols),
         M, kernels.ptr(h), kernels.ptr(ins_h), kernels.ptr(lo),
         kernels.ptr(offs), kernels.ptr(sums), kernels.ptr(ops_out),
-        kernels.ptr(emit), kernels.ptr(errs), kernels.stream_of(active))
-    return h, ins_h, own_m, oth_m, ops_out, emit
+        kernels.ptr(emit), kernels.ptr_or_null(src),
+        kernels.ptr_or_null(pos), kernels.ptr(errs),
+        kernels.stream_of(active))
+    return h, ins_h, own_m, oth_m, ops_out, emit, src, pos
+
+
+# ------------------------------------------------------------------ K28
+
+def outer_segments(M: int, N: int, outer_own: bool, outer_other: bool):
+    """Rows of an outer apply's output: [M matches][M transitions when
+    the other side is outer][N own rows when this side is]."""
+    return M + (M if outer_other else 0) + (N if outer_own else 0)
+
+
+def outer_apply_plain(emit, src, pos, ops, active, null_key,
+                      other: SortedSideState, chunk_cols, own_m, oth_m,
+                      ops_m, M: int, outer_own: bool, outer_other: bool,
+                      errs: torch.Tensor, bufs=None):
+    """Plain PyTorch version of kernel K28, step by step as the JAX
+    package's `_apply_impl` (443-533). emit, src, pos, ops_m, own_m and
+    oth_m are the probe's M match slots after the join condition; ops,
+    active (visible with a valid key) and null_key (visible with a NULL
+    key) are the chunk's. Returns (match_cnt int32 [N], the other side's
+    new degree, own output columns, other output columns, ops, vis),
+    the output rows in `outer_segments`' layout; adds the transitions
+    past their buffer to errs[0] in place."""
+    N = active.shape[0]
+    Co = other.capacity
+    dev = active.device
+    emit, src, pos = emit[:M], src[:M], pos[:M]
+    signs = op_sign(ops)
+    match_cnt = torch.zeros(N, dtype=torch.int32, device=dev)
+    match_cnt.index_add_(0, src, emit.to(torch.int32))
+    # signed degree delta onto the other side's rows (row Co: the trash)
+    d_sign = torch.where(emit, signs[src], 0).to(torch.int32)
+    degree = torch.cat([other.degree, other.degree[:1]])
+    degree.index_add_(0, torch.where(emit, pos, Co), d_sign)
+    degree = degree[:Co]
+    own_parts = [[c.data[:M]] for c in own_m]
+    own_vparts = [[c.valid_mask()[:M]] for c in own_m]
+    oth_parts = [[c.data[:M]] for c in oth_m]
+    oth_vparts = [[c.valid_mask()[:M]] for c in oth_m]
+    ops_parts, vis_parts = [ops_m[:M]], [emit]
+    if outer_other:
+        # NET degree transitions on the other side -> NULL-row flips
+        touched = torch.zeros(Co + 1, dtype=torch.bool, device=dev)
+        touched[torch.where(emit, pos, Co)] = True
+        touched = touched[:Co]
+        o_live = torch.arange(Co, device=dev) < other.n
+        was0 = other.degree == 0
+        now0 = degree == 0
+        t_del = touched & o_live & was0 & ~now0     # retract the NULL row
+        t_ins = touched & o_live & ~was0 & now0     # re-emit the NULL row
+        t_any = t_del | t_ins
+        trank = torch.cumsum(t_any.to(torch.int64), 0) - 1
+        tsel = torch.zeros(M + 1, dtype=torch.int64, device=dev)
+        tsel[torch.where(t_any & (trank < M), trank, M)] = torch.arange(
+            Co, device=dev)
+        tsel = tsel[:M]
+        n_trans = t_any.sum(dtype=torch.int64)
+        t_vis = torch.arange(M, device=dev) < torch.clamp(n_trans, max=M)
+        ops_parts.append(torch.where(t_del[tsel], OP_DELETE,
+                                     OP_INSERT).to(torch.int8))
+        vis_parts.append(t_vis)
+        errs[0] += torch.clamp(n_trans - M, min=0).to(torch.int32)
+        for parts, vparts, c in zip(own_parts, own_vparts, own_m):
+            parts.append(torch.zeros(M, dtype=c.data.dtype, device=dev))
+            vparts.append(torch.zeros(M, dtype=torch.bool, device=dev))
+        for parts, vparts, r, v in zip(oth_parts, oth_vparts, other.cols,
+                                       other.valids):
+            parts.append(r[tsel])
+            vparts.append(v[tsel])
+    if outer_own:
+        # own rows with no condition-passing match (NULL keys included)
+        ops_parts.append(torch.where(signs > 0, OP_INSERT,
+                                     OP_DELETE).to(torch.int8))
+        vis_parts.append((active & (match_cnt == 0)) | null_key)
+        for parts, vparts, c in zip(own_parts, own_vparts, chunk_cols):
+            parts.append(c.data)
+            vparts.append(c.valid_mask())
+        for parts, vparts, c in zip(oth_parts, oth_vparts, oth_m):
+            parts.append(torch.zeros(N, dtype=c.data.dtype, device=dev))
+            vparts.append(torch.zeros(N, dtype=torch.bool, device=dev))
+    own_out = [Column(torch.cat(p), torch.cat(v))
+               for p, v in zip(own_parts, own_vparts)]
+    oth_out = [Column(torch.cat(p), torch.cat(v))
+               for p, v in zip(oth_parts, oth_vparts)]
+    return (match_cnt, degree, own_out, oth_out, torch.cat(ops_parts),
+            torch.cat(vis_parts))
+
+
+def outer_apply(emit, src, pos, ops, active, null_key,
+                other: SortedSideState, chunk_cols, own_m, oth_m, ops_m,
+                M: int, outer_own: bool, outer_other: bool,
+                errs: torch.Tensor, bufs: Optional[_Buffers] = None):
+    """Kernel K28 on a CUDA device, the plain version on the CPU. Same
+    contract as `outer_apply_plain`, except that on the card the other
+    side's degree is updated in place (and returned), the output is
+    written into the tail of the probe's [outer_segments] columns, ops
+    and emit (returned as they are), and the values of invisible
+    transition rows are unspecified. match_cnt lives in `bufs`."""
+    dev = active.device
+    if dev.type == "cpu":
+        return outer_apply_plain(emit, src, pos, ops, active, null_key,
+                                 other, chunk_cols, own_m, oth_m, ops_m, M,
+                                 outer_own, outer_other, errs)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    N = active.shape[0]
+    Co = other.capacity
+    T = outer_segments(M, N, outer_own, outer_other)
+    if not (outer_own or outer_other):
+        raise ValueError("K28 runs for outer joins")
+    if src is None or src.dtype != torch.int32 or src.shape[0] < M \
+            or pos.dtype != torch.int32 or pos.shape[0] < M:
+        raise ValueError("K28 takes the probe's int32 slot rows")
+    for t in (emit, ops_m, *(c.data for c in own_m + oth_m),
+              *(c.valid for c in own_m + oth_m)):
+        if t is None or t.shape[0] != T or not t.is_contiguous():
+            raise ValueError("K28 writes into the probe's output of "
+                             f"{T} rows, with valid masks")
+    if not 1 <= len(own_m) <= MAX_COLS or not 1 <= len(oth_m) <= MAX_COLS:
+        raise ValueError(f"K28 takes 1..{MAX_COLS} columns a side")
+    for c in chunk_cols:
+        if not c.data.is_contiguous() or c.data.shape[0] != N:
+            raise ValueError("K28 chunk columns must be contiguous")
+    if bufs is None:
+        bufs = _Buffers(dev)
+    i32 = torch.int32
+    match_cnt = bufs.get("match_cnt", N, i32)
+    P = kernels.ptr_array
+    K_OUTER.launches += 1
+    K_OUTER.call(
+        "rw_oj_apply", N, M, Co, int(outer_own), int(outer_other),
+        kernels.ptr(emit), kernels.ptr(src), kernels.ptr(pos),
+        kernels.ptr(ops), kernels.ptr(active), kernels.ptr(null_key),
+        kernels.ptr(other.degree), kernels.ptr(other.n),
+        len(own_m), P([c.data for c in chunk_cols]),
+        P([c.valid for c in chunk_cols]), P([c.data for c in own_m]),
+        P([c.valid for c in own_m]),
+        kernels.int_array(c.data.element_size() for c in own_m),
+        len(oth_m), P(other.cols), P(other.valids),
+        P([c.data for c in oth_m]), P([c.valid for c in oth_m]),
+        kernels.int_array(c.data.element_size() for c in oth_m),
+        kernels.ptr(ops_m), kernels.ptr(emit), kernels.ptr(match_cnt),
+        kernels.ptr(bufs.get("oj_delta", Co, i32)),
+        kernels.ptr(bufs.get("oj_sums", (Co + 255) // 256, i32)),
+        kernels.ptr(bufs.get("oj_n", 1, i32)), kernels.ptr(errs),
+        kernels.stream_of(emit))
+    return match_cnt, other.degree, own_m, oth_m, ops_m, emit
 
 
 # ------------------------------------------------------------------ K7
@@ -424,13 +611,16 @@ def probe(key_cols, active, is_ins, ops, other: SortedSideState,
 def merge_plain(own: SortedSideState, nh, iorder, n_new,
                 chunk_cols: Sequence[Column], is_del, h, M: int,
                 match_idx: Sequence[int], clean_col: Optional[int], wm: int,
-                errs: torch.Tensor, spare=None, bufs=None) -> SortedSideState:
+                errs: torch.Tensor, spare=None, bufs=None,
+                match_cnt: Optional[torch.Tensor] = None) -> SortedSideState:
     """Plain PyTorch version of kernel K7: the side's store after
     inline eviction below `wm` on `clean_col`, the retractions `is_del`
     (None: append-only) and the insert of the new rows, sorted by hash
     (`nh` = their hashes, `iorder` = their chunk rows, `n_new` = how
-    many). Adds delete misses to errs[1] and dropped rows to errs[2] in
-    place. With no chunk (nh of length 0) it is `_evict_impl`."""
+    many). A new row's degree is its chunk row's `match_cnt` (an outer
+    join's), else 0; kept rows keep theirs. Adds delete misses to
+    errs[1] and dropped rows to errs[2] in place. With no chunk (nh of
+    length 0) it is `_evict_impl`."""
     C = own.capacity
     N = nh.shape[0]
     dev = own.khash.device
@@ -491,7 +681,9 @@ def merge_plain(own: SortedSideState, nh, iorder, n_new,
     return SortedSideState(
         khash=merged(HSENTINEL, torch.int64, own.khash, nh),
         cols=tuple(cols), valids=tuple(valids),
-        degree=merged(0, torch.int32, own.degree, 0),
+        degree=merged(0, torch.int32, own.degree,
+                      0 if match_cnt is None or N == 0
+                      else match_cnt[iorder]),
         n=n_after.to(torch.int32))
 
 
@@ -499,7 +691,8 @@ def merge(own: SortedSideState, nh, iorder, n_new,
           chunk_cols: Sequence[Column], is_del, h, M: int,
           match_idx: Sequence[int], clean_col: Optional[int], wm: int,
           errs: torch.Tensor, spare: Optional[SortedSideState] = None,
-          bufs: Optional[_Buffers] = None) -> SortedSideState:
+          bufs: Optional[_Buffers] = None,
+          match_cnt: Optional[torch.Tensor] = None) -> SortedSideState:
     """Kernel K7 on a CUDA device, the plain version on the CPU. Same
     contract as `merge_plain`; on the card the result is written into
     `spare` (a store of the same capacity and dtypes, which this
@@ -507,7 +700,8 @@ def merge(own: SortedSideState, nh, iorder, n_new,
     dev = own.khash.device
     if dev.type == "cpu":
         return merge_plain(own, nh, iorder, n_new, chunk_cols, is_del, h,
-                           M, match_idx, clean_col, wm, errs)
+                           M, match_idx, clean_col, wm, errs,
+                           match_cnt=match_cnt)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     C = own.capacity
@@ -515,8 +709,9 @@ def merge(own: SortedSideState, nh, iorder, n_new,
     if spare is None or spare.capacity != C or spare is own \
             or len(spare.cols) != len(own.cols):
         raise ValueError("K7 writes into a second store of the same shape")
-    if not 1 <= len(own.cols) <= MAX_COLS or len(match_idx) > MAX_MATCH:
-        raise ValueError(f"K7 takes 1..{MAX_COLS} columns and at most "
+    if not 1 <= len(own.cols) <= MAX_STORE_COLS \
+            or len(match_idx) > MAX_MATCH:
+        raise ValueError(f"K7 takes 1..{MAX_STORE_COLS} columns and at most "
                          f"{MAX_MATCH} match columns")
     if N > 0:
         for cc, sc in zip(chunk_cols, own.cols):
@@ -527,6 +722,9 @@ def merge(own: SortedSideState, nh, iorder, n_new,
         if nh.dtype != torch.int64 or iorder.dtype != torch.int64 \
                 or n_new.dtype != torch.int32:
             raise ValueError("K7 takes int64 nh/iorder and int32 n_new")
+        if match_cnt is not None and (match_cnt.dtype != torch.int32
+                                      or match_cnt.shape[0] != N):
+            raise ValueError("K7 takes int32 match counts, one a chunk row")
     if bufs is None:
         bufs = _Buffers(dev)
     i32, i64 = torch.int32, torch.int64
@@ -556,8 +754,9 @@ def merge(own: SortedSideState, nh, iorder, n_new,
         kernels.ptr(bufs.get("removed", C, torch.uint8)),
         kernels.ptr(bufs.get("kept_incl", C, i32)),
         kernels.ptr(bufs.get("ksums", (C + 255) // 256, i32)),
-        kernels.ptr(bufs.get("hw", 1, i32)), kernels.ptr(errs),
-        kernels.stream_of(own.khash))
+        kernels.ptr(bufs.get("hw", 1, i32)),
+        kernels.ptr_or_null(match_cnt if N > 0 else None),
+        kernels.ptr(errs), kernels.stream_of(own.khash))
     return spare
 
 
@@ -708,7 +907,8 @@ def copy_side(dst: Optional[SortedSideState],
 # ------------------------------------------------------------- executor
 
 class SortedJoinExecutor(Executor):
-    """Inner equi-join over sorted dense state (integer keys)."""
+    """Inner, outer or temporal equi-join over sorted dense state
+    (integer keys)."""
 
     def __init__(self, left: Executor, right: Executor,
                  left_key_indices: Sequence[int],
@@ -725,11 +925,13 @@ class SortedJoinExecutor(Executor):
                  clean_watermark_cols: tuple = (None, None),
                  clean_specs: Optional[tuple] = None,
                  state_tables: Optional[tuple] = None,
+                 temporal: bool = False,
                  watchdog_interval: Optional[int] = 1,
                  device="cuda"):
-        if join_type != "inner":
-            raise NotImplementedError(
-                "outer sorted joins are not ported yet (ROADMAP A7)")
+        if join_type not in ("inner", "left", "right", "full"):
+            raise ValueError(f"unknown join type {join_type!r}")
+        if temporal and join_type not in ("inner", "left"):
+            raise ValueError("temporal joins are inner or left")
         self.device = resolve_device(device)
         self.inputs = (left, right)
         self.key_indices = (tuple(left_key_indices), tuple(right_key_indices))
@@ -784,7 +986,18 @@ class SortedJoinExecutor(Executor):
             clean_specs = tuple(None if c is None else ("own", c)
                                 for c in clean_watermark_cols)
         self.clean_specs = tuple(clean_specs)
+        # eviction drops rows without probing, so it cannot maintain the
+        # other side's degrees: an outer join refuses state cleaning
+        if join_type != "inner" and self.clean_specs != (None, None):
+            raise ValueError(
+                "outer joins do not support watermark state cleaning")
         self.join_type = join_type
+        # temporal (FOR SYSTEM_TIME AS OF PROCTIME()): the right side is
+        # a table whose updates maintain its state and emit nothing
+        self.temporal = temporal
+        # side s keeps its unmatched rows (emits them NULL-padded)
+        self._outer = (join_type in ("left", "full"),
+                       join_type in ("right", "full"))
         self.append_only = tuple(append_only)
         self.clean_cols = tuple(None if sp is None else sp[1]
                                 for sp in self.clean_specs)
@@ -842,12 +1055,15 @@ class SortedJoinExecutor(Executor):
     # ------------------------------------------------------------- apply
     def _apply(self, side: int, chunk: StreamChunk, wm: int,
                match_factor: Optional[int] = None):
-        """Probe the other side, emit matches, evict+update this side.
-        Returns the match buffer's (columns, ops, emit)."""
+        """Probe the other side, emit matches (and, in an outer join, the
+        degree transitions and unmatched rows), evict+update this side.
+        Returns the output's (columns, ops, vis)."""
         key_idx = self.key_indices[side]
         N = chunk.capacity
         M = (match_factor or self.match_factors[side]) * N
         other = self.sides[1 - side]
+        outer_own, outer_other = self._outer[side], self._outer[1 - side]
+        any_outer = outer_own or outer_other
         key_cols = [chunk.columns[i].data for i in key_idx]
         active = chunk.vis
         for i in key_idx:      # NULL keys never join
@@ -859,13 +1075,25 @@ class SortedJoinExecutor(Executor):
         else:
             _, is_ins, is_del, _ = net_pk_runs(
                 chunk, active, self.pk_indices_side[side], bufs)
-        h, ins_h, own_m, oth_m, ops, emit = probe(
+        h, ins_h, own_m, oth_m, ops, emit, src, pos = probe(
             key_cols, active, is_ins, chunk.ops, other,
             self.key_indices[1 - side], chunk.columns, M, self._errs_dev,
-            bufs)
-        cols = own_m + oth_m if side == LEFT else oth_m + own_m
+            bufs, rows=outer_segments(M, N, outer_own, outer_other),
+            slots=any_outer)
         if self._cond is not None:
-            self._cond.and_into(cols, emit)
+            cols_m = [Column(c.data[:M],
+                             None if c.valid is None else c.valid[:M])
+                      for c in (own_m + oth_m if side == LEFT
+                                else oth_m + own_m)]
+            self._cond.and_into(cols_m, emit[:M])
+        match_cnt = None
+        if any_outer:
+            match_cnt, degree, own_m, oth_m, ops, emit = outer_apply(
+                emit, src, pos, chunk.ops, active, chunk.vis & ~active,
+                other, chunk.columns, own_m, oth_m, ops, M, outer_own,
+                outer_other, self._errs_dev, bufs)
+            other.degree = degree
+        cols = own_m + oth_m if side == LEFT else oth_m + own_m
         # new rows in hash order; non-inserts carry the sentinel, last
         nh, iorder = stable_sort(ins_h, HASH_BITS)
         n_new = is_ins.sum(dtype=torch.int32)
@@ -873,7 +1101,7 @@ class SortedJoinExecutor(Executor):
                     is_del, h, M,
                     self.key_indices[side] + self.pk_indices_side[side],
                     self.clean_cols[side], wm, self._errs_dev,
-                    self._spare_for(side), bufs)
+                    self._spare_for(side), bufs, match_cnt=match_cnt)
         self._install(side, new)
         return cols, ops, emit
 
@@ -961,7 +1189,8 @@ class SortedJoinExecutor(Executor):
         """Rebuild device state from the per-side state tables: replay the
         RIGHT rows first (LEFT is empty, so nothing matches), then the
         LEFT rows, whose probes of the restored RIGHT side run as in the
-        stream. Replay outputs are discarded."""
+        stream and so rebuild both sides' degrees (the condition
+        included). Replay outputs are discarded."""
         if all(st is None for st in self.state_tables):
             return
         rows_by_side = [
@@ -1018,6 +1247,8 @@ class SortedJoinExecutor(Executor):
                 cols, ops, vis = self._apply(s, msg, self._pending_clean[s])
                 self._dirty[s] = True
                 self._flush_dirty[s] = True
+                if self.temporal and s == RIGHT:
+                    continue        # table-side updates emit nothing
                 yield StreamChunk(tuple(cols[i] for i in self.output_indices),
                                   ops, vis, self.schema)
             elif kind == "barrier":

@@ -9,7 +9,10 @@ statements are bench.py's.
 WHERE (Nexmark q2, a filter over an aggregating subquery, the pushdown
 below an inner join) and ORDER BY ... LIMIT (bench.py's q5_topn on one
 device) plan as JAX's binder plans them, and q5_topn and q2 run through
-both sessions to the same MV.
+both sessions to the same MV. LEFT, RIGHT and FULL outer joins,
+temporal joins and `col OP now()` filters plan as JAX's binder plans
+them and run through both sessions to the same MV; JAX's refusals of
+them stay refusals in JAX's words.
 
 bench.py is read as source (its DDL lists evaluated from the syntax
 tree), never imported."""
@@ -234,6 +237,66 @@ def _plans(ddl):
     return asyncio.run(jax_plan()), asyncio.run(port_plan())
 
 
+# tests/test_outer_join_sql.py's sources and views, a RIGHT join, the
+# temporal joins and NOW() filters of tests/test_missing_executors.py
+OUTER_SOURCES = [
+    "SET streaming_durability = 0",
+    "SET streaming_join_capacity = 4096",
+    "SET streaming_agg_capacity = 1024",
+    ("CREATE SOURCE auction WITH (connector='nexmark', table='auction', "
+     "chunk_size=256, rate_limit=512)"),
+    ("CREATE SOURCE person WITH (connector='nexmark', table='person', "
+     "chunk_size=128, rate_limit=256)"),
+]
+TEMPORAL_SOURCES = [
+    "SET streaming_durability = 0",
+    "SET streaming_join_capacity = 4096",
+    ("CREATE SOURCE bid WITH (connector='nexmark', table='bid', "
+     "chunk_size=128, rate_limit=128)"),
+    ("CREATE SOURCE auction WITH (connector='nexmark', table='auction', "
+     "primary_key='id', chunk_size=64, rate_limit=64)"),
+]
+OUTER_VIEWS = {
+    "left": (OUTER_SOURCES, (
+        "SELECT A.id, P.name FROM auction A "
+        "LEFT OUTER JOIN person P ON A.seller = P.id AND A.category = 10")),
+    "full": (OUTER_SOURCES, (
+        "SELECT A.id, P.id AS pid FROM auction A "
+        "FULL OUTER JOIN person P ON A.seller = P.id AND A.category = 10")),
+    "right": (OUTER_SOURCES, (
+        "SELECT A.id, P.id AS pid, P.name FROM auction A "
+        "RIGHT JOIN person P ON A.seller = P.id AND A.reserve % 3 = 0")),
+    # a LEFT join of a retracting aggregate: degrees fall and rise
+    "left_agg": (OUTER_SOURCES, (
+        "SELECT P.id, S.n FROM person P LEFT JOIN "
+        "(SELECT seller, count(*) AS n FROM auction WHERE category = 10 "
+        "GROUP BY seller) S ON P.id = S.seller")),
+    "temporal": (TEMPORAL_SOURCES, (
+        "SELECT B.auction, B.price, A.category FROM bid B "
+        "JOIN auction A FOR SYSTEM_TIME AS OF PROCTIME() "
+        "ON B.auction = A.id")),
+    "temporal_left": (TEMPORAL_SOURCES, (
+        "SELECT B.auction, B.price, A.category FROM bid B "
+        "LEFT JOIN auction A FOR SYSTEM_TIME AS OF PROCTIME() "
+        "ON B.auction = A.id")),
+    # the generator's event time is 2017 (1.5e15 us) and the epoch clock
+    # counts from 2022 (~1.5e14 us): every row passes > now(), none < now()
+    "now_gt": (TEMPORAL_SOURCES[:1] + TEMPORAL_SOURCES[3:], (
+        "SELECT id, expires FROM auction WHERE expires > now()")),
+    "now_lt": (TEMPORAL_SOURCES[:1] + TEMPORAL_SOURCES[3:], (
+        "SELECT id, expires FROM auction WHERE now() > expires")),
+    # a static conjunct grafts first; bid is keyless (a row id first)
+    "now_keyless": (TEMPORAL_SOURCES[:3], (
+        "SELECT auction, price FROM bid "
+        "WHERE date_time >= now() AND price % 2 = 0")),
+}
+
+
+def _outer_ddl(view: str) -> list:
+    src, select = OUTER_VIEWS[view]
+    return src + ["CREATE MATERIALIZED VIEW m AS " + select]
+
+
 # the window and global-aggregate statements the JAX package's goldens
 # run (tests/test_over_window_sql.py:48, tests/test_nexmark_queries.py:86,
 # tests/test_eowc_over_window.py:15), over two watermarked sources
@@ -338,6 +401,7 @@ PLANNED_DDL = {
     **{f"window_{v}": (lambda v=v: _window_ddl(v)) for v in WINDOW_VIEWS},
     **{f"window_{v}_durable": (lambda v=v: _window_ddl(v, True))
        for v in ("q6", "eowc", "gagg")},
+    **{f"outer_{v}": (lambda v=v: _outer_ddl(v)) for v in OUTER_VIEWS},
     # the WHERE sink the port refused before it planned filters
     "where_sink": lambda: [
         "SET streaming_durability = 0", BID_SOURCE,
@@ -464,16 +528,18 @@ def _nodes(n, exchange_cls) -> list:
              "approx_count_distinct(bidder) AS n FROM bid GROUP BY auction"),
     lambda: ("CREATE MATERIALIZED VIEW m AS SELECT auction, "
              "bool_or(price > 10) AS p FROM bid GROUP BY auction"),
-    # NOW() dynamic filters and bool_and / bool_or (global or grouped):
-    # still not ported
-    lambda: ("CREATE MATERIALIZED VIEW m AS SELECT auction FROM bid "
-             "WHERE date_time < NOW()"),
+    # bool_and / bool_or (global or grouped) and the hash join (an inner
+    # join on FLOAT64 keys): still not ported
+    lambda: ("CREATE MATERIALIZED VIEW m AS SELECT X.auction FROM "
+             "(SELECT auction, avg(price) AS ap FROM bid GROUP BY auction) X"
+             " JOIN (SELECT auction, avg(price) AS ap FROM bid "
+             "GROUP BY auction) Y ON X.ap = Y.ap"),
     lambda: ("CREATE MATERIALIZED VIEW m AS SELECT bool_and(price > 10) "
              "AS p FROM bid"),
     lambda: ("CREATE MATERIALIZED VIEW m AS SELECT "
              "approx_count_distinct(bidder) AS n FROM bid"),
-    lambda: ("CREATE MATERIALIZED VIEW m AS SELECT P.id FROM person P "
-             "LEFT JOIN auction A ON P.id = A.seller"),
+    lambda: ("CREATE MATERIALIZED VIEW m AS SELECT bool_or(price > 10) "
+             "AS p FROM bid"),
 ])
 def test_unported_sql_raises_bind_error(sql):
     async def go():
@@ -723,9 +789,9 @@ def test_chip_smoke_q17_statements_are_bench_q17s():
 def test_declined_q17_fusion_raises(case):
     """Where the snapshot join-agg fusion declines, JAX plans a changelog
     join cascade under a global aggregate. The port plans the same
-    fragments now that it has the simple agg (fuse_off, no_dim_pk),
-    raises JAX's own BindError where JAX does (no_group_by), and raises
-    "not ported yet" for the LEFT join."""
+    fragments now that it has the simple agg (fuse_off, no_dim_pk) and
+    outer joins (left_join: a LEFT join of part under the aggregate),
+    and raises JAX's own BindError where JAX does (no_group_by)."""
     ddl = BENCH_DDL["q17"]()
     last = ddl[-1]
     if case == "fuse_off":
@@ -739,7 +805,7 @@ def test_declined_q17_fusion_raises(case):
         last = last.replace("JOIN part P", "LEFT JOIN part P")
     ddl[-1] = last
 
-    if case in ("fuse_off", "no_dim_pk"):
+    if case in ("fuse_off", "no_dim_pk", "left_join"):
         jp, pp = _plans(ddl)
         assert _graph_sig(pp.graph, PExchange) == _graph_sig(
             jp.graph, JExchange, strip=JAX_ONLY_ARGS)
@@ -747,8 +813,7 @@ def test_declined_q17_fusion_raises(case):
                  for n in _nodes(f.root, PExchange)]
         assert "simple_agg" in kinds and "snapshot_join_agg" not in kinds
         return
-    match = ("must appear in GROUP BY" if case == "no_group_by"
-             else "not ported yet")
+    match = "must appear in GROUP BY"
 
     async def go():
         s = PortSession(device="cpu")
@@ -871,7 +936,9 @@ def test_q1_statements_run_through_the_session():
                                    "where_agg", "where_join",
                                    "window_q6_durable",
                                    "window_eowc_durable",
-                                   "window_gagg_durable"])
+                                   "window_gagg_durable", "outer_full",
+                                   "outer_temporal_left",
+                                   "outer_now_keyless"])
 def test_plan_ids_and_schemas_match_jax(query):
     """The deterministic actor/table ids and the planner-level fragment
     schemas of a plan agree with the JAX package's."""
@@ -950,3 +1017,77 @@ def test_durable_q7_state_tables_match_jax(query):
     want = tables(jdep)
     assert tables(pdep) == want and len(want) == (5 if query == "q7_kill"
                                                   else 4)
+
+
+def _outer_rows(engine: str, view: str, rounds: int = 4) -> Counter:
+    """The view's MV rows after `rounds` barriers, the row id (a column
+    the plan appends, derived from the wall clock) dropped."""
+    async def go():
+        s = (JaxSession() if engine == "jax"
+             else PortSession(device="cpu"))
+        for stmt in _outer_ddl(view):
+            await s.execute(stmt)
+        await s.tick(rounds)
+        mv = s.catalog.mvs["m"]
+        keep = [j for j, f in enumerate(mv.schema)
+                if not f.name.startswith("_")]
+        rows = Counter(tuple(r[j] for j in keep)
+                       for _, r in mv.table.iter_all())
+        if engine == "port":
+            await s.shutdown()
+        return rows
+    return asyncio.run(go())
+
+
+@pytest.mark.parametrize("view", sorted(OUTER_VIEWS))
+def test_outer_temporal_and_now_views_match_jax(view):
+    """LEFT, FULL and RIGHT joins (tests/test_outer_join_sql.py's goldens
+    and a RIGHT join), a LEFT join of a retracting aggregate, temporal
+    joins (inner and left) and NOW() dynamic filters run through both
+    sessions to the same MV."""
+    got, want = _outer_rows("port", view), _outer_rows("jax", view)
+    assert got == want
+    n = sum(got.values())
+    if view == "now_lt":
+        assert n == 0
+    else:
+        assert n >= 10
+    if view in ("left", "full", "right", "left_agg", "temporal_left"):
+        assert any(None in r for r in got), "no NULL-padded rows"
+
+
+@pytest.mark.parametrize("case", ["temporal_right", "temporal_retracting",
+                                  "outer_float_keys"])
+def test_outer_and_temporal_refusals_are_jaxs(case):
+    """The binder's own refusals, in JAX's words and in both engines: a
+    temporal RIGHT join, a temporal join over a retracting stream side,
+    an outer join on FLOAT64 keys."""
+    sql = {
+        "temporal_right": (
+            "CREATE MATERIALIZED VIEW m AS SELECT B.auction FROM bid B "
+            "RIGHT JOIN auction A FOR SYSTEM_TIME AS OF PROCTIME() "
+            "ON B.auction = A.id"),
+        "temporal_retracting": (
+            "CREATE MATERIALIZED VIEW m AS SELECT C.auction FROM "
+            "(SELECT auction, count(*) AS n FROM bid GROUP BY auction) C "
+            "JOIN auction A FOR SYSTEM_TIME AS OF PROCTIME() "
+            "ON C.auction = A.id"),
+        "outer_float_keys": (
+            "CREATE MATERIALIZED VIEW m AS SELECT X.auction FROM "
+            "(SELECT auction, avg(price) AS ap FROM bid GROUP BY auction) X"
+            " LEFT JOIN (SELECT auction, avg(price) AS ap FROM bid "
+            "GROUP BY auction) Y ON X.ap = Y.ap"),
+    }[case]
+    match = {"temporal_right": "INNER or LEFT",
+             "temporal_retracting": "append-only stream side",
+             "outer_float_keys": "integer-comparable keys"}[case]
+
+    async def go(session, err):
+        s = session()
+        for stmt in TEMPORAL_SOURCES:
+            await s.execute(stmt)
+        with pytest.raises(err, match=match):
+            await s.execute(sql)
+    from risingwave_tpu.frontend.binder import BindError as JaxBindError
+    asyncio.run(go(JaxSession, JaxBindError))
+    asyncio.run(go(lambda: PortSession(device="cpu"), BindError))

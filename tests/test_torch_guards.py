@@ -53,6 +53,7 @@ MODULES = [
     "risingwave_tpu_torch.stream.eowc_over_window",
     "risingwave_tpu_torch.stream.simple_agg",
     "risingwave_tpu_torch.ops.extrema",
+    "risingwave_tpu_torch.stream.dynamic",
 ]
 
 
@@ -114,9 +115,10 @@ def _entry_points():
         RetractableTopNExecutor)
     from risingwave_tpu_torch.stream.sorted_join import SortedJoinExecutor
     from risingwave_tpu_torch.stream import (
-        EowcOverWindowExecutor, GeneralOverWindowExecutor,
-        SimpleAggExecutor)
+        DynamicFilterExecutor, EowcOverWindowExecutor,
+        GeneralOverWindowExecutor, NowExecutor, SimpleAggExecutor)
     return [NexmarkGenerator.__init__, HashAggExecutor.__init__,
+            DynamicFilterExecutor.__init__, NowExecutor.__init__,
             SortedJoinExecutor.__init__, resolve_device, chunk_from_numpy,
             hash_table_from_numpy, agg_state_from_numpy,
             sorted_side_from_numpy, Session.__init__,
@@ -150,8 +152,9 @@ def test_cuda_without_a_card_raises():
         RetractableTopNExecutor)
     from risingwave_tpu_torch.stream.sorted_join import SortedJoinExecutor
     from risingwave_tpu_torch.stream import (
-        EowcOverWindowExecutor, GeneralOverWindowExecutor,
-        SimpleAggExecutor, WindowSpec)
+        DynamicFilterExecutor, EowcOverWindowExecutor,
+        GeneralOverWindowExecutor, NowExecutor, SimpleAggExecutor,
+        WindowSpec)
 
     class _In:
         schema = make_schema(("k", DataType.INT64))
@@ -200,6 +203,13 @@ def test_cuda_without_a_card_raises():
             _In(), (), [(0, False)], [WindowSpec("row_number")],
             capacity=64).device,
         lambda: SimpleAggExecutor(_In(), [count_star()]).device,
+        lambda: SortedJoinExecutor(_In(), _In(), [0], [0], [0], [0],
+                                   capacity=64, join_type="full").device,
+        lambda: SortedJoinExecutor(_In(), _In(), [0], [0], [0], [0],
+                                   capacity=64, join_type="left",
+                                   temporal=True).device,
+        lambda: DynamicFilterExecutor(_In(), _In(), 0, capacity=64).device,
+        lambda: NowExecutor(None).device,
     ]
     for build in builders:
         if torch.cuda.is_available():
@@ -213,10 +223,11 @@ def test_every_kernel_is_registered_with_its_source():
     import chip_smoke  # noqa: F401  (imports every wrapper module)
     from risingwave_tpu_torch.ops import kernels
     names = sorted(kernels.KERNELS)
-    assert names == ["agg_flush", "compact", "expr_eval",
+    assert names == ["agg_flush", "compact", "dynamic_filter", "expr_eval",
                      "extrema_update", "filter_ops", "hash_agg",
                      "hash_table", "hop_window", "nexmark_auction",
-                     "nexmark_bid", "nexmark_person", "persist_view",
+                     "nexmark_bid", "nexmark_person", "outer_join",
+                     "persist_view",
                      "pk_net", "radix_sort", "row_id", "segment_agg",
                      "simple_agg", "snapshot_append", "snapshot_diff",
                      "snapshot_final", "sorted_join_merge",
@@ -246,6 +257,7 @@ def test_wrappers_refuse_other_devices():
     from risingwave_tpu_torch.stream import simple_agg as sagg
     from risingwave_tpu_torch.stream import hash_agg
     from risingwave_tpu_torch.ops import extrema
+    from risingwave_tpu_torch.stream import dynamic
     from risingwave_tpu_torch.common.chunk import StreamChunk
     from risingwave_tpu_torch.common import DataType, schema
     t = ht.HashTable.empty(32, [torch.int64], "meta")
@@ -298,6 +310,12 @@ def test_wrappers_refuse_other_devices():
             extrema.extrema_empty(4, 2, torch.int64, "meta"), i64, None,
             i64.to(torch.int8), i64.to(torch.int32), i64, True,
             errs[0]),
+        lambda: sj.outer_apply(b, i64, i64, i64.to(torch.int8), b, b, side,
+                               [Column(i64)], [Column(i64)], [Column(i64)],
+                               i64.to(torch.int8), 4, True, False, errs),
+        lambda: dynamic.dynf_hash(side, 0, "greater_than", 0),
+        lambda: dynamic.dynf_diff(side, i64, i64, errs[0], i64, [i64], [b],
+                                  errs[0]),
         lambda: hash_agg.agg_flush(hash_agg.AggState(
             t, (i64.clone(),), i64.clone(), b.clone(), b.clone(),
             (i64.clone(),)), [count_star().spec()]),
