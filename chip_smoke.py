@@ -41,7 +41,11 @@ plain PyTorch version on the card:
   outer joins, temporal joins, NOW() — LEFT/FULL/RIGHT joins of auctions
        and persons (degrees and NULL-padded rows), a temporal join of
        bids against auctions, `expires > now()` dynamic filters, through
-       the Session, and a durable LEFT join with a crash.
+       the Session, and a durable LEFT join with a crash;
+  the expression registry, HLL — Nexmark q3, q14 and the q15 shape,
+       approx_count_distinct / bool_and / bool_or per auction and
+       globally, string functions over persons, through the Session, and
+       a durable approx_count_distinct with a crash.
 Phases, one JSON line each:
 
   1. device: the card, torch/CUDA versions, the kernels' build time;
@@ -227,12 +231,31 @@ Phases, one JSON line each:
      (degrees rebuilt by replay), on to 8: the MV equals an
      uninterrupted run's and the recount, NULL rows at the crash
      matched after it;
- 32. the kernels line: launches on the first run of each kernel's own
+ 32. kernels_hll: K30 (the HLL register update) against its plain
+     version on a 131072-row chunk into 1 slot (q15's day) and into
+     2^20 slots, int64 and float64 values with NULLs, deletes and
+     invisible rows, and the simple agg's one-group form, exactly;
+     kernels_wide: K27, K18, K4 (one COUNT over a boolean column) and
+     K25 at 22 calls, exactly; kernels_expr: K5's new opcodes on a
+     131072-row list of hazard columns (NaN, +-inf, +-0, ties,
+     out-of-range casts and shifts, four centuries of timestamps,
+     strings, real HLL words), split into several launches, exact but
+     the transcendental functions (within 2 ulp);
+ 33. q3_full (RisingWave's q3 at q8's chunks, the MV equal to the
+     recount after every barrier), q14_full (into the sink, then an MV
+     checked after every barrier), q15_full (22 agg calls, estimates
+     bit-equal to hll_estimate_numpy), acd_full (a 2^20-slot agg, 12
+     barriers, checked at 6 and 12; the global form every barrier),
+     strings_full (decoded) and acd_recover (durable, crash after 4
+     barriers); rates from an unchecked run, idle shares from a
+     profiled one;
+ 34. the kernels line: launches on the first run of each kernel's own
      slice's path (q5 for K1-K4 and K12, q7 for K5-K8, q8 for K9-K11,
      q17 for K13-K16, q7d for K17-K18, q5_topn for K19-K21, q2 for K22,
      q6 for K23-K24, the global agg for K25, q5c for K26-K27, lj_full
-     for K28, dynf for K29), error, times, bounds. K27 runs in every
-     hash agg's flush, so every earlier path drives it too.
+     for K28, dynf for K29, acd_full for K30), error, times, bounds. K27
+     runs in every hash agg's flush, so every earlier path drives it
+     too.
 With --host-profile, phase 4 also runs q5 under cProfile and lists the
 host functions with the most own time.
 The last line is {"ok": true, "device": {...}}. Any failed phase exits
@@ -256,7 +279,7 @@ import numpy as np
 import torch
 
 from risingwave_tpu_torch.common.chunk import Column, StreamChunk, op_sign
-from risingwave_tpu_torch.common.types import DataType
+from risingwave_tpu_torch.common.types import GLOBAL_DICT, DataType
 from risingwave_tpu_torch.common.types import schema as make_schema
 from risingwave_tpu_torch.connectors import tpch
 from risingwave_tpu_torch.connectors.tpch import TpchGenerator
@@ -843,7 +866,15 @@ def bytes_bound_ms(n_bytes: float) -> float:
     return n_bytes / HBM_BYTES_PER_S * 1e3
 
 
+_T0 = time.monotonic()
+
+
 def emit(obj) -> None:
+    """Print obj as a JSON line; a phase's line also gets at_s, the
+    seconds since the script started (so each phase's share of the run
+    is the difference of two lines)."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.monotonic() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -3034,7 +3065,8 @@ KERNEL_PATH = {"nexmark_bid": "q5", "hop_window": "q5", "hash_table": "q5",
                "filter_ops": "q2", "window_scan": "q6",
                "window_diff": "q6", "simple_agg": "gagg",
                "extrema_update": "q5c", "agg_flush": "q5c",
-               "outer_join": "lj", "dynamic_filter": "dynf"}
+               "outer_join": "lj", "dynamic_filter": "dynf",
+               "hll_update": "acd"}
 
 
 def phase_q5_full(dev, repeats: int = 5) -> dict:
@@ -6647,6 +6679,859 @@ def phase_dynf(dev, rounds: int = 4, steps: int = 16) -> dict:
     return out
 
 
+# ---- the rest of the expression registry, HLL, bool aggregates
+
+# RisingWave's Nexmark q3 (ci/scripts/sql/nexmark/q3.sql), as the JAX
+# package's golden writes it (tests/test_nexmark_queries.py:test_q3_golden)
+Q3_SELECT = ("SELECT P.name, P.city, P.state, A.id "
+             "FROM auction AS A JOIN person AS P ON A.seller = P.id "
+             "WHERE A.category = 10 AND "
+             "(P.state = 'OR' OR P.state = 'ID' OR P.state = 'CA')")
+# RisingWave's q14 without the count_char UDF (the JAX package has no
+# UDFs); EXTRACT(HOUR FROM ...) is written extract_hour(...)
+Q14_SELECT = (
+    "SELECT auction, bidder, 0.908 * price AS price, "
+    "CASE WHEN extract_hour(date_time) >= 8 AND "
+    "extract_hour(date_time) <= 18 THEN 'dayTime' "
+    "WHEN extract_hour(date_time) <= 6 OR extract_hour(date_time) >= 20 "
+    "THEN 'nightTime' ELSE 'otherTime' END AS bidTimeType, "
+    "date_time, extra FROM bid "
+    "WHERE 0.908 * price > 1000000 AND 0.908 * price < 50000000")
+# Nexmark q15 as the JAX package's SQL can write it: count(CASE ... THEN
+# 1 END) for count(*) FILTER (WHERE ...), approx_count_distinct for
+# count(DISTINCT ...); 4 counts and two sketches are 22 agg calls
+Q15_SELECT = (
+    "SELECT date_trunc_day(date_time) AS day, count(*) AS total_bids, "
+    "count(CASE WHEN price < 10000 THEN 1 END) AS rank1_bids, "
+    "count(CASE WHEN price >= 10000 AND price < 1000000 THEN 1 END) "
+    "AS rank2_bids, "
+    "count(CASE WHEN price >= 1000000 THEN 1 END) AS rank3_bids, "
+    "approx_count_distinct(bidder) AS total_bidders, "
+    "approx_count_distinct(auction) AS total_auctions "
+    "FROM bid GROUP BY date_trunc_day(date_time)")
+# RisingWave's q15 whole: besides, each distinct count also per price
+# rank (count(DISTINCT x) FILTER (WHERE ...) as approx_count_distinct of
+# a CASE); 4 counts and eight sketches are 76 agg calls
+Q15_RANKS = ("price < 10000", "price >= 10000 AND price < 1000000",
+             "price >= 1000000")
+Q15_WIDE_SELECT = (
+    Q15_SELECT.split(" FROM bid")[0].replace(
+        "approx_count_distinct(bidder) AS total_bidders, ",
+        "approx_count_distinct(bidder) AS total_bidders, " + "".join(
+            f"approx_count_distinct(CASE WHEN {r} THEN bidder END) AS "
+            f"rank{k + 1}_bidders, " for k, r in enumerate(Q15_RANKS)))
+    + "".join(f", approx_count_distinct(CASE WHEN {r} THEN auction END) "
+              f"AS rank{k + 1}_auctions" for k, r in enumerate(Q15_RANKS))
+    + " FROM bid GROUP BY date_trunc_day(date_time)")
+# the binders take scalar functions over aggregates only as arithmetic,
+# so coalesce and greatest run in a projection over the agg's output
+ACD_INNER = ("SELECT auction, count(*) AS n, "
+             "approx_count_distinct(bidder) AS nb, "
+             "bool_and(price > 1000000) AS ba, "
+             "bool_or(price > 50000000) AS bo, max(price) AS mx, "
+             "min(price) AS mn FROM bid")
+ACD_SELECT = ("SELECT auction, n, nb, ba, bo, coalesce(mx, 0) AS mx, "
+              f"greatest(mn, 1) AS mn FROM ({ACD_INNER} GROUP BY auction) X")
+ACD_GLOBAL_SELECT = ("SELECT count(*) AS n, "
+                     "approx_count_distinct(bidder) AS nb, "
+                     "bool_and(price > 1000000) AS ba, "
+                     "bool_or(price > 50000000) AS bo FROM bid")
+# LIKE is written as its registry function (neither parser takes the
+# operator)
+STRINGS_SELECT = ("SELECT id, lower(name) AS ln, upper(state) AS us, "
+                  "length(email_address) AS el, "
+                  "substr(credit_card, 1, 4) AS cc, "
+                  "like(name, 'person_1%') AS p1 FROM person "
+                  "WHERE like(city, '%a%') AND state IN ('OR', 'ID', 'CA')")
+
+
+BREADTH_CHUNK = 131072
+Q3_KERNELS = ("nexmark_person", "nexmark_auction", "expr_eval",
+              "sorted_join_probe", "sorted_join_merge", "radix_sort",
+              "filter_ops")
+Q14_KERNELS = ("nexmark_bid", "expr_eval", "filter_ops")
+ACD_KERNELS = ("nexmark_bid", "expr_eval", "hash_table", "hash_agg",
+               "hll_update", "agg_flush", "compact")
+GACD_KERNELS = ("nexmark_bid", "expr_eval", "simple_agg", "hll_update")
+STRINGS_KERNELS = ("nexmark_person", "expr_eval", "filter_ops")
+DAY_US = 86_400_000_000
+
+
+def ulp_dist(x, y) -> torch.Tensor:
+    """Distance in ulps between paired float64 values (tensors or numpy
+    arrays): 0 where they are equal, both NaN, or both below the
+    smallest normal (subnormals and zeros alike); INT64_MAX where only
+    one is finite or the signs differ."""
+    x = torch.as_tensor(x, dtype=torch.float64)
+    y = torch.as_tensor(y, dtype=torch.float64)
+    tiny = torch.finfo(torch.float64).tiny
+    same = ((x == y) | (torch.isnan(x) & torch.isnan(y))
+            | ((x.abs() < tiny) & (y.abs() < tiny)))
+    ix, iy = x.view(torch.int64), y.view(torch.int64)
+    near = torch.isfinite(x) & torch.isfinite(y) & ((ix < 0) == (iy < 0))
+    # same-signed float bits are ordered: adjacent floats differ by 1
+    d = torch.where(near, (ix - iy).abs(), torch.iinfo(torch.int64).max)
+    return torch.where(same, 0, d)
+
+
+def ulp_err(x: torch.Tensor, y: torch.Tensor) -> int:
+    """Largest `ulp_dist` between paired float64 tensors."""
+    d = ulp_dist(x, y)
+    return int(d.max()) if d.numel() else 0
+
+
+def expr_hazard_columns(dev, n: int, seed: int = 0) -> list:
+    """a int64 (INT64_MIN/MAX among them), c int32, g float64 hazards
+    (NaN, +-inf, +-0, ties, out-of-range for casts), sc shift counts past
+    the width, t timestamps over four centuries (29 February, before
+    1970), s VARCHAR ids of the person names, p/q booleans, w0-w7 the
+    packed HLL words of real sketches; each nullable column with NULLs."""
+    g = torch.Generator().manual_seed(seed)
+
+    def null():
+        return (torch.rand(n, generator=g) < 0.85).to(dev)
+
+    a = torch.randint(-10 ** 6, 10 ** 6, (n,), generator=g)
+    a[:4] = torch.tensor([INT64_MIN, INT64_MAX, 0, -1])
+    c = torch.randint(-2 ** 31, 2 ** 31, (n,), generator=g).to(torch.int32)
+    f = torch.randn(n, generator=g, dtype=torch.float64) * 1e4
+    f[:16] = torch.tensor([math.nan, math.inf, -math.inf, 0.0, -0.0, 0.5,
+                           -0.5, 2.5, -2.5, 0.49999999999999994, 1e19,
+                           -1e19, 3e9, -3e9, 1e300, 7.0],
+                          dtype=torch.float64)
+    sc = torch.randint(-3, 70, (n,), generator=g)
+    t = torch.randint(-200 * 365 * DAY_US, 200 * 365 * DAY_US, (n,),
+                      generator=g)
+    t[:3] = torch.tensor([-1, 951_782_400_000_000, -DAY_US])
+    names = torch.tensor(vocab_ids()["name"], dtype=torch.int32)
+    s = names[torch.randint(0, names.shape[0], (n,), generator=g)]
+    p = torch.rand(n, generator=g) < 0.5
+    q = torch.rand(n, generator=g) < 0.5
+    # the words of sketches over 0..~2^20 values, as the agg keeps them
+    from risingwave_tpu_torch.expr.hll import hll_update_plain
+    words = [torch.zeros(n, dtype=torch.int64, device=dev)
+             for _ in range(8)]
+    vals = torch.randint(0, 1 << 40, (8 * n,), generator=g).to(dev)
+    slots = (torch.arange(8 * n, device=dev) % n).to(torch.int32)
+    hll_update_plain(words, vals, None,
+                     torch.zeros(8 * n, dtype=torch.int8, device=dev),
+                     slots=slots)
+    return ([Column(a.to(dev), null()), Column(c.to(dev), null()),
+             Column(f.to(dev), null()), Column(sc.to(dev)),
+             Column(t.to(dev), null()), Column(s.to(dev), null()),
+             Column(p.to(dev), null()), Column(q.to(dev), null())]
+            + [Column(w.to(dev)) for w in words])
+
+
+def expr_breadth_exprs() -> list:
+    """Every registry entry K5 gained in this slice, as a list of
+    projections over `expr_hazard_columns`."""
+    I64, I32, F64, TS, VC, B = (DataType.INT64, DataType.INT32,
+                                DataType.FLOAT64, DataType.TIMESTAMP,
+                                DataType.VARCHAR, DataType.BOOLEAN)
+    a, c, f, sc, t, s, p, q = (col(0, I64), col(1, I32), col(2, F64),
+                               col(3, I64), col(4, TS), col(5, VC),
+                               col(6, B), col(7, B))
+    w = [col(8 + k, I64) for k in range(8)]
+    hour = call("extract_hour", t)
+    return [
+        call("neg", a), call("neg", c), call("abs", a), call("abs", f),
+        call("greatest", a, c, f), call("least", f, lit(-0.0)),
+        call("case", p, a, q, c, lit(None)),
+        call("case", call("and", call("greater_than_or_equal", hour,
+                                      lit(8)),
+                          call("less_than_or_equal", hour, lit(18))),
+             lit("dayTime"), call("or", call("less_than_or_equal", hour,
+                                             lit(6)),
+                                  call("greater_than_or_equal", hour,
+                                       lit(20))),
+             lit("nightTime"), lit("otherTime")),
+        call("coalesce", a, c, lit(0)), call("coalesce", lit(None), f),
+        call("case", call("greater_than", a, lit(0)),
+             call("hll_estimate", *w)),
+        call("floor", f), call("ceil", f), call("round", f),
+        call("trunc", f), call("sign", f), call("sign", a),
+        call("sqrt", f), call("cbrt", f), call("exp", f), call("ln", f),
+        call("log10", f), call("sin", f), call("cos", f), call("tan", f),
+        call("atan", f), call("pow", f, c),
+        call("bitwise_and", a, c), call("bitwise_or", a, c),
+        call("bitwise_xor", a, c), call("bitwise_not", c),
+        call("bitwise_shift_left", a, sc), call("bitwise_shift_right", a, sc),
+        call("extract_year", t), call("extract_month", t),
+        call("extract_day", t), hour, call("extract_minute", t),
+        call("extract_second", t), call("extract_dow", t),
+        call("extract_epoch", t), call("date_trunc_second", t),
+        call("date_trunc_minute", t), call("date_trunc_hour", t),
+        call("date_trunc_day", t), call("date_trunc_week", t),
+        call("lower", s), call("upper", s), call("trim", s),
+        call("ltrim", s), call("rtrim", s), call("reverse", s),
+        call("md5", s), call("length", s), call("ascii", s),
+        call("like", s, lit("person_1%")), call("starts_with", s, lit("pe")),
+        call("ends_with", s, lit("9")), call("contains", s, lit("_2")),
+        call("substr", s, lit(1), lit(4)),
+        FuncCall("cast", (f,), I64), FuncCall("cast", (f,), I32),
+    ]
+
+
+def expr_outputs_err(exprs, got, want) -> tuple[int, int]:
+    """(largest integer or bit difference outside the transcendental
+    functions, largest ulp distance of those)."""
+    ulp_fns = {"cbrt", "exp", "ln", "log10", "sin", "cos", "tan", "atan",
+               "pow"}
+    exact, ulps = 0, 0
+    for e, x, y in zip(exprs, got, want):
+        if not torch.equal(x.valid_mask(), y.valid_mask()):
+            exact = max(exact, 1)
+        v = x.valid_mask()
+        if getattr(e, "name", None) in ulp_fns:
+            ulps = max(ulps, ulp_err(x.data[v], y.data[v]))
+        else:
+            exact = max(exact, exact_err([x.data[v]], [y.data[v]]))
+    return exact, ulps
+
+
+def phase_kernels_expr(dev, n: int = 131072) -> dict:
+    """K5 against its plain version (the tree walk on the card) on every
+    opcode this slice added, over a 131072-row list of hazard columns:
+    integers, strings, booleans and validity exact, floats bit for bit
+    except the transcendental functions (libdevice's against PyTorch's
+    CUDA ones, within 2 ulp). The list is past one launch's limits, so it
+    also shows the split; timings are of the whole list."""
+    cols = expr_hazard_columns(dev, n)
+    exprs = expr_breadth_exprs()
+    prog = ExprProgram(exprs)
+    k5 = kernels.KERNELS["expr_eval"]
+    before = k5.launches
+    got = prog.eval(cols)
+    torch.cuda.synchronize()
+    launches = k5.launches - before
+    want = prog.eval_plain(cols)
+    exact, ulps = expr_outputs_err(exprs, got, want)
+    if exact or ulps > 2:
+        raise AssertionError(f"K5 breadth: exact err {exact}, {ulps} ulp")
+    # q14's projection alone: one launch
+    q14 = ExprProgram(exprs[7:8])
+    one = exact_err([q14.eval(cols)[0].data], [want[7].data])
+    if one:
+        raise AssertionError("K5 q14 CASE differs")
+    t = timings(lambda: prog.eval(cols), lambda: prog.eval_plain(cols))
+    read = sum(c.data.numel() * c.data.element_size()
+               + (c.valid.numel() if c.valid is not None else 0)
+               for c in cols)
+    written = sum(o.data.numel() * o.data.element_size()
+                  + (o.valid.numel() if o.valid is not None else 0)
+                  for o in got)
+    out = dict(rows=n, expressions=len(exprs), launches_per_eval=launches,
+               max_abs_err=exact, max_ulp_err=ulps, bytes=read + written,
+               bound_ms=bytes_bound_ms(read + written), bound_by="bytes",
+               **t)
+    emit({"phase": "kernel", "name": "expr_eval_breadth", **out})
+    return out
+
+
+def hll_case(dev, N: int, C: int, dtype, seed: int):
+    """A chunk for K30: values of `dtype` with NULLs, ops with deletes,
+    slots in [0, C) (C == 1: every row in slot 0, q15's day) with -1 for
+    invisible rows; lanes holding a previous chunk's registers."""
+    g = torch.Generator().manual_seed(seed)
+    if dtype == torch.float64:
+        v = torch.randn(N, generator=g, dtype=torch.float64) * 1e6
+        v[:4] = torch.tensor([math.nan, -0.0, 0.0, math.inf])
+    else:
+        v = torch.randint(0, 1 << 21, (N,), generator=g)
+    valid = torch.rand(N, generator=g) < 0.9
+    ops = torch.where(torch.rand(N, generator=g) < 0.95, 0, 1).to(torch.int8)
+    slots = (torch.randint(0, C, (N,), generator=g) if C > 1
+             else torch.zeros(N, dtype=torch.int64))
+    slots = torch.where(torch.rand(N, generator=g) < 0.97, slots, -1)
+    lanes = [torch.zeros(C, dtype=torch.int64, device=dev)
+             for _ in range(8)]
+    from risingwave_tpu_torch.expr.hll import hll_update_plain
+    pv = torch.randint(0, 1 << 21, (N,), generator=g)
+    slots = slots.to(torch.int32).to(dev)
+    hll_update_plain(lanes, pv.to(dev), None,
+                     torch.zeros(N, dtype=torch.int8, device=dev),
+                     slots=slots)
+    return v.to(dev), valid.to(dev), ops.to(dev), slots, lanes
+
+
+HLL_TILES = (256, 512, 1024, 4096)   # K30 tiles timed beside the default
+
+
+def phase_kernels_hll(dev, N: int = 131072) -> dict:
+    """K30 against hll_update_plain on a 131072-row chunk into 1 slot
+    (q15's day) and into a 2^20-slot table (per auction), over int64 and
+    float64 values with NULLs, deletes and invisible rows: the 8 lanes
+    exactly equal. Timed with the lanes restored before each call, at
+    the wrapper's tile (H.ROWS_PER_BLOCK rows a block) and at each tile
+    of HLL_TILES; the library call is torch's scatter_reduce(amax) over
+    the unpacked registers with each row's register and rank given. The
+    bound counts what this data needs: every row's slot, the op of the
+    visible rows, the valid byte of the visible inserts, the value of
+    the live rows, and each touched word read and written."""
+    from risingwave_tpu_torch.expr import hll as H
+    out = {}
+    err = 0
+    for C in (1, 1 << 20):
+        for dt in (torch.int64, torch.float64):
+            v, valid, ops, slots, lanes = hll_case(dev, N, C, dt, seed=C)
+            a = [x.clone() for x in lanes]
+            b = [x.clone() for x in lanes]
+            H.hll_update(a, v, valid, ops, slots=slots)
+            H.hll_update_plain(b, v, valid, ops, slots=slots)
+            torch.cuda.synchronize()
+            err = max(err, exact_err(a, b))
+            # the simple agg's form: every visible row in one group
+            one = [x[:1].clone() for x in lanes]
+            two = [x[:1].clone() for x in lanes]
+            vis = slots >= 0
+            H.hll_update([x.view(()) for x in one], v, valid, ops, vis=vis)
+            H.hll_update_plain([x.view(()) for x in two], v, valid, ops,
+                               vis=vis)
+            err = max(err, exact_err(one, two))
+            if err:
+                raise AssertionError(f"K30 differs (C={C}, {dt}): {err}")
+            work = [x.clone() for x in lanes]
+
+            def restore():
+                for w_, l_ in zip(work, lanes):
+                    w_.copy_(l_)
+
+            live = (slots >= 0) & valid & ((ops == 0) | (ops == 3))
+            bucket, rank = H.bucket_rank(v)
+            regs = H.registers(lanes).reshape(-1).clone()
+            idx = (slots.clamp(min=0).to(torch.int64) * 64 + bucket)[live]
+            rk = rank[live]
+            t = timings(
+                lambda: H.hll_update(work, v, valid, ops, slots=slots),
+                lambda: H.hll_update_plain(work, v, valid, ops,
+                                           slots=slots),
+                setup=restore,
+                library_fn=lambda: regs.scatter_reduce_(0, idx, rk, "amax"))
+            default = H.ROWS_PER_BLOCK
+            tile_ms = {}
+            for tile in HLL_TILES:
+                H.ROWS_PER_BLOCK = tile
+                try:
+                    tile_ms[tile] = time_ms(
+                        lambda: H.hll_update(work, v, valid, ops,
+                                             slots=slots), restore)[0]
+                finally:
+                    H.ROWS_PER_BLOCK = default
+            touched = torch.unique(
+                slots[live].to(torch.int64) * 8 + (bucket[live] >> 3))
+            vis = slots >= 0
+            ins = vis & ((ops == 0) | (ops == 3))
+            n_bytes = (4 * N + int(vis.sum()) + int(ins.sum())
+                       + int(live.sum()) * v.element_size()
+                       + int(touched.numel()) * 16)
+            out[f"C{C}_{str(dt).split('.')[1]}"] = dict(
+                rows=N, slots=C, live_rows=int(live.sum()),
+                touched_words=int(touched.numel()), bytes=n_bytes,
+                bound_ms=bytes_bound_ms(n_bytes), tile=default,
+                tile_ms=tile_ms, **t)
+    main = out["C1_int64"]
+    res = dict(max_abs_err=err, ms=main["ms"], plain_ms=main["plain_ms"],
+               library_ms=main["library_ms"], bound_ms=main["bound_ms"],
+               bound_by="bytes", cases=out)
+    emit({"phase": "kernel", "name": "hll_update", **res})
+    return {"hll_update": res}
+
+
+def q15_calls(n_sketches: int = 2) -> list:
+    """The q15 agg's calls: four counts, then per sketch a count and its
+    8 HLL register words (22 calls with two sketches, as q15_full writes
+    it; 76 with RisingWave's eight distinct counts)."""
+    calls = [count_star(True)] + [AggCall(AggKind.COUNT, 1 + k,
+                                          DataType.INT64, True)
+                                  for k in range(3)]
+    for arg in range(4, 4 + n_sketches):
+        calls.append(AggCall(AggKind.COUNT, arg, DataType.INT64, True))
+        calls += [AggCall(AggKind.HLL_REG, arg, DataType.INT64, True,
+                          lane=L) for L in range(8)]
+    return calls
+
+
+def wide_linear(dev, n_calls: int, N: int, seed: int):
+    """n_calls linear agg calls, each over its own input column (call j
+    reads column j): COUNT, SUM, MIN and MAX in turn, over int64 columns
+    and float64 ones by turns of four, every third column with NULLs;
+    so a kernel that reads one call's input or state for another's
+    disagrees with its plain version. Call 0 counts a boolean column
+    with NULLs, as bool_and's COUNT does."""
+    g = torch.Generator().manual_seed(seed)
+    kinds = (AggKind.COUNT, AggKind.SUM, AggKind.MIN, AggKind.MAX)
+    specs, cols = [], []
+    for j in range(n_calls):
+        fl = (j // 4) % 2 == 1
+        v = torch.randint(-1000, 1000, (N,), generator=g)
+        v = v.to(torch.float64) * 0.25 if fl else v
+        v = v > 0 if j == 0 else v
+        valid = (torch.rand(N, generator=g) < 0.9).to(dev) if j % 3 == 0 \
+            else None
+        kind = kinds[j % 4]
+        ret = DataType.INT64 if kind is AggKind.COUNT or not fl \
+            else DataType.FLOAT64
+        specs.append(AggCall(kind, j, ret, True).spec())
+        cols.append(Column(v.to(dev), valid))
+    return specs, cols
+
+
+def phase_kernels_wide(dev, C: int = 1 << 20, N: int = 131072,
+                       n_live: int = 400_000, n_dirty: int = 100_000) -> dict:
+    """The kernels whose call lists this slice made unbounded, against
+    their plain versions, exactly, at 22 calls (q15_full's agg) and at
+    76 (RisingWave's q15 with its eight distinct counts, past one
+    launch's limit, so split across launches): K27's flush and K18's
+    persist view of a 2^20-slot state (n_dirty dirty of n_live live), K4
+    on a 131072-row chunk and K25 on the same rows, each call over its
+    own column."""
+    out = {}
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    for n_sk, tag in ((2, ""), (8, "_76")):
+        specs = [c.spec() for c in q15_calls(n_sk)]
+        st = agg_state_shape(dev, C, (torch.int64,), specs, 0, n_live,
+                             n_dirty, seed=5)
+        a, b = _agg_clone(st), _agg_clone(st)
+        err = agg_flush_err(agg_flush(a, specs), agg_flush_plain(b, specs),
+                            a, b)
+        w = _agg_clone(st)
+        t = timings(lambda: agg_flush(w, specs),
+                    lambda: agg_flush_plain(w, specs),
+                    setup=lambda: _flush_restore(w, st))
+        out["agg_flush" + tag] = dict(
+            calls=len(specs), max_abs_err=err, bound_by="bytes",
+            bound_ms=bytes_bound_ms(flush_bytes(st, n_dirty)), **t)
+        (ba, ca), (bb, cb) = persist_pack(st, None, None), \
+            persist_pack_plain(st, None, None)
+        nd = int(ca[0])
+        wp = 2 + 1 + len(specs) + 1
+        err18 = exact_err([ca, ba[:nd * wp]], [cb, bb[:nd * wp]])
+        t18 = timings(lambda: persist_pack(st, None, None),
+                      lambda: persist_pack_plain(st, None, None))
+        out["persist_view" + tag] = dict(
+            calls=len(specs), columns=wp, dirty=nd, max_abs_err=err18,
+            bound_by="bytes", bound_ms=bytes_bound_ms(C + nd * wp * 8 * 2),
+            **t18)
+        table = st.table
+        del st, a, b, w
+        n = len(specs)
+        lin, cols = wide_linear(dev, n, N, seed=9 + n)
+        g = torch.Generator().manual_seed(n)
+        slots = torch.randint(0, C, (N,), generator=g).to(torch.int32).to(dev)
+        ops = torch.where(torch.rand(N, generator=g) < 0.9, 0, 1).to(
+            torch.int8).to(dev)
+        inputs = [(c.data, c.valid) for c in cols]
+
+        def state4():
+            return AggState(table, tuple(sp.init_state(C, dev)
+                                         for sp in lin),
+                            torch.zeros(C, dtype=torch.int64, device=dev),
+                            torch.zeros(C, dtype=torch.bool, device=dev),
+                            None, None)
+
+        s4a, s4b = state4(), state4()
+        agg_apply(s4a, lin, slots, ops, inputs, zero, zero.clone())
+        agg_apply_plain(s4b, lin, slots, ops, inputs, zero, zero.clone())
+        err4 = exact_err([*s4a.agg_states, s4a.row_count, s4a.dirty],
+                         [*s4b.agg_states, s4b.row_count, s4b.dirty])
+        s4 = state4()
+        one = torch.zeros(C, dtype=torch.int64, device=dev)
+        v0 = cols[1].data
+        t4 = timings(lambda: agg_apply(s4, lin, slots, ops, inputs, zero,
+                                       zero.clone()),
+                     lambda: agg_apply_plain(s4, lin, slots, ops, inputs,
+                                             zero, zero.clone()),
+                     library_fn=lambda: one.index_add_(0, slots.long(), v0))
+        touched = int(torch.unique(slots).numel())
+        # a COUNT reads only its valid bytes, the others value and valid
+        in_bytes = sum((c.valid is not None)
+                       + (lin[k].call.kind is not AggKind.COUNT)
+                       * c.data.element_size() for k, c in enumerate(cols))
+        out["hash_agg" + tag] = dict(
+            calls=n, max_abs_err=err4, bound_by="bytes",
+            bound_ms=bytes_bound_ms(N * (5 + in_bytes)
+                                    + touched * (n * 16 + 17)), **t4)
+        chunk = StreamChunk(tuple(cols), ops,
+                            torch.ones(N, dtype=torch.bool, device=dev),
+                            make_schema(*((f"c{j}", sp.call.ret_type
+                                           if sp.call.kind is not
+                                           AggKind.COUNT else DataType.INT64)
+                                          for j, sp in enumerate(lin))))
+
+        def sa_states():
+            return tuple(torch.full((), sp.init, dtype=sp.state_dtype,
+                                    device=dev) for sp in lin)
+
+        rc0 = torch.zeros((), dtype=torch.int64, device=dev)
+        ka, rca = simple_agg_apply(lin, sa_states(), rc0.clone(), chunk)
+        kb, rcb = simple_agg_apply_plain(lin, sa_states(), rc0.clone(),
+                                         chunk)
+        err25 = exact_err([*ka, rca], [*kb, rcb])
+        ss = sa_states()
+        t25 = timings(lambda: simple_agg_apply(lin, ss, rc0, chunk),
+                      lambda: simple_agg_apply_plain(lin, ss, rc0, chunk),
+                      library_fn=lambda: v0.sum())
+        out["simple_agg" + tag] = dict(
+            calls=n, max_abs_err=err25, bound_by="bytes",
+            bound_ms=bytes_bound_ms(N * (2 + in_bytes)), **t25)
+    bad = {k: v["max_abs_err"] for k, v in out.items() if v["max_abs_err"]}
+    if bad:
+        raise AssertionError(f"wide-call kernels differ: {bad}")
+    emit({"phase": "kernels_wide", **out})
+    return out
+
+
+def mv_committed(s, name: str) -> list:
+    """An MV's rows as committed at the last barrier."""
+    return list(s.catalog.mvs[name].table.iter_committed())
+
+
+def _person_cols(n: int, dev, idx) -> list:
+    vocabs = {k: torch.tensor(v, dtype=torch.int32, device=dev)
+              for k, v in vocab_ids().items()}
+    parts = []
+    for off in range(0, n, 1 << 20):
+        cols = gen_person_columns_plain(off, min(1 << 20, n - off),
+                                        NexmarkConfig(), vocabs, dev)
+        parts.append([cols[i].cpu().numpy() for i in idx])
+    return [np.concatenate(x) for x in zip(*parts)]
+
+
+def breadth_ddl(select: str, name: str, *, sink: bool = False,
+                durable_: int = 0, agg_cap: int = 1 << 16,
+                person_chunk: int = Q8_PERSON_CHUNK,
+                auction_chunk: int = Q8_AUCTION_CHUNK,
+                bid_chunk: int = BREADTH_CHUNK) -> list:
+    return outer_ddl(select, name, auction_chunk=auction_chunk,
+                     person_chunk=person_chunk, bid_chunk=bid_chunk,
+                     join_cap=1 << 22, durable_=durable_, sink=sink,
+                     extra=(f"SET streaming_agg_capacity = {agg_cap}",))
+
+
+def need_launches(r: dict, names, what: str) -> None:
+    """Every kernel of `names` launched in run `r` (on the card)."""
+    missing = [k for k in names if r["launches"][k] == 0]
+    if missing and r["mem_peak_bytes"] is not None:
+        raise AssertionError(f"kernels never launched on {what}: {missing}")
+
+
+def phase_q3_full(dev, rounds: int = 3) -> dict:
+    """RisingWave's Nexmark q3 (Q3_SELECT) through Session(device="cuda")
+    as an MV at q8's person and auction chunks (98304 persons and 294912
+    auctions a barrier, equal event-time spans): after every barrier the
+    MV equals the numpy recount (category-10 auctions joined to sellers
+    in OR, ID or CA). Rates and p50 come from a second, unchecked run of
+    the same geometry, the idle share from a third (`run_twice`)."""
+    pace = {"person": Q8_PERSON_CHUNK, "auction": Q8_AUCTION_CHUNK}
+    ddl = breadth_ddl(Q3_SELECT, "q3")
+    states = {GLOBAL_DICT.get_or_insert(x) for x in ("OR", "ID", "CA")}
+    checked = []
+
+    def check(k, mv, rows):
+        pid, nm, ct, st = _person_cols(rows["person"], dev, (0, 1, 4, 5))
+        aid, seller, cat = _auction_prefix(rows["auction"], NexmarkConfig(),
+                                           dev, (0, 7, 8))
+        aid, seller = aid[cat == 10], seller[cat == 10]
+        order = np.argsort(pid)
+        at = np.minimum(np.searchsorted(pid[order], seller), len(pid) - 1)
+        hit = pid[order][at] == seller
+        p = order[at[hit]]
+        keep = np.isin(st[p], list(states))
+        p = p[keep]
+        want = Counter(zip(nm[p].tolist(), ct[p].tolist(), st[p].tolist(),
+                           aid[hit][keep].tolist()))
+        got = Counter(tuple(r[:4]) for r in mv)
+        if got != want or not want:
+            raise AssertionError(f"q3: barrier {k}: {sum(got.values())} "
+                                 f"rows, recount {sum(want.values())}")
+        checked.append((k, sum(want.values())))
+
+    c = session_run(dev, ddl, rounds, 0, name="q3", pace=pace,
+                    on_barrier=lambda k, s, rows: check(
+                        k, mv_committed(s, "q3"), rows))
+    check(rounds, c["mv"], c["offsets"])
+    r, prof = run_twice(lambda: session_run(dev, ddl, rounds, 0, name="q3",
+                                            pace=pace))
+    need_launches(r, Q3_KERNELS, "q3")
+    return dict(run_figures(r, sum(r["offsets"].values())), **prof,
+                barriers_checked=len(checked), rows=checked[-1][1],
+                join_errs=c["join"].errs(), launches=r["launches"])
+
+
+def q14_recount(n: int, dev) -> Counter:
+    auction, bidder, price, dt, extra = _bid_prefix(
+        n, NexmarkConfig(), dev, [0, 1, 2, 5, 6])
+    p = 0.908 * price.astype(np.float64)
+    keep = (p > 1000000) & (p < 50000000)
+    hour = np.floor_divide(np.remainder(dt, DAY_US), 3_600_000_000)
+    ids = [GLOBAL_DICT.get_or_insert(x)
+           for x in ("dayTime", "nightTime", "otherTime")]
+    kind = np.where((hour >= 8) & (hour <= 18), ids[0],
+                    np.where((hour <= 6) | (hour >= 20), ids[1], ids[2]))
+    return Counter(zip(auction[keep].tolist(), bidder[keep].tolist(),
+                       p[keep].tolist(), kind[keep].tolist(),
+                       dt[keep].tolist(), extra[keep].tolist()))
+
+
+def phase_q14_full(dev, per_chunks: int = 8, rounds: int = 6) -> dict:
+    """RisingWave's q14 (Q14_SELECT) into the device blackhole sink at
+    131072-bid chunks, `per_chunks` a barrier, twice (rates and p50 from
+    the first, the idle share from a profiled second); then as an MV, two
+    chunks a barrier, equal to the numpy recount after every barrier."""
+    per = per_chunks * BREADTH_CHUNK
+    ddl = breadth_ddl(Q14_SELECT, "q14", sink=True)
+    r, prof = run_twice(lambda: session_run(dev, ddl, rounds, per,
+                                            name="q14"))
+    need_launches(r, Q14_KERNELS, "q14")
+    checked = []
+
+    def check(k, mv, n):
+        got = Counter(tuple(x[:6]) for x in mv)
+        want = q14_recount(n, dev)
+        if got != want or not want:
+            raise AssertionError(f"q14: barrier {k}: {sum(got.values())} "
+                                 f"rows, recount {sum(want.values())}")
+        checked.append(k)
+
+    c = session_run(dev, breadth_ddl(Q14_SELECT, "q14m"), 3,
+                    2 * BREADTH_CHUNK, name="q14m",
+                    on_barrier=lambda k, s, rows: check(
+                        k, mv_committed(s, "q14m"), rows["bid"]))
+    check(3, c["mv"], c["bids"])
+    return dict(run_figures(r, r["bids"]), **prof,
+                mv_barriers_checked=len(checked), launches=r["launches"])
+
+
+def _hll_groups(vals, seg, n_groups, keep=None):
+    """Per group the estimate over vals where keep (all rows when None),
+    None for a group with no such row."""
+    from risingwave_tpu_torch.expr.hll import hll_estimate_numpy
+    keep = np.ones(len(vals), bool) if keep is None else keep
+    est, ok = hll_estimate_numpy(vals, keep, seg, n_groups)
+    return [int(e) if o else None for e, o in zip(est, ok)]
+
+
+def q15_recount(n: int, dev, wide: bool = False) -> dict:
+    auction, bidder, price, dt = _bid_prefix(n, NexmarkConfig(), dev,
+                                             [0, 1, 2, 5])
+    day = np.floor_divide(dt, DAY_US) * DAY_US
+    days, seg = np.unique(day, return_inverse=True)
+    G = len(days)
+    cnt = np.bincount(seg, minlength=G)
+    r1 = np.bincount(seg, weights=price < 10000, minlength=G)
+    r2 = np.bincount(seg, weights=(price >= 10000) & (price < 1000000),
+                     minlength=G)
+    r3 = np.bincount(seg, weights=price >= 1000000, minlength=G)
+    ranks = (price < 10000, (price >= 10000) & (price < 1000000),
+             price >= 1000000)
+    est = []
+    for v in (bidder, auction):
+        est.append(_hll_groups(v, seg, G))
+        if wide:        # Q15_WIDE_SELECT's per-rank distinct counts
+            est += [_hll_groups(v, seg, G, keep=r) for r in ranks]
+    return {int(days[g]): (int(cnt[g]), int(r1[g]), int(r2[g]), int(r3[g]),
+                           *(e[g] for e in est)) for g in range(G)}
+
+
+def phase_q15_full(dev, per_chunks: int = 4, rounds: int = 6) -> dict:
+    """Nexmark q15 as the JAX package's SQL writes it (Q15_SELECT: GROUP
+    BY date_trunc_day, four counts, two approx_count_distinct: 22 agg
+    calls; the 131072-row chunks land on one day's registers) as an MV:
+    after every barrier the counts equal the recount exactly and the
+    estimates equal hll_estimate_numpy's bit for bit. Rates from an
+    unchecked run of the same geometry (`run_twice`). Then RisingWave's
+    whole q15 (Q15_WIDE_SELECT, 76 agg calls) for 3 barriers, checked
+    the same way."""
+    per = per_chunks * BREADTH_CHUNK
+    checked = []
+
+    def check(k, mv, n):
+        got = {r[0]: tuple(r[1:7]) for r in mv}
+        want = q15_recount(n, dev)
+        if got != want:
+            raise AssertionError(f"q15: barrier {k}: {got} != {want}")
+        checked.append(k)
+
+    ddl = breadth_ddl(Q15_SELECT, "q15")
+    c = session_run(dev, ddl, rounds, per, name="q15",
+                    on_barrier=lambda k, s, rows: check(
+                        k, mv_committed(s, "q15"), rows["bid"]))
+    check(rounds, c["mv"], c["bids"])
+    r, prof = run_twice(lambda: session_run(dev, ddl, rounds, per,
+                                            name="q15"))
+    need_launches(r, ACD_KERNELS, "q15")
+    # RisingWave's whole q15: 76 calls, split across K4/K27 launches
+    wide_checked = []
+
+    def check_wide(k, mv, n):
+        got = {r_[0]: tuple(r_[1:13]) for r_ in mv}
+        want = q15_recount(n, dev, wide=True)
+        if got != want:
+            raise AssertionError(f"q15_wide: barrier {k}: {got} != {want}")
+        wide_checked.append(k)
+
+    wide_rounds = 3
+    w = session_run(dev, breadth_ddl(Q15_WIDE_SELECT, "q15w"), wide_rounds,
+                    per, name="q15w",
+                    on_barrier=lambda k, s, rows: check_wide(
+                        k, mv_committed(s, "q15w"), rows["bid"]))
+    check_wide(wide_rounds, w["mv"], w["bids"])
+    need_launches(w, ACD_KERNELS, "q15_wide")
+    return dict(run_figures(r, r["bids"]), **prof,
+                barriers_checked=len(checked),
+                agg_calls=len(r["agg"].agg_calls), launches=r["launches"],
+                wide=dict(agg_calls=len(w["agg"].agg_calls),
+                          barriers_checked=len(wide_checked),
+                          launches=w["launches"]))
+
+
+def acd_recount(n: int, dev) -> Counter:
+    auction, bidder, price = _bid_prefix(n, NexmarkConfig(), dev, [0, 1, 2])
+    keys, seg = np.unique(auction, return_inverse=True)
+    G = len(keys)
+    cnt = np.bincount(seg, minlength=G)
+    big = np.bincount(seg, weights=price > 1000000, minlength=G)
+    huge = np.bincount(seg, weights=price > 50000000, minlength=G)
+    mx = np.full(G, np.iinfo(np.int64).min)
+    np.maximum.at(mx, seg, price)
+    mn = np.full(G, np.iinfo(np.int64).max)
+    np.minimum.at(mn, seg, price)
+    est = _hll_groups(bidder, seg, G)
+    return Counter((int(keys[g]), int(cnt[g]), int(est[g]),
+                    bool(big[g] == cnt[g]), bool(huge[g] > 0), int(mx[g]),
+                    int(max(mn[g], 1))) for g in range(G))
+
+
+def phase_acd_full(dev, per_chunks: int = 2, rounds: int = 12,
+                   check_at=(6,)) -> dict:
+    """ACD_SELECT (approx_count_distinct, bool_and, bool_or, max, min per
+    auction; coalesce and greatest above) as an MV on a 2^20-slot agg
+    like q5's, 12 barriers of two 131072-bid chunks, equal to the numpy
+    recount at barriers `check_at` and after the last (rates from an
+    unchecked run of the same geometry, `run_twice`); then
+    ACD_GLOBAL_SELECT through the simple agg, equal after every
+    barrier."""
+    per = per_chunks * BREADTH_CHUNK
+    checked = []
+
+    def check(k, mv, n):
+        got = Counter(tuple(x[:7]) for x in mv)
+        want = acd_recount(n, dev)
+        if got != want:
+            raise AssertionError(f"acd: barrier {k}: {len(got)} groups, "
+                                 f"recount {len(want)}")
+        checked.append(k)
+
+    ddl = breadth_ddl(ACD_SELECT, "acd", agg_cap=1 << 20)
+    c = session_run(dev, ddl, rounds, per, name="acd",
+                    on_barrier=lambda k, s, rows: check(
+                        k, mv_committed(s, "acd"), rows["bid"])
+                    if k in check_at else None)
+    check(rounds, c["mv"], c["bids"])
+    r, prof = run_twice(lambda: session_run(dev, ddl, rounds, per,
+                                            name="acd"))
+    need_launches(r, ACD_KERNELS, "acd")
+    gchecked = []
+
+    def check_global(k, mv, n):
+        (got,) = [tuple(x[:4]) for x in mv]
+        _, bidder, price = _bid_prefix(n, NexmarkConfig(), dev, [0, 1, 2])
+        est = _hll_groups(bidder, np.zeros(len(bidder), np.int64), 1)
+        want = (len(price), int(est[0]), bool((price > 1000000).all()),
+                bool((price > 50000000).any()))
+        if got != want:
+            raise AssertionError(f"global acd: barrier {k}: {got} != {want}")
+        gchecked.append(k)
+
+    g = session_run(dev, breadth_ddl(ACD_GLOBAL_SELECT, "gacd"), 6, per,
+                    name="gacd", on_barrier=lambda k, s, rows: check_global(
+                        k, mv_committed(s, "gacd"), rows["bid"]))
+    check_global(6, g["mv"], g["bids"])
+    need_launches(g, GACD_KERNELS, "the global acd")
+    return dict(run_figures(r, r["bids"]), **prof, barriers_checked=checked,
+                groups=len(r["mv"]), agg_calls=len(r["agg"].agg_calls),
+                global_barriers_checked=len(gchecked),
+                global_bids_per_s=g["bids"] / g["wall_s"],
+                global_launches=g["launches"], launches=r["launches"])
+
+
+def strings_recount(n: int, dev) -> Counter:
+    pid, nm, em, cc, ct, st = _person_cols(n, dev, (0, 1, 2, 3, 4, 5))
+    d = GLOBAL_DICT
+    out = Counter()
+    for i in range(n):
+        city, state = d.decode(int(ct[i])), d.decode(int(st[i]))
+        if "a" not in city or state not in ("OR", "ID", "CA"):
+            continue
+        name = d.decode(int(nm[i]))
+        out[(int(pid[i]), name.lower(), state.upper(),
+             len(d.decode(int(em[i]))), d.decode(int(cc[i]))[:4],
+             name.startswith("person_1"))] += 1
+    return out
+
+
+def phase_strings_full(dev, rounds: int = 3) -> dict:
+    """STRINGS_SELECT (lower, upper, length, substr, LIKE, IN) over
+    131072-person chunks as an MV: after every barrier the decoded rows
+    equal the recount over the decoded strings. Rates from an unchecked
+    run of the same geometry (`run_twice`)."""
+    checked = []
+
+    def check(k, mv, n):
+        d = GLOBAL_DICT
+        got = Counter((r[0], d.decode(r[1]), d.decode(r[2]), r[3],
+                       d.decode(r[4]), r[5]) for r in mv)
+        want = strings_recount(n, dev)
+        if got != want or not want:
+            raise AssertionError(f"strings: barrier {k}: "
+                                 f"{sum(got.values())} rows, recount "
+                                 f"{sum(want.values())}")
+        checked.append(k)
+
+    ddl = breadth_ddl(STRINGS_SELECT, "strs", person_chunk=BREADTH_CHUNK)
+    pace = {"person": BREADTH_CHUNK}
+    c = session_run(dev, ddl, rounds, 0, name="strs", pace=pace,
+                    on_barrier=lambda k, s, rows: check(
+                        k, mv_committed(s, "strs"), rows["person"]))
+    check(rounds, c["mv"], c["offsets"]["person"])
+    r, prof = run_twice(lambda: session_run(dev, ddl, rounds, 0,
+                                            name="strs", pace=pace))
+    need_launches(r, STRINGS_KERNELS, "strings")
+    return dict(run_figures(r, r["offsets"]["person"]), **prof,
+                barriers_checked=len(checked), launches=r["launches"])
+
+
+def phase_acd_recover(dev, r1: int = 4, r2: int = 4,
+                      chunk: int = BREADTH_CHUNK) -> dict:
+    """ACD_SELECT durable on a Hummock store over a local-fs object
+    store, one 131072-bid chunk a barrier: r1 barriers, crash(), reopen,
+    recover(), on to r1 + r2: the MV equals an uninterrupted durable
+    run's and the recount."""
+    ddl = breadth_ddl(ACD_SELECT, "acdr", durable_=1, agg_cap=1 << 20)
+    with tempfile.TemporaryDirectory(prefix="acdr_") as d:
+        a = session_run(dev, ddl, r1, chunk, name="acdr", crash=True,
+                        store=HummockStateStore(LocalFsObjectStore(d)))
+        b = session_run(dev, ddl, 0, chunk, name="acdr",
+                        recover_to=r1 + r2, store=lambda: HummockStateStore
+                        .open(LocalFsObjectStore(d)))
+    with tempfile.TemporaryDirectory(prefix="acdu_") as d:
+        u = session_run(dev, ddl, r1 + r2, chunk, name="acdr",
+                        store=HummockStateStore(LocalFsObjectStore(d)))
+    if b["bids"] != (r1 + r2) * chunk:
+        raise AssertionError(f"acd_recover: {b['bids']} bids")
+    got = Counter(tuple(x[:7]) for x in b["mv"])
+    if got != Counter(tuple(x[:7]) for x in u["mv"]) \
+            or got != acd_recount(b["bids"], dev):
+        raise AssertionError("acd_recover: recovered MV differs")
+    return dict(barriers_before_crash=r1,
+                barriers_after_recovery=b["barriers"],
+                recovered_base=b["base"], recovery_ms=b["recovery_s"] * 1e3,
+                mv_rows=len(b["mv"]),
+                persist_rows_before_crash=a["persist_rows"],
+                launches=b["launches"])
+
+
 def main(argv) -> int:
     unknown = [a for a in argv if a != "--host-profile"]
     if unknown:
@@ -6739,9 +7624,22 @@ def main(argv) -> int:
     emit({"phase": "dynf", "nvidia_smi": smi, **dynf})
     emit({"phase": "lj_recover", "nvidia_smi": smi,
           **phase_lj_recover(dev)})
+    res.update(phase_kernels_hll(dev))
+    phase_kernels_wide(dev)
+    emit({"phase": "kernels_expr", "nvidia_smi": smi,
+          **phase_kernels_expr(dev)})
+    emit({"phase": "q3_full", "nvidia_smi": smi, **phase_q3_full(dev)})
+    emit({"phase": "q14_full", "nvidia_smi": smi, **phase_q14_full(dev)})
+    emit({"phase": "q15_full", "nvidia_smi": smi, **phase_q15_full(dev)})
+    acd = phase_acd_full(dev)
+    emit({"phase": "acd_full", "nvidia_smi": smi, **acd})
+    emit({"phase": "strings_full", "nvidia_smi": smi,
+          **phase_strings_full(dev)})
+    emit({"phase": "acd_recover", "nvidia_smi": smi,
+          **phase_acd_recover(dev)})
     paths = {"q5": q5, "q7": q7, "q8": q8, "q17": q17, "q7d": q7d,
              "q5t": q5t, "q2": q2, "q6": q6, "gagg": gagg, "q5c": q5c,
-             "lj": lj, "dynf": dynf}
+             "lj": lj, "dynf": dynf, "acd": acd}
     rows = []
     for name, k in kernels.KERNELS.items():
         r = res[name]

@@ -35,6 +35,11 @@
 // Design: one thread per rank j, one launch, no host sync (n is read on
 // the device). A thread reads its dirty slot's state, writes its two
 // output rows, then refreshes that slot; no two threads share a slot.
+// A launch takes at most kMaxCalls calls. A longer list is split across
+// launches over the same ranks: each writes its calls' output columns
+// and refreshes their prev_emit, and carries "every value so far equal"
+// per rank in eq[j] to the next; the last also writes ops, vis and the
+// keys and refreshes prev_exists and dirty.
 
 #include "common.cuh"
 
@@ -42,7 +47,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxKeys = 4;
-constexpr int kMaxCalls = 8;
+constexpr int kMaxCalls = 32;
 
 enum Type { T_I32 = 1, T_I64 = 2, T_F32 = 3, T_F64 = 4 };
 
@@ -138,19 +143,22 @@ flush_kernel(long long C, const i64* __restrict__ sel,
              const i64* __restrict__ n_dirty,
              const i64* __restrict__ row_count, bool* __restrict__ dirty,
              bool* __restrict__ prev_exists, Keys keys, Calls calls,
-             signed char* __restrict__ out_ops, bool* __restrict__ out_vis) {
+             signed char* __restrict__ out_ops, bool* __restrict__ out_vis,
+             bool* __restrict__ eq, bool first, bool last) {
   const long long j = static_cast<long long>(blockIdx.x) * kThreads
                       + threadIdx.x;
   if (j >= C) return;
   const long long o = 2 * j;
   if (j >= *n_dirty) {
-    out_ops[o] = 1;
-    out_ops[o + 1] = 0;
-    out_vis[o] = false;
-    out_vis[o + 1] = false;
-    for (int c = 0; c < keys.n; ++c) {
-      store_raw(keys.out[c], keys.width[c], o, 0);
-      store_raw(keys.out[c], keys.width[c], o + 1, 0);
+    if (last) {
+      out_ops[o] = 1;
+      out_ops[o + 1] = 0;
+      out_vis[o] = false;
+      out_vis[o + 1] = false;
+      for (int c = 0; c < keys.n; ++c) {
+        store_raw(keys.out[c], keys.width[c], o, 0);
+        store_raw(keys.out[c], keys.width[c], o + 1, 0);
+      }
     }
     for (int c = 0; c < calls.n; ++c) {
       store_ret(calls.out[c], calls.ret[c], o, 0);
@@ -159,11 +167,9 @@ flush_kernel(long long C, const i64* __restrict__ sel,
     return;
   }
   const long long s = sel[j];
-  const bool existed = prev_exists[s];
-  const bool exists = row_count[s] > 0;
   i64 cur[kMaxCalls];
   i64 old[kMaxCalls];
-  bool unchanged = existed && exists;
+  bool unchanged = first || eq[j];
   for (int c = 0; c < calls.n; ++c) {
     const bool fl = calls.state_float[c] != 0;
     i64 bits;
@@ -179,6 +185,18 @@ flush_kernel(long long C, const i64* __restrict__ sel,
     old[c] = load_ret(calls.prev_emit[c], calls.ret[c], s);
     unchanged = unchanged && same(cur[c], old[c], calls.ret[c]);
   }
+  for (int c = 0; c < calls.n; ++c) {
+    store_ret(calls.out[c], calls.ret[c], o, old[c]);
+    store_ret(calls.out[c], calls.ret[c], o + 1, cur[c]);
+    store_ret(calls.prev_emit[c], calls.ret[c], s, cur[c]);
+  }
+  if (!last) {
+    eq[j] = unchanged;
+    return;
+  }
+  const bool existed = prev_exists[s];
+  const bool exists = row_count[s] > 0;
+  unchanged = unchanged && existed && exists;
   out_ops[o] = exists ? 2 : 1;          // UpdateDelete : Delete
   out_ops[o + 1] = existed ? 3 : 0;     // UpdateInsert : Insert
   out_vis[o] = existed && !unchanged;
@@ -187,11 +205,6 @@ flush_kernel(long long C, const i64* __restrict__ sel,
     const i64 k = load_raw(keys.col[c], keys.width[c], s);
     store_raw(keys.out[c], keys.width[c], o, k);
     store_raw(keys.out[c], keys.width[c], o + 1, k);
-  }
-  for (int c = 0; c < calls.n; ++c) {
-    store_ret(calls.out[c], calls.ret[c], o, old[c]);
-    store_ret(calls.out[c], calls.ret[c], o + 1, cur[c]);
-    store_ret(calls.prev_emit[c], calls.ret[c], s, cur[c]);
   }
   prev_exists[s] = exists;
   dirty[s] = false;
@@ -202,7 +215,9 @@ flush_kernel(long long C, const i64* __restrict__ sel,
 // The flush over K12's compaction (sel, n_dirty on the device). Per
 // call: kind, state pointer, buffer counts and width (retractable calls),
 // float64 state flag, identity bits, output type, prev_emit and output
-// column; per key: column, width in bytes, output column.
+// column; per key: column, width in bytes, output column. first/last:
+// this launch's place in a split call list (both for a whole one); eq
+// is a [C] scratch the parts of a split list share (else unused).
 extern "C" int rw_agg_flush(long long C, const long long* sel,
                             const long long* n_dirty,
                             const long long* row_count, bool* dirty,
@@ -216,9 +231,9 @@ extern "C" int rw_agg_flush(long long C, const long long* sel,
                             const long long* inits, const int* rets,
                             void* const* prev_emit, void* const* outs,
                             signed char* out_ops, bool* out_vis,
-                            void* stream) {
+                            bool* eq, int first, int last, void* stream) {
   if (C < 1 || n_keys < 0 || n_keys > kMaxKeys || n_calls < 0
-      || n_calls > kMaxCalls) {
+      || n_calls > kMaxCalls || ((!first || !last) && eq == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Keys k = {};
@@ -247,6 +262,6 @@ extern "C" int rw_agg_flush(long long C, const long long* sel,
   flush_kernel<<<rw_blocks(C, kThreads), kThreads, 0,
                  static_cast<cudaStream_t>(stream)>>>(
       C, sel, n_dirty, row_count, dirty, prev_exists, k, a, out_ops,
-      out_vis);
+      out_vis, eq, first != 0, last != 0);
   return static_cast<int>(cudaGetLastError());
 }

@@ -23,12 +23,16 @@
 // The dirty bit is a plain byte store by the same lane. Thread 0 adds
 // the chunk's n_unresolved (from K3, on the device) to the overflow
 // accumulator, so the whole apply needs no host sync.
+//
+// A launch takes at most kMaxCalls calls; a longer list is split across
+// launches, the first of which alone updates row_count, dirty and
+// overflow (the later ones get row_count == nullptr).
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kMaxCalls = 8;
+constexpr int kMaxCalls = 32;
 constexpr int kThreads = 256;
 constexpr long long kPosInfBits = 0x7ff0000000000000LL;
 constexpr long long kNegInfBits = static_cast<long long>(0xfff0000000000000ULL);
@@ -126,7 +130,6 @@ __global__ void agg_apply_kernel(const int* __restrict__ slots,
                                  int* overflow) {
   const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x +
                         threadIdx.x;
-  if (tid == 0) *overflow += *n_unresolved;
   const bool in = tid < N;
   const int s = in ? slots[tid] : -1;
   int sign = 0;
@@ -137,10 +140,13 @@ __global__ void agg_apply_kernel(const int* __restrict__ slots,
   const unsigned grp = __match_any_sync(RW_FULL_MASK, s);
   const bool lead = (threadIdx.x & 31) == __ffs(grp) - 1 && s >= 0;
 
-  const i64 rc = group_sum<i64>(grp, sign);
-  if (lead) {
-    if (rc != 0) atomic_add_i64(&row_count[s], rc);
-    dirty[s] = 1;
+  if (row_count != nullptr) {
+    if (tid == 0) *overflow += *n_unresolved;
+    const i64 rc = group_sum<i64>(grp, sign);
+    if (lead) {
+      if (rc != 0) atomic_add_i64(&row_count[s], rc);
+      dirty[s] = 1;
+    }
   }
   for (int j = 0; j < calls.n; ++j) {
     const bool valid = in && (calls.valid[j] == nullptr || calls.valid[j][tid]);
@@ -187,6 +193,8 @@ __global__ void agg_apply_kernel(const int* __restrict__ slots,
 
 }  // namespace
 
+// row_count == nullptr: a later launch of a split call list, which
+// leaves row_count, dirty and overflow to the first.
 extern "C" int rw_agg_apply(const int* slots, const signed char* ops, int N,
                             long long* row_count, unsigned char* dirty,
                             int n_calls, const int* kinds,

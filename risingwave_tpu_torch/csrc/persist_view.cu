@@ -31,13 +31,16 @@
 // per slot computes the mask and its block's count (scan.cuh's block
 // scan); rw_scan_sums turns the counts into exclusive block offsets
 // (the last entry is the total); pv_scatter recomputes the mask and the
-// in-block rank and writes the row.
+// in-block rank and writes the row. A launch takes at most kMaxCols
+// column groups; a longer persist row is written by several scatters
+// over one count and scan, each its groups' lanes at their offset in the
+// row (and the ops, vis and row_count lanes, the same each time).
 
 #include "scan.cuh"
 
 namespace {
 
-constexpr int kMaxCols = 16;
+constexpr int kMaxCols = 64;
 
 struct View {
   int mode;                        // 0 persist, 1 evict
@@ -55,7 +58,8 @@ struct View {
   int stride[kMaxCols];
   int n_keys;
   int n_cols;                      // column groups besides ops/vis/rc
-  int n_lanes;                     // their lanes
+  int lane_at;                     // the groups' first lane in the row
+  int row_w;                       // lanes of a persist row
 };
 
 __device__ __forceinline__ bool selected(const View& v, long long i) {
@@ -87,19 +91,18 @@ pv_scatter(View v, const int* __restrict__ sums, int nb,
     const long long r = static_cast<long long>(sums[blockIdx.x]) + incl - 1;
     const long long base = base_count ? *base_count * base_width : 0;
     if (v.mode == 0) {
-      const int w = 2 + v.n_lanes + 1;
-      i64* row = out + base + r * w;
+      i64* row = out + base + r * v.row_w;
       const bool exists = v.row_count[i] > 0;
       row[0] = exists ? 0 : 1;
       row[1] = (exists || v.prev_exists[i]) ? 1 : 0;
-      int at = 2;
+      int at = v.lane_at;
       for (int c = 0; c < v.n_cols; ++c) {
         const long long e = i * v.stride[c];
         for (int l = 0; l < v.lanes[c]; ++l) {
           row[at++] = rw_load_any(v.col[c], v.width[c], e + l);
         }
       }
-      row[at] = v.row_count[i];
+      row[v.row_w - 1] = v.row_count[i];
     } else {
       i64* row = out + base + r * v.n_keys;
       for (int c = 0; c < v.n_keys; ++c) {
@@ -112,11 +115,13 @@ pv_scatter(View v, const int* __restrict__ sums, int nb,
 
 int launch(const View& v, int* sums, long long* out,
            const long long* base_count, int base_width, long long* count,
-           void* stream) {
+           bool scan, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nb = rw_blocks(v.cap, kScanThreads);
-  pv_count<<<nb, kScanThreads, 0, s>>>(v, sums, nb);
-  rw_scan_sums<int><<<1, kSumsThreads, 0, s>>>(sums, nb + 1);
+  if (scan) {
+    pv_count<<<nb, kScanThreads, 0, s>>>(v, sums, nb);
+    rw_scan_sums<int><<<1, kSumsThreads, 0, s>>>(sums, nb + 1);
+  }
   pv_scatter<<<nb, kScanThreads, 0, s>>>(v, sums, nb, out, base_count,
                                          base_width, count);
   return static_cast<int>(cudaGetLastError());
@@ -131,15 +136,18 @@ extern "C" int rw_pv_sums(long long cap) {
 
 // The persist view: column groups = keys ++ per call its state or
 // buffers (n_cols of them: widths in bytes, lanes, strides in elements);
-// rows of 2 + (their lanes) + 1 lanes.
+// rows of row_w = 2 + (every group's lanes) + 1 lanes, these groups'
+// lanes from lane_at on. scan = 0: a later part of a split row, which
+// reuses the first part's sums.
 extern "C" int rw_persist_view(long long cap, const bool* dirty,
                                const long long* row_count,
                                const bool* prev_exists, int n_cols,
                                void* const* cols, const int* widths,
                                const int* lanes, const int* strides,
+                               int lane_at, int row_w, int scan,
                                int* sums, long long* out, long long* count,
                                void* stream) {
-  if (cap < 1 || n_cols < 1 || n_cols > kMaxCols) {
+  if (cap < 1 || n_cols < 1 || n_cols > kMaxCols || lane_at < 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   View v = {};
@@ -149,7 +157,9 @@ extern "C" int rw_persist_view(long long cap, const bool* dirty,
   v.row_count = row_count;
   v.prev_exists = prev_exists;
   v.n_cols = n_cols;
-  v.n_lanes = 0;
+  v.lane_at = lane_at;
+  v.row_w = row_w;
+  int n_lanes = 0;
   for (int c = 0; c < n_cols; ++c) {
     if (lanes[c] < 1 || strides[c] < lanes[c]) {
       return static_cast<int>(cudaErrorInvalidValue);
@@ -158,9 +168,12 @@ extern "C" int rw_persist_view(long long cap, const bool* dirty,
     v.width[c] = widths[c];
     v.lanes[c] = lanes[c];
     v.stride[c] = strides[c];
-    v.n_lanes += lanes[c];
+    n_lanes += lanes[c];
   }
-  return launch(v, sums, out, nullptr, 0, count, stream);
+  if (lane_at + n_lanes + 1 > row_w) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch(v, sums, out, nullptr, 0, count, scan != 0, stream);
 }
 
 // The eviction keys below `watermark` on key column j; rows of n_keys
@@ -188,5 +201,5 @@ extern "C" int rw_evict_keys(long long cap, const bool* occupied,
     v.col[c] = keys[c];
     v.width[c] = widths[c];
   }
-  return launch(v, sums, out, base_count, base_width, count, stream);
+  return launch(v, sums, out, base_count, base_width, count, true, stream);
 }

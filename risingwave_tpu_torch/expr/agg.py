@@ -13,10 +13,13 @@ The MIN/MAX combine form is valid on append-only input only; over a
 retracting input the hash agg keeps their materialized-input buffers
 (ops/extrema.py) and the spec gives their state dtype and identity.
 
-On the hash-agg path the per-chunk partial+combine is fused into kernel
-K4 (stream/hash_agg.py); these functions are its plain PyTorch version.
+HLL_REG is one packed 8-byte register word of a 64-register HLL sketch
+(expr/hll.py): approx_count_distinct lowers to 8 of them, one a lane;
+the register max cannot retract, so they need an append-only input.
 
-Left out of this slice (ROADMAP Queue A): HLL_REG (approx_count_distinct).
+On the hash-agg path the per-chunk partial+combine is fused into kernel
+K4 (stream/hash_agg.py), for HLL_REG into kernel K30 (expr/hll.py);
+these functions are their plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ class AggKind(enum.Enum):
     SUM = "sum"
     MIN = "min"
     MAX = "max"
+    HLL_REG = "hll_reg"
 
 
 @dataclass(frozen=True)
@@ -43,6 +47,7 @@ class AggCall:
     arg: Optional[int]          # input column index (None for count(*))
     ret_type: DataType
     append_only: bool = False   # input stream has no deletes
+    lane: int = 0               # HLL_REG word index (buckets [8L, 8L+8))
 
     @property
     def retractable(self) -> bool:
@@ -74,6 +79,10 @@ class AggSpec:
     def partial(self, values, signs, seg_ids, num_segments) -> torch.Tensor:
         k = self.call.kind
         dev = signs.device
+        if k is AggKind.HLL_REG:
+            from .hll import lane_partial
+            return lane_partial(values, signs, seg_ids, num_segments,
+                                self.call.lane)
         if k is AggKind.COUNT:
             out = torch.zeros(num_segments, dtype=torch.int64, device=dev)
             return out.index_add_(0, seg_ids, signs.to(torch.int64))
@@ -94,6 +103,9 @@ class AggSpec:
 
     def combine(self, state, partial) -> torch.Tensor:
         k = self.call.kind
+        if k is AggKind.HLL_REG:
+            from .hll import lane_combine
+            return lane_combine(state, partial)
         if k in (AggKind.COUNT, AggKind.SUM):
             return state + partial
         if k is AggKind.MIN:
@@ -114,6 +126,12 @@ class AggSpec:
 
 def make_spec(call: AggCall) -> AggSpec:
     k = call.kind
+    if k is AggKind.HLL_REG:
+        if not call.append_only:
+            raise NotImplementedError(
+                "approx_count_distinct needs an append-only input "
+                "(register max cannot retract)")
+        return AggSpec(call, torch.int64, 0)
     if k is AggKind.COUNT:
         return AggSpec(call, torch.int64, 0)
     if k is AggKind.SUM:

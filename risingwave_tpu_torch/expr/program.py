@@ -3,23 +3,29 @@ in one launch (csrc/expr_eval.cu).
 
 `ExprProgram(exprs)` is what executors hold. On a CPU tensor it walks
 each tree with PyTorch ops (`Expr.eval`, the plain version); on a CUDA
-tensor it launches K5 once per list, or raises (also for a list past
-K5's limits on program length, inputs and outputs). Expressions
-that are a bare `InputRef` are a column reselection: they return the
-input column itself and cost no launch; when every expression is one,
-nothing launches at all.
+tensor it launches K5 once per list, or once per part where the list
+is past K5's limits on program length, inputs, outputs, stack or
+string tables (the list is split between expressions; one expression
+past them raises). Expressions that are a bare `InputRef` are a column
+reselection: they return the input column itself and cost no launch;
+when every expression is one, nothing launches at all.
 
 The compiler reproduces the reference's dtype rules exactly: integers of
 every width are widened to int64 in a register and narrowed back where
 jnp would have wrapped (WRAP), an int operand meeting a float one is
 converted first (I2F), and each result is cast to the node's return
-type. A program is compiled once per input signature (each referenced
-column's dtype and whether it has a validity mask) and cached with its
-ctypes argument arrays.
+type (a float to an integer saturating at the target width, as XLA
+converts: F2I). A string function is a GATHER from a table the host
+builds over the string dictionary (expr/strings.py); the tables are
+looked up at each launch, so they follow the dictionary's growth. A
+program is compiled once per input signature (each referenced column's
+dtype and whether it has a validity mask) and cached with its ctypes
+argument arrays.
 
-Not compiled (NotImplementedError): float32 operands, arithmetic on
-booleans, floor division of floats (an integer-typed divide of a float
-operand), and functions outside the ported registry entries.
+Not compiled (NotImplementedError): float32 operands, arithmetic,
+extrema and bit functions on booleans, floor division of floats (an
+integer-typed divide of a float operand), CASE conditions that are not
+booleans, and string functions of non-literal patterns or positions.
 """
 
 from __future__ import annotations
@@ -32,6 +38,8 @@ import torch
 
 from ..common.chunk import Column
 from ..ops import kernels
+from . import strings
+from .functions import EXTRACT_FIELDS, TRUNC_US
 from .ir import Expr, FuncCall, InputRef, Literal
 
 _P = ctypes.c_void_p
@@ -45,20 +53,38 @@ K_EXPR = kernels.register(kernels.CudaKernel(
     functions={"rw_expr_eval": [
         ctypes.POINTER(_I), ctypes.POINTER(_I), ctypes.POINTER(_L), _I, _I,
         ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.POINTER(_I), _I,
-        ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.POINTER(_I), _P, _L,
+        ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.POINTER(_I), _I,
+        ctypes.POINTER(_P), ctypes.POINTER(_L), ctypes.POINTER(_I), _P, _L,
         _P]}))
 
-MAX_CODE, MAX_IN, MAX_OUT, MAX_STACK = 48, 16, 8, 16   # csrc/expr_eval.cu
+# csrc/expr_eval.cu
+MAX_CODE, MAX_IN, MAX_OUT, MAX_STACK, MAX_TAB = 128, 32, 16, 24, 8
 
 # opcodes (csrc/expr_eval.cu keeps the same numbers)
 (LOAD, CONST, NUL, ADD_I, SUB_I, MUL_I, ADD_F, SUB_F, MUL_F, CMP_I, CMP_F,
  AND, OR, NOT, IS_NULL, IS_NOT_NULL, I2F, F2I, I2B, F2B, WRAP, TSTART, TEND,
- OUT, MASK, DIV_I, DIV_F, MOD_I, MOD_F) = range(29)
+ OUT, MASK, DIV_I, DIV_F, MOD_I, MOD_F, NEG_I, NEG_F, ABS_I, ABS_F,
+ GREATEST, LEAST, CASE, COALESCE, FLOOR_F, CEIL_F, ROUND_F, TRUNC_F,
+ SIGN_I, SIGN_F, MATH, POW_F, BAND, BOR, BXOR, BNOT, SHL, SHR, EXTRACT,
+ DTRUNC, HLL_EST, GATHER) = range(55)
 CMP_CODES = {"equal": 0, "not_equal": 1, "less_than": 2,
              "less_than_or_equal": 3, "greater_than": 4,
              "greater_than_or_equal": 5}
 _ARITH = {"add": (ADD_I, ADD_F), "subtract": (SUB_I, SUB_F),
           "multiply": (MUL_I, MUL_F)}
+_UNARY = {"neg": (NEG_I, NEG_F), "abs": (ABS_I, ABS_F)}
+_ROUNDING = {"floor": FLOOR_F, "ceil": CEIL_F, "round": ROUND_F,
+             "trunc": TRUNC_F}
+MATH_CODES = {"sqrt": 0, "cbrt": 1, "exp": 2, "ln": 3, "log10": 4,
+              "sin": 5, "cos": 6, "tan": 7, "atan": 8}
+_BITS_OPS = {"bitwise_and": BAND, "bitwise_or": BOR, "bitwise_xor": BXOR,
+             "bitwise_shift_left": SHL, "bitwise_shift_right": SHR}
+EXTRACT_CODES = {f"extract_{f}": k for k, f in enumerate(EXTRACT_FIELDS)}
+EXTRACT_CODES["extract_epoch"] = len(EXTRACT_FIELDS)
+# functions whose result validity is always a mask (never None), as in
+# the reference: case, coalesce and hll_estimate build it from
+# valid_mask()
+_ALWAYS_MASKED = ("case", "coalesce", "hll_estimate")
 # element type codes shared by the kernels' column tables
 TYPE_CODES = {torch.int64: 0, torch.int32: 1, torch.int16: 2, torch.int8: 3,
               torch.bool: 4, torch.float64: 5}
@@ -84,6 +110,7 @@ class _Compiler:
         self.sig = sig
         self.code: list[tuple[int, int, int]] = []
         self.inputs: list[int] = []     # input column -> program slot
+        self.tables: list = []          # GATHER slot -> strings.TableSpec
         self.depth = 0
         self.max_depth = 0
 
@@ -92,7 +119,7 @@ class _Compiler:
         self.depth += push
         self.max_depth = max(self.max_depth, self.depth)
 
-    # static facts about a node: (jnp dtype of its value, nullable)
+    # static facts about a node: (torch dtype of its value, nullable)
     def info(self, e: Expr):
         if isinstance(e, InputRef):
             dt, has_valid = self.sig[e.index]
@@ -100,13 +127,14 @@ class _Compiler:
         if isinstance(e, Literal):
             return e.ret_type.torch_dtype, e.value is None
         if isinstance(e, FuncCall):
-            infos = [self.info(a) for a in e.args]
             if e.name in ("is_null", "is_not_null"):
                 nullable = False
-            elif e.name in ("divide", "modulus"):
-                nullable = True         # a zero divisor gives NULL
+            elif e.name in ("divide", "modulus") or e.name in _ALWAYS_MASKED:
+                nullable = True     # a zero divisor gives NULL; or a mask
+            elif e.name in strings.STR_PREDS:
+                nullable = self.info(e.args[0])[1]
             else:
-                nullable = any(n for _, n in infos)
+                nullable = any(self.info(a)[1] for a in e.args)
             return e.ret_type.torch_dtype, nullable
         raise NotImplementedError(f"K5 cannot compile {e!r}")
 
@@ -119,6 +147,34 @@ class _Compiler:
         bits = _BITS[dtype]
         if bits < 64:
             self._op(WRAP, bits)
+
+    def _cast(self, src: torch.dtype, dst: torch.dtype) -> None:
+        """The top from `src` to `dst` as jnp's astype converts."""
+        if src == dst:
+            return
+        ks, kd = _kind(src), _kind(dst)
+        if dst == torch.bool:
+            self._op(I2B if ks == "i" else F2B)
+        elif kd == "f":
+            self._to(ks, "f")
+        elif ks == "f":
+            self._op(F2I, _BITS[dst] if _BITS[dst] < 64 else 0)
+        elif src != torch.bool:
+            self._wrap(dst)
+
+    def _emit_as(self, e: Expr, dst: torch.dtype) -> None:
+        self.emit(e)
+        self._cast(self.info(e)[0], dst)
+
+    def _ints(self, name: str, args) -> torch.dtype:
+        """The promoted integer dtype of a bit function's operands."""
+        dts = [self.info(a)[0] for a in args]
+        if any(_kind(d) != "i" or d == torch.bool for d in dts):
+            raise NotImplementedError(f"K5: {name} of non-integers")
+        out = dts[0]
+        for d in dts[1:]:
+            out = torch.promote_types(out, d)
+        return out
 
     def emit(self, e: Expr) -> None:
         """Push e's value; afterwards the top holds it in the register
@@ -226,29 +282,127 @@ class _Compiler:
             return
         if name == "cast":
             (a,) = args
-            (ka,) = kinds
+            self._emit_as(a, out_dt)
+            return
+        if name in _UNARY:
+            (a,) = args
+            dt = self.info(a)[0]
+            if dt == torch.bool:
+                raise NotImplementedError(f"K5: {name} of a boolean")
             self.emit(a)
-            if out_dt == torch.bool:
-                self._op(I2B if ka == "i" else F2B)
+            self._op(_UNARY[name][kinds[0] == "f"])
+            if kinds[0] == "i":
+                self._wrap(dt)
+            self._cast(dt, out_dt)
+            return
+        if name in ("greatest", "least"):
+            dts = [self.info(a)[0] for a in args]
+            if torch.bool in dts:
+                raise NotImplementedError(f"K5: {name} of booleans")
+            dt = dts[0]
+            for d in dts[1:]:
+                dt = torch.promote_types(dt, d)
+            for a in args:
+                self._emit_as(a, dt)
+            self._op(GREATEST if name == "greatest" else LEAST, len(args),
+                     int(_kind(dt) == "f"), push=1 - len(args))
+            self._cast(dt, out_dt)
+            return
+        if name == "case":
+            n = len(args)
+            has_else = n % 2 == 1
+            pairs = n // 2
+            for i in range(pairs):
+                cond, val = args[2 * i], args[2 * i + 1]
+                if self.info(cond)[0] != torch.bool:
+                    raise NotImplementedError("K5: CASE of a non-boolean "
+                                              "condition")
+                self.emit(cond)
+                self._emit_as(val, out_dt)
+            if has_else:
+                self._emit_as(args[-1], out_dt)
+            self._op(CASE, pairs, int(has_else), push=1 - n)
+            return
+        if name == "coalesce":
+            for a in args:
+                self._emit_as(a, out_dt)
+            self._op(COALESCE, len(args), push=1 - len(args))
+            return
+        if name == "hll_estimate":
+            if any(k != "i" for k in kinds) or len(args) > 8:
+                raise NotImplementedError("K5: hll_estimate takes up to 8 "
+                                          "integer words")
+            for a in args:
+                self.emit(a)
+            self._op(HLL_EST, len(args), push=1 - len(args))
+            return
+        if name in _ROUNDING or name == "sign":
+            (a,) = args
+            dt = self.info(a)[0]
+            self.emit(a)
+            if name == "sign":
+                self._op(SIGN_F if kinds[0] == "f" else SIGN_I)
+            elif kinds[0] == "f":
+                self._op(_ROUNDING[name])
+            self._cast(dt, out_dt)
+            return
+        if name == "pow":
+            for a, ka in zip(args, kinds):
+                self.emit(a)
+                self._to(ka, "f")
+            self._op(POW_F, push=-1)
+            return
+        if name in MATH_CODES:
+            self.emit(args[0])
+            self._to(kinds[0], "f")
+            self._op(MATH, MATH_CODES[name])
+            return
+        if name in _BITS_OPS or name == "bitwise_not":
+            dt = self._ints(name, args)
+            for a in args:
+                self._emit_as(a, dt)
+            if name == "bitwise_not":
+                self._op(BNOT)
             else:
-                self._to(ka, _kind(out_dt))
-                if _kind(out_dt) == "i":
-                    self._wrap(out_dt)
+                self._op(_BITS_OPS[name], push=-1)
+            self._wrap(dt)
+            self._cast(dt, out_dt)
+            return
+        if name in EXTRACT_CODES or name.startswith("date_trunc_"):
+            if kinds != ["i"]:
+                raise NotImplementedError(f"K5: {name} of a float")
+            self.emit(args[0])
+            if name in EXTRACT_CODES:
+                self._op(EXTRACT, EXTRACT_CODES[name])
+            else:
+                unit = name.rsplit("_", 1)[1]
+                self._op(DTRUNC, int(unit == "week"), TRUNC_US[unit])
+            self._cast(torch.int64, out_dt)
+            return
+        if name in strings.GATHER_FNS:
+            if kinds[0] != "i":
+                raise NotImplementedError(f"K5: {name} of a float")
+            spec = strings.table_spec(e)
+            self.emit(args[0])
+            keys = [t.key for t in self.tables]
+            if spec.key not in keys:
+                self.tables.append(spec)
+                keys.append(spec.key)
+            self._op(GATHER, keys.index(spec.key))
             return
         raise NotImplementedError(f"K5 has no opcode for {name!r}")
 
+    def fits(self, n_out: int) -> bool:
+        return (len(self.code) <= MAX_CODE and len(self.inputs) <= MAX_IN
+                and n_out <= MAX_OUT and self.max_depth <= MAX_STACK
+                and len(self.tables) <= MAX_TAB)
+
 
 class _Compiled:
-    """One program with its ctypes argument arrays."""
+    """One program (one launch) with its ctypes argument arrays."""
 
     def __init__(self, comp: _Compiler, outs: list, out_dtypes: list,
                  out_nullable: list, mask: bool):
-        if len(comp.code) > MAX_CODE or len(comp.inputs) > MAX_IN \
-                or len(outs) > MAX_OUT or comp.max_depth > MAX_STACK:
-            raise NotImplementedError(
-                f"K5 program too large ({len(comp.code)} ops, "
-                f"{len(comp.inputs)} inputs, {len(outs)} outputs, stack "
-                f"{comp.max_depth})")
         n = max(1, len(comp.code))
         self.n_code = len(comp.code)
         self.ops = (ctypes.c_int * n)(*[c[0] for c in comp.code])
@@ -257,6 +411,7 @@ class _Compiled:
         self.inputs = list(comp.inputs)
         self.in_types = kernels.int_array(
             TYPE_CODES[comp.sig[i][0]] for i in comp.inputs)
+        self.tables = list(comp.tables)
         self.outs = outs                   # expression index per output
         self.out_dtypes = out_dtypes
         self.out_nullable = out_nullable
@@ -284,29 +439,47 @@ class ExprProgram:
                          if not isinstance(e, InputRef)]
         self._cache: dict = {}
 
-    def _compile(self, sig, mask: bool) -> _Compiled:
-        """The computed expressions as one program (one launch); raises
-        NotImplementedError past K5's limits."""
+    def _compile(self, sig, mask: bool) -> tuple:
+        """The computed expressions as programs of one launch each: one
+        program while the list fits K5's limits, else split between
+        expressions (NotImplementedError if one alone does not fit)."""
         key = (sig, mask)
-        prog = self._cache.get(key)
-        if prog is None:
+        parts = self._cache.get(key)
+        if parts is not None:
+            return parts
+        parts = []
+        todo = list(self.computed)
+        while todo:
+            taken = []
             comp = _Compiler(sig)
-            dtypes, nullable = [], []
-            for j in self.computed:
+            for j in todo:
+                trial = _Compiler(sig)
+                trial.code, trial.inputs = list(comp.code), list(comp.inputs)
+                trial.tables = list(comp.tables)
+                trial.max_depth = comp.max_depth
                 e = self.exprs[j]
-                comp.emit(e)
-                dt, null = comp.info(e)
+                trial.emit(e)
+                dt, _ = trial.info(e)
                 if mask:
                     if dt != torch.bool:
                         raise NotImplementedError("K5 mask of non-boolean")
-                    comp._op(MASK, push=-1)
+                    trial._op(MASK, push=-1)
                 else:
-                    comp._op(OUT, len(dtypes), push=-1)
-                dtypes.append(e.ret_type.torch_dtype)
-                nullable.append(null)
-            prog = self._cache[key] = _Compiled(comp, list(self.computed),
-                                                dtypes, nullable, mask)
-        return prog
+                    trial._op(OUT, len(taken), push=-1)
+                if not trial.fits(len(taken) + 1):
+                    break
+                comp = trial
+                taken.append(j)
+            if not taken:
+                raise NotImplementedError(
+                    f"K5 program too large for {self.exprs[todo[0]]!r}")
+            parts.append(_Compiled(
+                comp, taken, [self.exprs[j].ret_type.torch_dtype
+                              for j in taken],
+                [comp.info(self.exprs[j])[1] for j in taken], mask))
+            todo = todo[len(taken):]
+        parts = self._cache[key] = tuple(parts)
+        return parts
 
     # ------------------------------------------------------------ plain
     def eval_plain(self, columns: Sequence[Column]) -> list[Column]:
@@ -333,15 +506,16 @@ class ExprProgram:
         if not self.computed:
             return out
         n = columns[0].capacity
-        prog = self._compile(_signature(columns, self.refs), mask=False)
-        datas, valids = [], []
-        for dt, null in zip(prog.out_dtypes, prog.out_nullable):
-            datas.append(torch.empty(n, dtype=dt, device=dev))
-            valids.append(torch.empty(n, dtype=torch.bool, device=dev)
-                          if null else None)
-        self._launch(prog, columns, datas, valids, None, n)
-        for j, d, v in zip(prog.outs, datas, valids):
-            out[j] = Column(d, v)
+        for prog in self._compile(_signature(columns, self.refs),
+                                  mask=False):
+            datas, valids = [], []
+            for dt, null in zip(prog.out_dtypes, prog.out_nullable):
+                datas.append(torch.empty(n, dtype=dt, device=dev))
+                valids.append(torch.empty(n, dtype=torch.bool, device=dev)
+                              if null else None)
+            self._launch(prog, columns, datas, valids, None, n)
+            for j, d, v in zip(prog.outs, datas, valids):
+                out[j] = Column(d, v)
         return out
 
     def and_into(self, columns: Sequence[Column], mask: torch.Tensor) -> None:
@@ -356,7 +530,7 @@ class ExprProgram:
                 or not mask.is_contiguous():
             raise ValueError("and_into takes one expression and a "
                              "contiguous bool mask")
-        prog = self._compile(_signature(columns, self.refs), mask=True)
+        (prog,) = self._compile(_signature(columns, self.refs), mask=True)
         self._launch(prog, columns, [], [], mask, mask.shape[0])
 
     def _launch(self, prog: _Compiled, columns, datas, valids,
@@ -371,13 +545,20 @@ class ExprProgram:
                             or c.valid.dtype != torch.bool)):
                 raise ValueError("K5 input columns must be contiguous, on "
                                  "one device, of one length")
+        # the tables in the order the program gathers (inner calls first,
+        # so their results are in the dictionary an outer table maps)
+        tabs = [strings.device_table(spec, dev) for spec in prog.tables]
         K_EXPR.launches += 1
         K_EXPR.call("rw_expr_eval", prog.ops, prog.args, prog.imms,
                     prog.n_code, len(ins),
                     kernels.ptr_array([c.data for c in ins]),
                     kernels.ptr_array([c.valid for c in ins]),
                     prog.in_types, len(datas), kernels.ptr_array(datas),
-                    kernels.ptr_array(valids), prog.out_types,
+                    kernels.ptr_array(valids), prog.out_types, len(tabs),
+                    kernels.ptr_array(tabs),
+                    (ctypes.c_longlong * max(1, len(tabs)))(
+                        *[t.shape[0] for t in tabs]),
+                    kernels.int_array(TYPE_CODES[t.dtype] for t in tabs),
                     kernels.ptr_or_null(mask), n,
                     ctypes.c_void_p(
                         torch.cuda.current_stream(dev).cuda_stream))

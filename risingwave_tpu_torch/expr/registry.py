@@ -9,11 +9,12 @@ the K5 program compiler (expr/program.py), which lowers each registered
 name to its opcodes.
 
 Null discipline: `strict` lifts a data-only body to AND-of-valids
-propagation; non-strict bodies (Kleene and/or, is_null) manage validity
-themselves.
+propagation; non-strict bodies (Kleene and/or, is_null, case, coalesce)
+manage validity themselves.
 
-Left out of this slice (ROADMAP A3): `case_rule`, `entries()` and
-`registered_functions()` serve functions that are not ported yet.
+Every name of the JAX package's registry has an entry here
+(`tests/test_torch_expr_registry.py` holds the two lists equal), so the
+binder's return-type inference never meets a name the evaluator lacks.
 """
 
 from __future__ import annotations
@@ -59,6 +60,18 @@ def fixed(dt: DataType):
     return rule
 
 
+def case_rule(name: str, args) -> DataType:
+    """case(c1, v1, ..., [else]): the common type of the VALUE branches."""
+    n = len(args)
+    vals = [args[2 * i + 1] for i in range(n // 2)]
+    if n % 2 == 1:
+        vals.append(args[-1])
+    ts = [a.ret_type for a in vals]
+    if all(t == ts[0] for t in ts):
+        return ts[0]     # _promote would degrade BOOLEAN to INT16
+    return _promote(ts)
+
+
 # ------------------------------------------------------------- the table
 
 @dataclass(frozen=True)
@@ -89,12 +102,12 @@ def kernel(*names: str, type_rule: Optional[Callable] = None,
 
 
 def _ensure_loaded() -> None:
-    # registrations live in functions.py as import side effects; lazy so
-    # `registry` itself has no import cycle
+    # registrations live in functions.py and strings.py as import side
+    # effects; lazy so `registry` itself has no import cycle
     global _loaded
     if not _loaded:
         _loaded = True
-        from . import functions  # noqa: F401
+        from . import functions, strings  # noqa: F401
 
 
 def lookup(name: str) -> Callable:
@@ -104,6 +117,18 @@ def lookup(name: str) -> Callable:
     except KeyError:
         raise NotImplementedError(
             f"scalar function {name!r} not registered") from None
+
+
+def entry(name: str) -> KernelEntry:
+    _ensure_loaded()
+    return _TABLE[name]
+
+
+def entries() -> list:
+    """Every registered entry, by name (the differential sweep's
+    surface)."""
+    _ensure_loaded()
+    return [_TABLE[k] for k in sorted(_TABLE)]
 
 
 def registered_names() -> list:

@@ -56,10 +56,10 @@ and executor arguments:
   CREATE SINK            -> the plan ends in a sink node
 
 What the JAX planner also plans raises `BindError("... not ported yet
-(ROADMAP A9)")` here, never a different plan: bool_and / bool_or /
-approx_count_distinct, MV-on-MV scans, the mesh top-N and the sharded
-over-window (`streaming_parallelism_devices` > 1), non-integer inner
-join keys (hash join), parallelism > 1 and remote fragment placement.
+(ROADMAP A9)")` here, never a different plan: MV-on-MV scans, the mesh
+top-N and the sharded over-window (`streaming_parallelism_devices` >
+1), non-integer inner join keys (hash join), parallelism > 1 and remote
+fragment placement.
 """
 
 from __future__ import annotations
@@ -827,8 +827,10 @@ class StreamPlanner:
     # ----------------------------------------------------------- GROUP BY
     def _plan_agg(self, sel: ast.Select, fid: int, scope: Scope,
                   info: RelInfo):
-        """COUNT / SUM / MIN / MAX / AVG, as the JAX binder's `_plan_agg`
-        plans them: a pre-project of the group keys then the agg
+        """COUNT / SUM / MIN / MAX / AVG, bool_and / bool_or (two COUNTs
+        and a CASE) and approx_count_distinct (a COUNT, 8 HLL register
+        words and an estimate), as the JAX binder's `_plan_agg` plans
+        them: a pre-project of the group keys then the agg
         arguments grafted onto `fid`, a hash_agg fragment (hash dispatch
         on the keys; a singleton simple_agg without GROUP BY), a
         post-project of the SELECT items over [keys..., agg outputs...].
@@ -858,6 +860,42 @@ class StreamPlanner:
         nk = len(keys)
 
         def agg_post(e) -> Expr:
+            if e.name in ("bool_and", "bool_or"):
+                # retractable as two counts: cn = non-NULL inputs, cf =
+                # false (bool_and) / true (bool_or) inputs; NULL when
+                # cn = 0
+                x = e.args[0]
+                cn = add_call(AggKind.COUNT, add_arg(x), DataType.INT64)
+                inner = ast.UnOp("not", x) if e.name == "bool_and" else x
+                hit = ast.Func("case", [inner, ast.Lit(1)])
+                cf = add_call(AggKind.COUNT, add_arg(hit), DataType.INT64)
+                cond = call("greater_than", col(nk + cn, DataType.INT64),
+                            lit(0))
+                val = call("equal" if e.name == "bool_and"
+                           else "greater_than",
+                           col(nk + cf, DataType.INT64), lit(0))
+                return call("case", cond, val)
+            if e.name == "approx_count_distinct":
+                # 8 hidden register-word calls and the estimate in the
+                # post-project (expr/hll.py); NULL when the group saw no
+                # non-NULL value
+                if not info.append_only:
+                    raise BindError(
+                        "approx_count_distinct needs an append-only "
+                        "input (register max cannot retract)")
+                a = add_arg(e.args[0])
+                cn = add_call(AggKind.COUNT, a, DataType.INT64)
+                lanes = []
+                for lane in range(8):
+                    agg_calls.append(AggCall(
+                        AggKind.HLL_REG, a, DataType.INT64,
+                        append_only=True, lane=lane))
+                    lanes.append(len(agg_calls) - 1)
+                est = call("hll_estimate",
+                           *[col(nk + j, DataType.INT64) for j in lanes])
+                cond = call("greater_than", col(nk + cn, DataType.INT64),
+                            lit(0))
+                return call("case", cond, est)
             if e.name == "count":
                 idx = add_call(AggKind.COUNT,
                                None if e.star else add_arg(e.args[0]),

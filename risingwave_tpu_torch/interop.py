@@ -252,3 +252,18 @@ def dynamic_filter_state_to_numpy(ex) -> dict:
     """A dynamic filter's store, last emitted set, rhs and errs as numpy
     arrays and host values."""
     return dict(over_window_state_to_numpy(ex), rhs=ex._rhs)
+
+
+def hll_registers_from_words(words: Sequence[np.ndarray]) -> np.ndarray:
+    """8 packed HLL word lanes [G] (int64, the agg's HLL_REG state) ->
+    registers [G, 64]: lane L's byte b is register 8L + b."""
+    return np.stack([(np.asarray(w, np.int64) >> (8 * b)) & 255
+                     for w in words for b in range(8)], axis=-1)
+
+
+def hll_words_from_registers(regs: np.ndarray) -> list:
+    """Registers [G, 64] (each < 256) -> the 8 packed word lanes [G]."""
+    regs = np.asarray(regs, np.int64)
+    return [np.bitwise_or.reduce(
+        [regs[:, 8 * L + b] << (8 * b) for b in range(8)])
+        for L in range(8)]

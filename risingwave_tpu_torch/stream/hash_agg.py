@@ -9,9 +9,10 @@ values with their counts and a lossy flag (`ops/extrema.py`, the
 reference's materialized-input state). Applying a chunk is kernel K3
 (slot per row, `ops/hash_table.py`), kernel K4 (`csrc/hash_agg.cu`:
 signed counts into row_count and each linear call's state, dirty bits,
-the overflow accumulator), then kernel K26 (`csrc/extrema_update.cu`)
-per retractable call on the same slots, its errors added to the
-overflow accumulator; all on the device. At a barrier kernel K12
+the overflow accumulator), kernel K30 (`csrc/hll_update.cu`) per
+approx_count_distinct sketch (its 8 HLL_REG calls in one launch), then
+kernel K26 (`csrc/extrema_update.cu`) per retractable call on the same
+slots, its errors added to the overflow accumulator; all on the device. At a barrier kernel K12
 compacts the dirty slots and kernel K27 (`csrc/agg_flush.cu`) lays out
 UpdateDelete / UpdateInsert pairs (Insert for born groups, Delete for
 died ones), as the reference's changelog contract says. Watermark
@@ -52,6 +53,7 @@ from ..common.chunk import (
 from ..common.types import Field, Schema
 from ..device import resolve_device
 from ..expr.agg import AggCall, AggKind, AggSpec
+from ..expr.hll import hll_update, sketch_groups
 from ..ops import kernels
 from ..ops.extrema import (
     extrema_apply, extrema_emit, extrema_empty, extrema_gather,
@@ -95,14 +97,14 @@ _KIND_CODES = {
 }
 _VALUE_CODES = {None: 0, torch.int32: 1, torch.int64: 2, torch.float32: 3,
                 torch.float64: 4}
-MAX_CALLS = 8   # agg calls one K4 launch takes
+MAX_CALLS = 32  # agg calls one K4 or K27 launch takes
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _PP = ctypes.POINTER(_P)
 _PI = ctypes.POINTER(_I)
-MAX_PERSIST_COLS = 16   # csrc/persist_view.cu
+MAX_PERSIST_COLS = 64   # column groups one K18 scatter takes
 
 # K4. Replaces stream/hash_agg.py:HashAggExecutor._apply_impl (248) with
 # expr/agg.py:AggSpec.partial (74) / combine (93).
@@ -165,11 +167,11 @@ def agg_apply(state: AggState, specs: Sequence[AggSpec],
     if slots.dtype != torch.int32 or ops.dtype != torch.int8 \
             or ops.shape[0] != N:
         raise ValueError("K4 takes int32 slots and int8 ops of one length")
-    if len(specs) > MAX_CALLS:
-        raise ValueError(f"K4 takes at most {MAX_CALLS} agg calls")
     kinds, value_codes, values, valids = [], [], [], []
     for spec, st, (v, valid) in zip(specs, state.agg_states, inputs):
         kinds.append(_KIND_CODES[(spec.call.kind, spec.state_dtype)])
+        if spec.call.kind is AggKind.COUNT:
+            v = None        # a count reads only validity (bool_and's arg)
         if v is not None and (v.dtype not in _VALUE_CODES or v.shape[0] != N
                               or not v.is_contiguous()):
             raise ValueError(f"K4 cannot read an input column of {v.dtype}")
@@ -178,14 +180,21 @@ def agg_apply(state: AggState, specs: Sequence[AggSpec],
         valids.append(valid)
     if overflow.dtype != torch.int32 or n_unresolved.dtype != torch.int32:
         raise ValueError("overflow and n_unresolved must be int32")
-    K_AGG.launches += 1
-    K_AGG.call("rw_agg_apply", kernels.ptr(slots), kernels.ptr(ops), N,
-               kernels.ptr(state.row_count), kernels.ptr(state.dirty),
-               len(specs), kernels.int_array(kinds),
-               kernels.ptr_array(state.agg_states), kernels.ptr_array(values),
-               kernels.int_array(value_codes), kernels.ptr_array(valids),
-               kernels.ptr(n_unresolved), kernels.ptr(overflow),
-               kernels.stream_of(slots))
+    states = state.agg_states
+    # MAX_CALLS calls a launch; the first also counts rows and marks dirty
+    for lo in range(0, max(1, len(specs)), MAX_CALLS):
+        hi = lo + MAX_CALLS
+        K_AGG.launches += 1
+        K_AGG.call("rw_agg_apply", kernels.ptr(slots), kernels.ptr(ops), N,
+                   kernels.ptr(state.row_count) if lo == 0 else None,
+                   kernels.ptr(state.dirty), len(kinds[lo:hi]),
+                   kernels.int_array(kinds[lo:hi]),
+                   kernels.ptr_array(states[lo:hi]),
+                   kernels.ptr_array(values[lo:hi]),
+                   kernels.int_array(value_codes[lo:hi]),
+                   kernels.ptr_array(valids[lo:hi]),
+                   kernels.ptr(n_unresolved), kernels.ptr(overflow),
+                   kernels.stream_of(slots))
 
 
 # ---------------------------------------------------------------- K18
@@ -195,8 +204,8 @@ K_PERSIST = kernels.register(kernels.CudaKernel(
     "persist_view",
     replaces="risingwave_tpu/stream/hash_agg.py:891",
     functions={
-        "rw_persist_view": [_L, _P, _P, _P, _I, _PP, _PI, _PI, _PI, _P, _P,
-                            _P, _P],
+        "rw_persist_view": [_L, _P, _P, _P, _I, _PP, _PI, _PI, _PI, _I, _I,
+                            _I, _P, _P, _P, _P],
         "rw_evict_keys": [_L, _P, _P, _I, _PP, _PI, _I, _L, _P, _P, _P,
                           _I, _P, _P],
         "rw_pv_sums": [_L]}))
@@ -312,9 +321,6 @@ def persist_pack(state: AggState, j: Optional[int],
     keys = list(state.table.keys)
     groups = _column_groups(state)
     nk = len(keys)
-    if len(groups) > MAX_PERSIST_COLS:
-        raise ValueError(f"K18 persists at most {MAX_PERSIST_COLS} column "
-                         f"groups")
     for t, lanes, _ in groups:
         if t.shape[0] != C or t.numel() != C * lanes \
                 or not t.is_contiguous() or t.dtype == torch.float32:
@@ -328,16 +334,22 @@ def persist_pack(state: AggState, j: Optional[int],
                        device=dev)
     stream = kernels.stream_of(state.row_count)
     key_widths = kernels.int_array(k.element_size() for k in keys)
-    K_PERSIST.launches += 1
-    K_PERSIST.call("rw_persist_view", C, kernels.ptr(state.dirty),
-                   kernels.ptr(state.row_count),
-                   kernels.ptr(state.prev_exists), len(groups),
-                   kernels.ptr_array(t for t, _, _ in groups),
-                   kernels.int_array(t.element_size() for t, _, _ in groups),
-                   kernels.int_array(lanes for _, lanes, _ in groups),
-                   kernels.int_array(stride for _, _, stride in groups),
-                   kernels.ptr(sums), kernels.ptr(buf),
-                   kernels.ptr(counts[0:1]), stream)
+    # MAX_PERSIST_COLS groups a launch, each at its lanes' offset in the
+    # row; the first also counts and scans the dirty slots
+    lane_at = 2
+    for lo in range(0, len(groups), MAX_PERSIST_COLS):
+        part = groups[lo:lo + MAX_PERSIST_COLS]
+        K_PERSIST.launches += 1
+        K_PERSIST.call("rw_persist_view", C, kernels.ptr(state.dirty),
+                       kernels.ptr(state.row_count),
+                       kernels.ptr(state.prev_exists), len(part),
+                       kernels.ptr_array(t for t, _, _ in part),
+                       kernels.int_array(t.element_size() for t, _, _ in part),
+                       kernels.int_array(lanes for _, lanes, _ in part),
+                       kernels.int_array(stride for _, _, stride in part),
+                       lane_at, wp, int(lo == 0), kernels.ptr(sums),
+                       kernels.ptr(buf), kernels.ptr(counts[0:1]), stream)
+        lane_at += sum(lanes for _, lanes, _ in part)
     if j is not None:
         sums2 = torch.empty_like(sums)
         K_PERSIST.launches += 1
@@ -358,7 +370,7 @@ K_FLUSH = kernels.register(kernels.CudaKernel(
     replaces="risingwave_tpu/stream/hash_agg.py:300",
     functions={"rw_agg_flush": [
         _L, _P, _P, _P, _P, _P, _I, _PP, _PI, _PP, _I, _PI, _PP, _PP, _PI,
-        _PI, ctypes.POINTER(_L), _PI, _PP, _PP, _P, _P, _P]}))
+        _PI, ctypes.POINTER(_L), _PI, _PP, _PP, _P, _P, _P, _I, _I, _P]}))
 
 _RET_CODES = {torch.int32: 1, torch.int64: 2, torch.float32: 3,
               torch.float64: 4}
@@ -432,9 +444,8 @@ def agg_flush(state: AggState, specs: Sequence[AggSpec]):
         raise ValueError(f"unsupported device {dev}")
     C = state.table.capacity
     keys = state.table.keys
-    if len(specs) > MAX_CALLS or len(keys) > ht.MAX_KEY_COLUMNS:
-        raise ValueError(f"K27 takes at most {MAX_CALLS} calls and "
-                         f"{ht.MAX_KEY_COLUMNS} keys")
+    if len(keys) > ht.MAX_KEY_COLUMNS:
+        raise ValueError(f"K27 takes at most {ht.MAX_KEY_COLUMNS} keys")
     kinds, states, cnts, ks, floats, inits, rets, outs = \
         [], [], [], [], [], [], [], []
     for sp, st, pe in zip(specs, state.agg_states, state.prev_emit):
@@ -458,21 +469,31 @@ def agg_flush(state: AggState, specs: Sequence[AggSpec]):
     out_ops = torch.empty(2 * C, dtype=torch.int8, device=dev)
     out_vis = torch.empty(2 * C, dtype=torch.bool, device=dev)
     d_slot, n_dirty = compact_mask(state.dirty)
-    K_FLUSH.launches += 1
-    K_FLUSH.call("rw_agg_flush", C, kernels.ptr(d_slot),
-                 kernels.ptr(n_dirty), kernels.ptr(state.row_count),
-                 kernels.ptr(state.dirty), kernels.ptr(state.prev_exists),
-                 len(keys), kernels.ptr_array(keys),
-                 kernels.int_array(k.element_size() for k in keys),
-                 kernels.ptr_array(key_out), len(specs),
-                 kernels.int_array(kinds), kernels.ptr_array(states),
-                 kernels.ptr_array(cnts), kernels.int_array(ks),
-                 kernels.int_array(floats),
-                 (ctypes.c_longlong * max(1, len(inits)))(*inits),
-                 kernels.int_array(rets),
-                 kernels.ptr_array(state.prev_emit), kernels.ptr_array(outs),
-                 kernels.ptr(out_ops), kernels.ptr(out_vis),
-                 kernels.stream_of(state.row_count))
+    # MAX_CALLS calls a launch, chained through eq; the last writes the rest
+    starts = list(range(0, max(1, len(specs)), MAX_CALLS))
+    eq = (torch.empty(C, dtype=torch.bool, device=dev) if len(starts) > 1
+          else None)
+    for lo in starts:
+        hi = lo + MAX_CALLS
+        K_FLUSH.launches += 1
+        K_FLUSH.call("rw_agg_flush", C, kernels.ptr(d_slot),
+                     kernels.ptr(n_dirty), kernels.ptr(state.row_count),
+                     kernels.ptr(state.dirty), kernels.ptr(state.prev_exists),
+                     len(keys), kernels.ptr_array(keys),
+                     kernels.int_array(k.element_size() for k in keys),
+                     kernels.ptr_array(key_out), len(kinds[lo:hi]),
+                     kernels.int_array(kinds[lo:hi]),
+                     kernels.ptr_array(states[lo:hi]),
+                     kernels.ptr_array(cnts[lo:hi]),
+                     kernels.int_array(ks[lo:hi]),
+                     kernels.int_array(floats[lo:hi]),
+                     (ctypes.c_longlong * max(1, hi - lo))(*inits[lo:hi]),
+                     kernels.int_array(rets[lo:hi]),
+                     kernels.ptr_array(state.prev_emit[lo:hi]),
+                     kernels.ptr_array(outs[lo:hi]),
+                     kernels.ptr(out_ops), kernels.ptr(out_vis),
+                     kernels.ptr_or_null(eq), int(lo == 0),
+                     int(lo == starts[-1]), kernels.stream_of(state.row_count))
     return tuple(key_out + outs), out_ops, out_vis
 
 
@@ -493,8 +514,12 @@ class HashAggExecutor(Executor):
         # minput.rs); linear calls keep one value per group
         self.minput_k = minput_k
         self._retractable = tuple(c.retractable for c in agg_calls)
-        self._linear = tuple(j for j, r in enumerate(self._retractable)
-                             if not r)
+        # K4 takes the linear calls but the HLL register words, which
+        # K30 updates a sketch (8 calls) at a time
+        self._linear = tuple(j for j, (r, c) in enumerate(
+            zip(self._retractable, agg_calls))
+            if not r and c.kind is not AggKind.HLL_REG)
+        self._sketches = sketch_groups(agg_calls)
         in_schema = input.schema
         gk_names = list(group_key_names or
                         [in_schema[i].name for i in self.group_key_indices])
@@ -566,8 +591,8 @@ class HashAggExecutor(Executor):
 
     # ------------------------------------------------------- chunk apply
     def _apply_chunk(self, chunk: StreamChunk) -> None:
-        """K3, K4 over the linear calls and the row count, then K26 per
-        retractable call; no host sync."""
+        """K3, K4 over the linear calls and the row count, K30 per HLL
+        sketch, then K26 per retractable call; no host sync."""
         st = self.state
         key_cols = [chunk.columns[i].data for i in self.group_key_indices]
         _, slots, n_unresolved = lookup_or_insert(
@@ -577,6 +602,11 @@ class HashAggExecutor(Executor):
         agg_apply(replace(st, agg_states=tuple(st.agg_states[j] for j in lin)),
                   [self.specs[j] for j in lin], slots, chunk.ops,
                   [inputs[j] for j in lin], n_unresolved, self._overflow_dev)
+        for arg, lanes in self._sketches:
+            col = chunk.columns[arg]
+            hll_update([None if j is None else st.agg_states[j]
+                        for j in lanes], col.data, col.valid, chunk.ops,
+                       slots=slots)
         for j, retractable in enumerate(self._retractable):
             if retractable:
                 values, valid = inputs[j]

@@ -5,7 +5,10 @@ The group state is one scalar tensor per agg call plus a row count, on
 the device. Applying a chunk is kernel K25 (`csrc/simple_agg.cu`): every
 visible row signed by its op, NULL arguments not counted, each call's
 partial over the chunk folded in a fixed order and combined into its
-state, without atomics (float sums are the same from run to run).
+state, without atomics (float sums are the same from run to run); a
+list of more calls than one launch takes runs in several. The HLL
+register words of an approx_count_distinct go to kernel K30
+(`csrc/hll_update.cu`), one launch a sketch.
 
 At a barrier the flush fetches the emitted values to the host in one
 copy (a sync a barrier, as the reference's `np.asarray` of the states)
@@ -38,6 +41,7 @@ from ..common.chunk import (
 from ..common.types import Field, Schema
 from ..device import resolve_device
 from ..expr.agg import AggCall, AggKind, AggSpec
+from ..expr.hll import hll_update, sketch_groups
 from ..expr.program import TYPE_CODES
 from ..ops import kernels
 from ..state.state_table import StateTable
@@ -109,16 +113,35 @@ def simple_agg_apply_plain(specs: Sequence[AggSpec], states, row_count,
 
 def simple_agg_apply(specs: Sequence[AggSpec], states, row_count,
                      chunk: StreamChunk, combine_partials: bool = False):
-    """Kernel K25 on a CUDA device (the states and row count updated in
-    place and returned), the plain version on the CPU."""
+    """Kernels K25 (the calls, MAX_CALLS a launch; the row count in the
+    first) and K30 (one launch per HLL sketch) on a CUDA device, the
+    states and row count updated in place and returned; the plain
+    version on the CPU."""
     dev = chunk.ops.device
     if dev.type == "cpu":
         return simple_agg_apply_plain(specs, states, row_count, chunk,
                                       combine_partials)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    if len(specs) > MAX_CALLS:
-        raise ValueError(f"K25 takes at most {MAX_CALLS} agg calls")
+    calls = [s.call for s in specs]
+    rest = [j for j, c in enumerate(calls) if c.kind is not AggKind.HLL_REG]
+    for at in range(0, max(1, len(rest)), MAX_CALLS):
+        part = rest[at:at + MAX_CALLS]
+        # launches after the first count their rows into a scratch total
+        rc = row_count if at == 0 else torch.zeros_like(row_count)
+        _k25([specs[j] for j in part], [states[j] for j in part], rc,
+             chunk, combine_partials)
+    for arg, lanes in sketch_groups(calls):
+        col = chunk.columns[arg]
+        hll_update([None if j is None else states[j] for j in lanes],
+                   col.data, col.valid, chunk.ops, vis=chunk.vis)
+    return tuple(states), row_count
+
+
+def _k25(specs: Sequence[AggSpec], states, row_count, chunk: StreamChunk,
+         combine_partials: bool) -> None:
+    """One K25 launch over at most MAX_CALLS calls, in place."""
+    dev = chunk.ops.device
     N = chunk.capacity
     inputs = _call_inputs([s.call for s in specs], chunk)
     kinds, fls, vals, types, valids = [], [], [], [], []
@@ -164,7 +187,6 @@ def simple_agg_apply(specs: Sequence[AggSpec], states, row_count,
                   kernels.ptr_array(valids), kernels.ptr_array(states),
                   kernels.ptr(row_count), kernels.ptr(partials),
                   kernels.stream_of(partials))
-    return tuple(states), row_count
 
 
 class SimpleAggExecutor(StatefulUnaryExecutor):

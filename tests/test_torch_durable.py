@@ -628,3 +628,75 @@ def test_durable_left_join_state_and_recovery_match_jax(det_epochs,
     # a rebuilt degree retracts their NULL rows
     null_then = {r[0] for r in cmv if r[1] is None}
     assert null_then & {r[0] for r in rmv if r[1] is not None}
+
+
+# ------------------------------------------- durable approx_count_distinct
+
+ACD_VIEWS = {"acd": "ACD_SELECT", "q15_wide": "Q15_WIDE_SELECT"}
+
+
+def _acd_ddl(view="acd"):
+    """chip_smoke.ACD_SELECT (approx_count_distinct, bool_and, bool_or,
+    max, min per auction; coalesce and greatest above) or
+    Q15_WIDE_SELECT (76 agg calls, 72 of them in eight sketches),
+    durable, at CS-bid chunks and PER bids a barrier, a 2^12-slot
+    agg."""
+    return [
+        "SET streaming_durability = 1",
+        "SET streaming_agg_capacity = 4096",
+        ("CREATE SOURCE bid WITH (connector='nexmark', table='bid', "
+         f"chunk_size={CS}, rate_limit={PER})"),
+        "CREATE MATERIALIZED VIEW acd AS "
+        + getattr(chip_smoke, ACD_VIEWS[view])]
+
+
+def _acd_session(engine, path, start, stop, crash=False, recover=False,
+                 view="acd"):
+    async def go():
+        if engine == "jax":
+            s = JaxSession(store=JaxH.open(JaxLocalFs(path)) if recover
+                           else JaxH(JaxLocalFs(path)))
+        else:
+            s = PortSession(device="cpu", store=H.open(LocalFs(path))
+                            if recover else H(LocalFs(path)))
+        if recover:
+            await s.recover()
+        else:
+            for st in _acd_ddl(view):
+                await s.execute(st)
+        snaps = await _paced(s, JaxSource if engine == "jax" else PortSource,
+                             start, stop, name="acd")
+        mv = _mv_committed(s, "acd")
+        if crash:
+            await s.crash()
+        elif engine == "port":
+            await s.shutdown()
+        return snaps, mv
+    return asyncio.run(go())
+
+
+@pytest.mark.parametrize("view", sorted(ACD_VIEWS))
+def test_durable_acd_state_and_recovery_match_jax(det_epochs, tmp_path,
+                                                  view):
+    """approx_count_distinct durable: after every barrier the agg's state
+    table (keys; 16 calls of which 8 HLL register words, or q15_wide's
+    76 of which 72, past one K18 launch's 64 column groups on the card;
+    row count), the MV and the source hold the same bytes in both
+    engines; the port's crash(), reopen and recover() ends at JAX's
+    uninterrupted MV."""
+    kw = dict(view=view)
+    jsnaps, jmv = _acd_session("jax", str(tmp_path / "j"), 1, N + M + 1,
+                               **kw)
+    psnaps, pmv = _acd_session("port", str(tmp_path / "p"), 1, N + M + 1,
+                               **kw)
+    assert len(psnaps) == len(jsnaps) == N + M
+    for r, (a, b) in enumerate(zip(psnaps, jsnaps)):
+        assert a == b, f"state differs after barrier {r + 1}"
+    est = 2 if view == "acd" else 5             # an estimate column
+    assert pmv == jmv and len(jmv) >= (10 if view == "acd" else 1)
+    assert any(r[est] > 1 for r in jmv)         # estimates past one
+    path = str(tmp_path / "c")
+    _acd_session("port", path, 1, N + 1, crash=True, **kw)
+    _, rmv = _acd_session("port", path, N + 1, N + M + 1, recover=True,
+                          **kw)
+    assert rmv == jmv

@@ -33,6 +33,7 @@ MODULES = [
     "risingwave_tpu_torch.meta", "risingwave_tpu_torch.interop",
     "risingwave_tpu_torch.expr.program", "risingwave_tpu_torch.expr.registry",
     "risingwave_tpu_torch.expr.functions",
+    "risingwave_tpu_torch.expr.strings", "risingwave_tpu_torch.expr.hll",
     "risingwave_tpu_torch.expr.transforms",
     "risingwave_tpu_torch.stream.project", "risingwave_tpu_torch.stream.misc",
     "risingwave_tpu_torch.stream.row_id", "risingwave_tpu_torch.stream.exchange",
@@ -225,7 +226,8 @@ def test_every_kernel_is_registered_with_its_source():
     names = sorted(kernels.KERNELS)
     assert names == ["agg_flush", "compact", "dynamic_filter", "expr_eval",
                      "extrema_update", "filter_ops", "hash_agg",
-                     "hash_table", "hop_window", "nexmark_auction",
+                     "hash_table", "hll_update", "hop_window",
+                     "nexmark_auction",
                      "nexmark_bid", "nexmark_person", "outer_join",
                      "persist_view",
                      "pk_net", "radix_sort", "row_id", "segment_agg",
@@ -258,6 +260,7 @@ def test_wrappers_refuse_other_devices():
     from risingwave_tpu_torch.stream import hash_agg
     from risingwave_tpu_torch.ops import extrema
     from risingwave_tpu_torch.stream import dynamic
+    from risingwave_tpu_torch.expr import hll
     from risingwave_tpu_torch.common.chunk import StreamChunk
     from risingwave_tpu_torch.common import DataType, schema
     t = ht.HashTable.empty(32, [torch.int64], "meta")
@@ -319,6 +322,8 @@ def test_wrappers_refuse_other_devices():
         lambda: hash_agg.agg_flush(hash_agg.AggState(
             t, (i64.clone(),), i64.clone(), b.clone(), b.clone(),
             (i64.clone(),)), [count_star().spec()]),
+        lambda: hll.hll_update([i64.clone()] * 8, i64, None,
+                               i64.to(torch.int8), vis=b),
     ]
     for refuse in refusals:
         with pytest.raises(ValueError, match="unsupported device"):
