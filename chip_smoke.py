@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py [--host-profile]
+    python3 chip_smoke.py [--host-profile | --mvmv-sizing]
 
 Drives the port (`risingwave_tpu_torch`, never the JAX package) through
 its Nexmark and TPC-H paths and holds every hand-written kernel against its
@@ -249,15 +249,36 @@ Phases, one JSON line each:
      strings_full (decoded) and acd_recover (durable, crash after 4
      barriers); rates from an unchecked run, idle shares from a
      profiled one;
- 34. the kernels line: launches on the first run of each kernel's own
+ 34. queue_c: an integer CASE condition (with and without ELSE), an
+     integer WHERE and boolean arithmetic through Session(device="cuda"),
+     each MV equal to the numpy recount (a condition holds where its low
+     bit is set); kernels_expr also holds K5's Queue C list and its mask
+     mode, and the K22 block integer predicates, against their plain
+     versions;
+ 35. kernels_backfill: K31's two entries (the device vnode and the
+     backfill's live-side filter) against their plain versions and
+     numpy, bit for bit, over ten key sets and 266 frontiers;
+     mvmv_full: mv_agg over 131072-bid chunks to 2^18 auctions, then
+     mv_hot, mv_hist and a sink over it while bids flow: rates,
+     backfill rows/s, barriers to finish, p50/max during and after, the
+     idle share of a profiled rerun, then K31 checked and timed on the
+     live chunks its backfills filtered (kernels_backfill_path);
+     mvmv_check: after every barrier the
+     consumers equal the recount over mv_agg's covered rows; DROP of
+     mv_agg refused while read; mvmv_recover: durable, crash in the
+     middle of the backfill, recover, resume from the progress rows;
+ 36. the kernels line: launches on the first run of each kernel's own
      slice's path (q5 for K1-K4 and K12, q7 for K5-K8, q8 for K9-K11,
      q17 for K13-K16, q7d for K17-K18, q5_topn for K19-K21, q2 for K22,
      q6 for K23-K24, the global agg for K25, q5c for K26-K27, lj_full
-     for K28, dynf for K29, acd_full for K30), error, times, bounds. K27
+     for K28, dynf for K29, acd_full for K30, mvmv_full for K31), error,
+     times, bounds. K27
      runs in every hash agg's flush, so every earlier path drives it
      too.
 With --host-profile, phase 4 also runs q5 under cProfile and lists the
-host functions with the most own time.
+host functions with the most own time. With --mvmv-sizing the script
+builds the kernels and runs only mvmv_full at the sizes of MVMV_SIZES
+(`mvmv_sizing`), and prints neither the kernels line nor the last.
 The last line is {"ok": true, "device": {...}}. Any failed phase exits
 non-zero before it. Without a CUDA device the script exits 2.
 """
@@ -284,7 +305,8 @@ from risingwave_tpu_torch.common.types import schema as make_schema
 from risingwave_tpu_torch.connectors import tpch
 from risingwave_tpu_torch.connectors.tpch import TpchGenerator
 from risingwave_tpu_torch.connectors.nexmark import (
-    BID_PROPORTION, TOTAL_PROPORTION, NexmarkConfig, NexmarkGenerator,
+    BID_PROPORTION, FIRST_AUCTION_ID, TOTAL_PROPORTION, NexmarkConfig,
+    NexmarkGenerator,
     gen_auction_columns, gen_auction_columns_plain, gen_bid_columns,
     gen_bid_columns_plain, gen_person_columns, gen_person_columns_plain,
     vocab_ids,
@@ -359,6 +381,12 @@ from risingwave_tpu_torch.stream.sorted_store import (
     sorted_store_apply, sorted_store_apply_plain,
 )
 from risingwave_tpu_torch.utils import d2h
+from risingwave_tpu_torch.common.vnode import (
+    backfill_filter, backfill_filter_plain, compute_vnodes,
+    compute_vnodes_numpy, compute_vnodes_plain,
+)
+from risingwave_tpu_torch.frontend.binder import BindError
+from risingwave_tpu_torch.stream.backfill import BackfillExecutor
 from risingwave_tpu_torch.stream.message import BarrierKind
 
 SLIDE_US = 2_000_000
@@ -3066,7 +3094,7 @@ KERNEL_PATH = {"nexmark_bid": "q5", "hop_window": "q5", "hash_table": "q5",
                "window_diff": "q6", "simple_agg": "gagg",
                "extrema_update": "q5c", "agg_flush": "q5c",
                "outer_join": "lj", "dynamic_filter": "dynf",
-               "hll_update": "acd"}
+               "hll_update": "acd", "backfill_filter": "mvmv"}
 
 
 def phase_q5_full(dev, repeats: int = 5) -> dict:
@@ -3269,6 +3297,12 @@ def volatile(ddl: list) -> list:
                        "SET streaming_durability = 0") for st in ddl]
 
 
+def null_first(row: tuple) -> tuple:
+    """A sort key of a row with NULLs (None) in it: a NULL before every
+    value; rows without one sort as they are."""
+    return tuple((v is not None, v) for v in row)
+
+
 def session_run(dev, ddl: list, rounds: int, per_barrier: int,
                 name: str = "q7", store=None, collect: int = 0,
                 recover_to: int = 0, crash: bool = False, on_flow=None,
@@ -3390,8 +3424,8 @@ def session_run(dev, ddl: list, rounds: int, per_barrier: int,
             sagg=sagg,
             sink=held.get("sink"), coord=coord, session=s,
             launches=launches, recovery_s=recovery_s,
-            mv=(sorted(mv.table.iter_committed()) if mv is not None
-                else None),
+            mv=(sorted(mv.table.iter_committed(), key=null_first)
+                if mv is not None else None),
             d2h_fetches=d2h.STATS["fetches"], d2h_bytes=d2h.STATS["bytes"],
             persist_rows=sum(e.persist_rows for e in (join, agg, top, ow)
                              if e is not None),
@@ -4097,10 +4131,16 @@ def phase_kernels_topn(dev) -> dict:
     ops_t = torch.from_numpy(ops).to(dev)
     vis = torch.from_numpy(rng.random(Nf) < 0.95).to(dev)
     err22 = 0
-    for v in (valid, None):
-        err22 = max(err22, exact_err(
-            filter_fixup(cond, v, ops_t, vis),
-            filter_fixup_plain(cond, v, ops_t, vis)))
+    # and integer predicates (Queue C 2): a row passes where the low bit
+    # of its value is set
+    irng = np.random.default_rng(71)
+    preds = [cond] + [torch.from_numpy(irng.integers(-1000, 1000, Nf).astype(
+        dt)).to(dev) for dt in (np.int64, np.int32)]
+    for pred in preds:
+        for v in (valid, None):
+            err22 = max(err22, exact_err(
+                filter_fixup(pred, v, ops_t, vis),
+                filter_fixup_plain(pred, v, ops_t, vis)))
     fixed = int((filter_fixup(cond, valid, ops_t, vis)[0] != ops_t).sum())
     if err22 or fixed == 0:
         raise AssertionError(f"K22 differs from plain ({err22}) or fixed "
@@ -6873,6 +6913,24 @@ def expr_breadth_exprs() -> list:
     ]
 
 
+def queue_c_exprs() -> list:
+    """Integer CASE conditions (a row holds where the low bit is set)
+    and booleans in arithmetic (promoted as jnp promotes them; two add
+    as a logical or, multiply as a logical and), over
+    `expr_hazard_columns`."""
+    I64, I32, F64, B = (DataType.INT64, DataType.INT32, DataType.FLOAT64,
+                        DataType.BOOLEAN)
+    a, c, f, p, q = (col(0, I64), col(1, I32), col(2, F64), col(6, B),
+                     col(7, B))
+    return [call("case", a, lit(1), lit(0)), call("case", c, a),
+            call("case", a, f, p, c, lit(None)),
+            call("add", call("greater_than", a, lit(10)), lit(1)),
+            call("add", p, q), call("multiply", p, q), call("add", p, c),
+            call("subtract", c, p), call("add", p, f),
+            call("divide", p, a), call("divide", c, q),
+            call("modulus", a, p), call("modulus", p, c)]
+
+
 def expr_outputs_err(exprs, got, want) -> tuple[int, int]:
     """(largest integer or bit difference outside the transcendental
     functions, largest ulp distance of those)."""
@@ -6914,6 +6972,29 @@ def phase_kernels_expr(dev, n: int = 131072) -> dict:
     one = exact_err([q14.eval(cols)[0].data], [want[7].data])
     if one:
         raise AssertionError("K5 q14 CASE differs")
+    # Queue C: integer CASE conditions and booleans in arithmetic
+    qc = queue_c_exprs()
+    qprog = ExprProgram(qc)
+    before = k5.launches
+    qgot = qprog.eval(cols)
+    torch.cuda.synchronize()
+    qc_launches = k5.launches - before
+    qerr, _ = expr_outputs_err(qc, qgot, qprog.eval_plain(cols))
+    if qerr or not qc_launches:
+        raise AssertionError(f"K5 Queue C differs: {qerr}")
+    # K5's mask mode (a join condition): a bare boolean column, and
+    # integer and float conditions, which hold where non-zero
+    start = torch.rand(n, generator=torch.Generator().manual_seed(5)) < 0.7
+    start = start.to(dev)
+    for cond in (col(6, DataType.BOOLEAN), col(0, DataType.INT64),
+                 col(2, DataType.FLOAT64)):
+        mp = ExprProgram([cond])
+        a, b = start.clone(), start.clone()
+        mp.and_into(cols, a)
+        mp.and_into_plain(cols, b)
+        qerr = max(qerr, exact_err([a], [b]))
+    if qerr:
+        raise AssertionError(f"K5 mask mode differs: {qerr}")
     t = timings(lambda: prog.eval(cols), lambda: prog.eval_plain(cols))
     read = sum(c.data.numel() * c.data.element_size()
                + (c.valid.numel() if c.valid is not None else 0)
@@ -6922,6 +7003,8 @@ def phase_kernels_expr(dev, n: int = 131072) -> dict:
                   + (o.valid.numel() if o.valid is not None else 0)
                   for o in got)
     out = dict(rows=n, expressions=len(exprs), launches_per_eval=launches,
+               queue_c_expressions=len(qc), queue_c_launches=qc_launches,
+               queue_c_err=qerr,
                max_abs_err=exact, max_ulp_err=ulps, bytes=read + written,
                bound_ms=bytes_bound_ms(read + written), bound_by="bytes",
                **t)
@@ -7532,8 +7615,689 @@ def phase_acd_recover(dev, r1: int = 4, r2: int = 4,
                 launches=b["launches"])
 
 
+# ---- Queue C's views: integer conditions and boolean arithmetic
+
+# name -> SELECT over bid: an integer CASE condition (with and without
+# ELSE), an integer WHERE predicate (both hold where the low bit is set,
+# as the reference ANDs them bitwise) and boolean arithmetic
+QUEUE_C_SELECTS = {
+    "case_int": "SELECT auction, CASE WHEN auction THEN 1 ELSE 0 END AS p "
+                "FROM bid",
+    "case_int_no_else": "SELECT auction, CASE WHEN price THEN auction END "
+                        "AS p FROM bid",
+    "where_int": "SELECT auction, price FROM bid WHERE auction",
+    "bool_arith": "SELECT auction, (price > 10) + 1 AS p FROM bid",
+}
+
+
+# ---- MV-on-MV: a retracting per-auction aggregate and two consumers
+
+MVMV_AGG_SELECT = ("SELECT auction, count(*) AS cnt, max(price) AS mp, "
+                   "sum(price) AS sp FROM bid GROUP BY auction")
+MVMV_HOT_SELECT = "SELECT auction, cnt, mp FROM mv_agg WHERE cnt >= 3"
+MVMV_HIST_SELECT = "SELECT cnt, count(*) AS n FROM mv_agg GROUP BY cnt"
+MVMV_SINK = ("CREATE SINK mv_sink AS SELECT auction, cnt FROM mv_agg "
+             "WITH (connector='blackhole_device')")
+
+
+def mvmv_recount(agg_rows) -> tuple[Counter, Counter]:
+    """(mv_hot's rows, mv_hist's rows) recounted from mv_agg's rows."""
+    hot = Counter((a, c, m) for a, c, m, *_ in agg_rows if c >= 3)
+    hist = Counter(c for _, c, *_ in agg_rows)
+    return hot, Counter(hist.items())
+
+
+# ---- kernels_backfill: K31's two entries
+
+K31_INTS = {"i64": np.int64, "i32": np.int32, "i16": np.int16,
+            "i8": np.int8}
+K31_KEY_SETS = [("i64",), ("i32",), ("f64",), ("bool",), ("i16",), ("i8",),
+                ("i64", "i32"), ("f64", "bool"), ("i32", "f64", "i16"),
+                ("i64", "i8", "f64")]
+
+
+def k31_columns(dev, n: int, types, seed: int) -> list:
+    """Key columns of `types` on the card: negatives of every integer
+    width (the vnode zero-extends them), the int64 limits, floats with
+    -0.0, +0.0, NaNs of two payloads, infinities and ties, booleans."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for t in types:
+        if t == "f64":
+            a = rng.integers(-40, 40, n) / 4.0
+            a[:8] = [0.0, -0.0, np.nan, np.inf, -np.inf, -0.0, 0.0, np.nan]
+            a[8] = np.array([0x7FF8000000000001], np.int64).view(np.float64)[0]
+        elif t == "bool":
+            a = rng.random(n) < 0.5
+        else:
+            dt = K31_INTS[t]
+            info = np.iinfo(dt)
+            a = rng.integers(-1000, 1000, n).astype(dt)
+            a[:4] = [info.min, info.max, 0, -1]
+        out.append(torch.from_numpy(np.ascontiguousarray(a)).to(dev))
+    return out
+
+
+def backfill_filter_numpy(dist, pk, vals, cur, has_pk, vis) -> np.ndarray:
+    """The live-side filter in numpy from compute_vnodes_numpy: the third
+    reference beside the kernel and its plain version."""
+    vn = compute_vnodes_numpy(dist).astype(np.int64)
+    le = np.ones(len(vis), dtype=bool)
+    for c, v in zip(reversed(pk), reversed(vals)):
+        v = np.asarray(v).astype(c.dtype)
+        with np.errstate(invalid="ignore"):
+            le = (c < v) | ((c == v) & le)
+    return vis & ((vn < cur) | ((vn == cur) & bool(has_pk) & le))
+
+
+def k31_frontiers(dist_np, pk_np) -> list:
+    """(cur vnode, last pk or None): the vnode edges 0, 255 and 256, and
+    the vnodes of rows with their own pk (-0.0, NaN and the int limits
+    among them), has_pk both ways."""
+    vn = compute_vnodes_numpy(dist_np)
+    out = [(0, None), (255, None), (256, None)]
+    for r in (0, 1, 2, 3, 5, 8, 100, 4096):
+        out.append((int(vn[r]), tuple(c[r].item() for c in pk_np)))
+        out.append((int(vn[r]), None))
+    return out
+
+
+def k31_bytes(dist, pk, vis, cur, has_pk) -> int:
+    """What the filter needs: every row's visibility read and written;
+    the visible rows' distribution key; the pk columns beyond the
+    distribution key for the visible rows on the frontier's vnode."""
+    n = vis.shape[0]
+    n_vis = int(vis.sum())
+    out = 2 * n + n_vis * sum(c.element_size() for c in dist)
+    extra = [c for c in pk if all(c is not d for d in dist)]
+    if has_pk and extra:
+        on = int(((compute_vnodes(dist) == cur) & vis).sum())
+        out += on * sum(c.element_size() for c in extra)
+    return out
+
+
+def phase_kernels_backfill(dev, n: int = 131072) -> dict:
+    """K31 against its plain version and against compute_vnodes_numpy
+    (and a numpy form of the filter built on it), bit for bit: 131072-row
+    chunks of one to three key columns of each type, frontiers at vnode
+    edges, has_pk both ways, -0.0 and NaN pks, invisible rows. Timed at
+    one int64 key (the MV-on-MV path's auction) over 131072 rows, 90%
+    visible. The path's own chunks are checked and timed after
+    mvmv_full (`phase_kernels_backfill_path`)."""
+    err = 0
+    cases = 0
+    for j, types in enumerate(K31_KEY_SETS):
+        cols = k31_columns(dev, n, types, seed=j)
+        np_cols = [c.cpu().numpy() for c in cols]
+        want = compute_vnodes_numpy(np_cols)
+        got = compute_vnodes(cols)
+        plain = compute_vnodes_plain(cols)
+        torch.cuda.synchronize()
+        err = max(err, int((got.cpu().numpy() != want).sum()),
+                  exact_err([got], [plain]))
+        vis_np = np.random.default_rng(100 + j).random(n) < 0.9
+        vis = torch.from_numpy(vis_np).to(dev)
+        for dist_n in sorted({1, len(cols)}):
+            dist, dist_np = cols[:dist_n], np_cols[:dist_n]
+            for cur, last in k31_frontiers(dist_np, np_cols):
+                vals = last if last is not None else (0,) * len(cols)
+                a = backfill_filter(dist, cols, vals, cur, last is not None,
+                                    vis)
+                b = backfill_filter_plain(dist, cols, vals, cur,
+                                          last is not None, vis)
+                c = backfill_filter_numpy(dist_np, np_cols, vals, cur,
+                                          last is not None, vis_np)
+                torch.cuda.synchronize()
+                err = max(err, exact_err([a], [b]),
+                          int((a.cpu().numpy() != c).sum()))
+                cases += 1
+        if err:
+            raise AssertionError(f"K31 differs on {types}: {err}")
+    (key,) = k31_columns(dev, n, ("i64",), seed=77)
+    vis = torch.from_numpy(np.random.default_rng(78).random(n)
+                           < 0.9).to(dev)
+    cur = int(compute_vnodes([key])[n // 2])
+    res = dict(max_abs_err=err, key_sets=len(K31_KEY_SETS),
+               filter_cases=cases,
+               **k31_timed([key], [key], (int(key[n // 2]),), cur, True,
+                           vis))
+    emit({"phase": "kernel", "name": "backfill_filter", **res})
+    return {"backfill_filter": res}
+
+
+def k31_timed(dist, pk, last, cur, has_pk, vis) -> dict:
+    """Both entries timed on one chunk against their plain versions,
+    with their byte bounds; `filter` is what the kernels line reports."""
+    rows = vis.shape[0]
+    t_v = timings(lambda: compute_vnodes(dist),
+                  lambda: compute_vnodes_plain(dist))
+    t_f = timings(
+        lambda: backfill_filter(dist, pk, last, cur, has_pk, vis),
+        lambda: backfill_filter_plain(dist, pk, last, cur, has_pk, vis))
+    vb = rows * (4 + sum(c.element_size() for c in dist))
+    fb = k31_bytes(dist, pk, vis, cur, has_pk)
+    return dict(rows=rows, visible=int(vis.sum()),
+                vnodes=dict(**t_v, bound_ms=bytes_bound_ms(vb)),
+                filter=dict(**t_f, bytes=fb, bound_ms=bytes_bound_ms(fb)))
+
+
+K31_KEEP = 6         # live chunks whose inputs k31_record keeps
+
+
+def k31_record(bf, taps: dict) -> None:
+    """Wrap backfill `bf`'s live-side filter: every call appends its
+    chunk's length and (on the device, read later) visible count to
+    taps["chunks"]; the first K31_KEEP calls at a frontier no kept call
+    had also keep copies of the kernel's inputs, the frontier and its
+    output."""
+    inner = bf._filter_chunk
+
+    def filtered(chunk):
+        cur, last = bf.vnode, bf.last_pk
+        out = inner(chunk)
+        taps.setdefault("chunks", []).append(
+            (chunk.vis.shape[0], chunk.vis.sum()))
+        kept = taps.setdefault("kept", [])
+        if len(kept) < K31_KEEP and all((k["cur"], k["last"]) != (cur, last)
+                                        for k in kept):
+            kept.append(dict(
+                dist=[chunk.columns[i].data.clone() for i in bf._dist_idx],
+                pk=[chunk.columns[i].data.clone() for i in bf.pk_indices],
+                vis=chunk.vis.clone(), cur=cur, last=last,
+                out=out.vis.clone()))
+        return out
+    bf._filter_chunk = filtered
+
+
+def phase_kernels_backfill_path(dev, taps: dict) -> dict:
+    """K31 on the live chunks mvmv_full's backfills filtered (mv_agg's
+    flush chunks as the tap delivered them, `k31_record`): the path's
+    own output, the kernel again, its plain version and the numpy form
+    agree bit for bit at the frontier the backfill had, with has_pk
+    false at that vnode, and at the vnode edges 0, 255 and 256 and rows'
+    own pks (k31_frontiers). Timed on the kept chunk with the furthest
+    frontier, at that frontier; its length and visible share are the
+    path's, and those of every chunk filtered are summarized."""
+    kept = taps.get("kept", [])
+    if not kept:
+        raise AssertionError("kernels_backfill: mvmv_full's backfills "
+                             "filtered no live chunk")
+    err, cases = 0, 0
+    for c in kept:
+        dist, pk, vis = c["dist"], c["pk"], c["vis"]
+        dist_np = [x.cpu().numpy() for x in dist]
+        pk_np = [x.cpu().numpy() for x in pk]
+        vis_np = vis.cpu().numpy()
+        err = max(err, exact_err([compute_vnodes(dist)],
+                                 [compute_vnodes_plain(dist)]),
+                  int((compute_vnodes(dist).cpu().numpy()
+                       != compute_vnodes_numpy(dist_np)).sum()))
+        fronts = [(c["cur"], c["last"]), (c["cur"], None)]
+        fronts += k31_frontiers(dist_np, pk_np)
+        for j, (cur, last) in enumerate(fronts):
+            vals = last if last is not None else (0,) * len(pk)
+            a = backfill_filter(dist, pk, vals, cur, last is not None, vis)
+            b = backfill_filter_plain(dist, pk, vals, cur, last is not None,
+                                      vis)
+            n = backfill_filter_numpy(dist_np, pk_np, vals, cur,
+                                      last is not None, vis_np)
+            torch.cuda.synchronize()
+            err = max(err, exact_err([a], [b]),
+                      int((a.cpu().numpy() != n).sum()))
+            if j == 0:
+                err = max(err, exact_err([c["out"]], [b]))
+            cases += 1
+    if err:
+        raise AssertionError(f"K31 differs on mvmv_full's chunks: {err}")
+    lens = [n for n, _ in taps["chunks"]]
+    shares = [int(v) / n for n, v in taps["chunks"]]
+    c = max(kept, key=lambda x: (x["cur"], x["last"] is not None))
+    vals = c["last"] if c["last"] is not None else (0,) * len(c["pk"])
+    timed = k31_timed(c["dist"], c["pk"], vals, c["cur"],
+                      c["last"] is not None, c["vis"])
+    res = dict(max_abs_err=err, chunks_kept=len(kept), filter_cases=cases,
+               chunks_filtered=len(lens), chunk_rows=sorted(set(lens)),
+               visible_share_mean=statistics.fmean(shares),
+               visible_share_min=min(shares), visible_share_max=max(shares),
+               timed_frontier=dict(vnode=c["cur"],
+                                   has_pk=c["last"] is not None),
+               **timed)
+    emit({"phase": "kernels_backfill_path", **res})
+    f = res["filter"]
+    return {"backfill_filter": dict(
+        res, ms=f["ms"], plain_ms=f["plain_ms"], library_ms=None,
+        bound_ms=f["bound_ms"], bound_by="bytes")}
+
+
+# ---- queue_c: Queue C's views through Session(device="cuda")
+
+QC_CHUNK = 32768
+QC_KERNELS = {"case_int": ("nexmark_bid", "expr_eval"),
+              "case_int_no_else": ("nexmark_bid", "expr_eval"),
+              "where_int": ("nexmark_bid", "filter_ops"),
+              "bool_arith": ("nexmark_bid", "expr_eval")}
+
+
+def queue_c_recount(view: str, n: int, dev) -> Counter:
+    auction, price = _bid_prefix(n, NexmarkConfig(), dev, [0, 2])
+    a, p = auction.tolist(), price.tolist()
+    if view == "case_int":
+        return Counter((x, x & 1) for x in a)
+    if view == "case_int_no_else":
+        return Counter((x, x if y & 1 else None) for x, y in zip(a, p))
+    if view == "where_int":
+        return Counter((x, y) for x, y in zip(a, p) if x & 1)
+    return Counter((x, 2 if y > 10 else 1) for x, y in zip(a, p))
+
+
+def phase_queue_c(dev, rounds: int = 2) -> dict:
+    """Each of Queue C's views (an integer CASE condition with and
+    without ELSE, an integer WHERE, boolean arithmetic) through
+    Session(device="cuda") as an MV over 32768-bid chunks, one a
+    barrier: K5 and K22 take the integer conditions, and the MV equals
+    the numpy recount (a condition holds where its low bit is set)."""
+    out = {}
+    for view, select in QUEUE_C_SELECTS.items():
+        ddl = breadth_ddl(select, "qc", bid_chunk=QC_CHUNK, sink=False)
+        r = session_run(dev, ddl, rounds, QC_CHUNK, name="qc")
+        got = Counter(tuple(x[:2]) for x in r["mv"])
+        want = queue_c_recount(view, r["bids"], dev)
+        if got != want or not want:
+            raise AssertionError(f"queue_c {view}: {sum(got.values())} "
+                                 f"rows, recount {sum(want.values())}")
+        need_launches(r, QC_KERNELS[view], f"queue_c {view}")
+        out[view] = dict(rows=sum(got.values()), bids=r["bids"],
+                         launches={k: r["launches"][k]
+                                   for k in QC_KERNELS[view]})
+    return out
+
+
+# ---- the MV-on-MV phases
+
+MVMV_CHUNK = 131072
+MVMV_KERNELS = ("nexmark_bid", "hash_table", "hash_agg", "agg_flush",
+                "compact", "expr_eval", "filter_ops", "backfill_filter")
+
+
+def mvmv_ddl(chunk: int, agg_cap: int, durable_: int = 0) -> list:
+    return [f"SET streaming_durability = {durable_}",
+            f"SET streaming_agg_capacity = {agg_cap}",
+            ("CREATE SOURCE bid WITH (connector='nexmark', table='bid', "
+             f"chunk_size={chunk})"),
+            f"CREATE MATERIALIZED VIEW mv_agg AS {MVMV_AGG_SELECT}"]
+
+
+MVMV_CONSUMERS = [
+    f"CREATE MATERIALIZED VIEW mv_hot AS {MVMV_HOT_SELECT}",
+    f"CREATE MATERIALIZED VIEW mv_hist AS {MVMV_HIST_SELECT}",
+    MVMV_SINK]
+
+
+def mvmv_agg_cap(rows: int) -> int:
+    """mv_agg's slots: a power of two past twice its groups."""
+    return 1 << max(17, (2 * rows - 1).bit_length())
+
+
+def mvmv_barriers_for(rows: int, per: int, dev, max_barriers: int = 4096
+                      ) -> int:
+    """The fewest barriers of `per` bids after which mv_agg holds at
+    least `rows` auctions (the distinct auction ids of the bids so far,
+    marked in a bitmap on `dev`)."""
+    cfg = NexmarkConfig()
+    vocabs = {k: torch.tensor(v, dtype=torch.int32, device=dev)
+              for k, v in vocab_ids().items()}
+    seen = torch.zeros(1 << 20, dtype=torch.bool, device=dev)
+    for k in range(1, max_barriers + 1):
+        for off in range((k - 1) * per, k * per, 1 << 20):
+            n = min(1 << 20, k * per - off)
+            ids = (gen_bid_columns_plain(off, n, cfg, vocabs, dev)[0]
+                   - FIRST_AUCTION_ID)
+            top = int(ids.max()) + 1
+            if top > seen.numel():
+                seen = torch.cat([seen, torch.zeros(
+                    max(top, 2 * seen.numel()) - seen.numel(),
+                    dtype=torch.bool, device=dev)])
+            seen[ids] = True
+        if int(seen.sum()) >= rows:
+            return k
+    raise ValueError(f"{max_barriers} barriers of {per} bids hold fewer "
+                     f"than {rows} auctions")
+
+
+def mvmv_covered(agg_rows, bf) -> list:
+    """mv_agg's rows that backfill `bf` has covered: vnode below its
+    position, or on it with the pk at or before its last pk."""
+    if bf.finished:
+        return list(agg_rows)
+    if not agg_rows:
+        return []
+    keys = np.asarray([r[0] for r in agg_rows], dtype=np.int64)
+    vn = compute_vnodes_numpy([keys])
+    last = None if bf.last_pk is None else bf.last_pk[0]
+    return [r for r, v, k in zip(agg_rows, vn, keys)
+            if v < bf.vnode or (v == bf.vnode and last is not None
+                                and k <= last)]
+
+
+def mvmv_run(dev, *, chunk: int, per: int, agg_cap: int, before: int,
+             after: int, store=None, durable_: int = 0, batch_rows=None,
+             on_barrier=None, crash_at=None, recover_at=None,
+             k31_taps=None) -> dict:
+    """mv_agg over bids paced `per` a barrier through Session(device=dev);
+    after `before` barriers, mv_hot, mv_hist and the sink from mv_agg,
+    each on a bring-up barrier of its own at a known offset; then
+    `after` barriers. `batch_rows` sets the backfills' snapshot batch (a
+    build hook). `on_barrier(k, s)` runs after every barrier from the
+    consumers' first. With `crash_at` the session crashes after that
+    barrier; with `recover_at` (the barrier it crashed after) a new
+    session over `store` recovers, timed from the store's opening to
+    its first collected barrier, and runs on to barrier before + 3 +
+    after. With `k31_taps` (a dict) every live chunk a backfill filters
+    is recorded there (`k31_record`). Launch counts are set to 0 just
+    before the flow starts and read after the last barrier."""
+
+    async def go():
+        on_card = torch.device(dev).type == "cuda"
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launch_counts()
+
+        def hook(_name, dep, _fid):
+            for src in dep.executors(SourceExecutor):
+                src.rate_limit = per
+            for bf in dep.executors(BackfillExecutor):
+                if batch_rows:
+                    bf.batch_rows = batch_rows
+                if k31_taps is not None:
+                    k31_record(bf, k31_taps)
+
+        t_open = time.perf_counter()
+        s = Session(device=dev, store=store() if callable(store) else store)
+        s.build_hooks.append(hook)
+        coord = s.coord
+        recovery_s = None
+        t0 = time.perf_counter()
+        if recover_at is not None:
+            await s.recover()
+            if on_card:
+                torch.cuda.synchronize()
+            recovery_s = time.perf_counter() - t_open
+        else:
+            for st in mvmv_ddl(chunk, agg_cap, durable_):
+                await s.execute(st)
+        src = s.catalog.mvs["mv_agg"].deployment.executors(
+            SourceExecutor)[0]
+        # the barrier count so far: the recovered source's committed
+        # offset (a checkpoint behind the crash may not have committed)
+        k = (src.state_table.get_row((0,))[1] // per
+             if recover_at is not None else 0)
+
+        async def until(rows):
+            while src.connector.offset < rows:
+                for d in list(s.catalog.mvs.values()) + list(
+                        s.catalog.sinks.values()):
+                    for t in d.deployment.tasks:
+                        if t.done():
+                            t.result()
+                await asyncio.sleep(0)
+
+        async def barrier():
+            nonlocal k
+            k += 1
+            await until(k * per)
+            b = await coord.inject_barrier()
+            await coord.wait_collected(b)
+
+        if recover_at is None:
+            for _ in range(before):
+                await barrier()
+        t_created = time.perf_counter()
+        lat_from = len(coord.latencies_ns)
+        if recover_at is None:
+            for stmt in MVMV_CONSUMERS:
+                k += 1
+                await until(k * per)
+                await s.execute(stmt)
+                if on_barrier is not None:
+                    on_barrier(k, s)
+        bfs = [bf for d in list(s.catalog.mvs.values())
+               + list(s.catalog.sinks.values())
+               for bf in d.deployment.executors(BackfillExecutor)]
+        done_at = done_t = done_lat = None
+        stop = before + len(MVMV_CONSUMERS) + after
+        while k < stop and not (crash_at is not None and k >= crash_at):
+            await barrier()
+            if on_barrier is not None:
+                on_barrier(k, s)
+            if done_at is None and all(bf.finished for bf in bfs):
+                done_at, done_t = k, time.perf_counter()
+                done_lat = len(coord.latencies_ns)
+        wall = time.perf_counter() - t0
+        if on_card:
+            torch.cuda.synchronize()
+        launches = {kk.name: kk.launches for kk in kernels.KERNELS.values()}
+        lat = [x / 1e9 for x in coord.latencies_ns]
+        during = lat[lat_from:done_lat] if done_lat else lat[lat_from:]
+        post = lat[done_lat:] if done_lat else []
+        agg_rows = sorted(s.catalog.mvs["mv_agg"].table.iter_committed())
+        out = dict(
+            bids=src.connector.offset, barriers=k, wall_s=wall,
+            launches=launches, recovery_s=recovery_s,
+            agg_rows=len(agg_rows),
+            snapshot_rows=[bf.snapshot_rows_total for bf in bfs],
+            finished=[bf.finished for bf in bfs],
+            consumers_at=before, finished_at=done_at,
+            backfill_s=(done_t - t_created) if done_t else None,
+            barrier_p50_during_s=(statistics.median(during) if during
+                                  else None),
+            barrier_max_during_s=max(during) if during else None,
+            barrier_p50_after_s=statistics.median(post) if post else None,
+            barrier_max_after_s=max(post) if post else None,
+            mem_peak_bytes=(torch.cuda.max_memory_allocated(dev)
+                            if on_card else None))
+        if crash_at is not None:
+            await s.crash()
+        else:
+            out["mvs"] = {n: sorted(s.catalog.mvs[n].table.iter_committed())
+                          for n in ("mv_agg", "mv_hot", "mv_hist")}
+            out["agg_rows_list"] = agg_rows
+            try:
+                await s.drop_mv("mv_agg")
+            except BindError as e:
+                out["drop_refused"] = str(e)
+            await s.drop_all()
+            out["dropped"] = not s.catalog.mvs and not s.catalog.sinks
+        return out
+
+    return asyncio.run(go())
+
+
+def mvmv_check_final(r: dict, what: str) -> None:
+    """The backfills finished; mv_hot and mv_hist equal the recount over
+    mv_agg; DROP of mv_agg was refused while it had dependents."""
+    if not all(r["finished"]):
+        raise AssertionError(f"{what}: the backfills did not finish")
+    hot, hist = mvmv_recount(r["mvs"]["mv_agg"])
+    if (Counter(tuple(x[:3]) for x in r["mvs"]["mv_hot"]) != hot
+            or Counter(tuple(x[:2]) for x in r["mvs"]["mv_hist"]) != hist
+            or not hot):
+        raise AssertionError(f"{what}: mv_hot/mv_hist differ from the "
+                             f"recount over mv_agg")
+    if "drop_refused" not in r or not r["dropped"]:
+        raise AssertionError(f"{what}: DROP of mv_agg with dependents was "
+                             f"not refused, or drop_all left flows")
+
+
+# mv_agg's rows when the consumers arrive: the largest power of two
+# whose phase fits its share of the script's time (`--mvmv-sizing`)
+MVMV_TARGET = 1 << 18
+
+
+def phase_mvmv_full(dev, target_rows: int = MVMV_TARGET, per_chunks: int = 2,
+                    after: int = 10, chunk: int = MVMV_CHUNK,
+                    k31_taps=None) -> dict:
+    """mv_agg (count, max, sum per auction: a retracting changelog keyed
+    by auction) over 131072-bid chunks, `per_chunks` a barrier, through
+    Session(device="cuda"); once it holds `target_rows` auctions, mv_hot
+    (a filter), mv_hist (an aggregate over the retracting changelog) and
+    a blackhole sink are created over it while the bids keep flowing,
+    each backfilling 65536 rows a barrier (the default batch). Rates,
+    backfill rows/s, barriers to finish and barrier p50/max during and
+    after the backfill come from an unprofiled run; the device idle
+    share and top device operations from a profiled second run of the
+    same geometry (`run_twice`). The final MVs equal the recount over
+    mv_agg, and DROP of mv_agg is refused while it has dependents. With
+    `k31_taps` the unprofiled run records the live chunks the backfills
+    filter (`k31_record`)."""
+    per = per_chunks * chunk
+    before = mvmv_barriers_for(target_rows, per, dev)
+    agg_cap = mvmv_agg_cap(target_rows)
+    runs = []
+
+    def run():
+        runs.append(1)
+        return mvmv_run(dev, chunk=chunk, per=per, agg_cap=agg_cap,
+                        before=before, after=after,
+                        k31_taps=k31_taps if len(runs) == 1 else None)
+
+    if torch.device(dev).type == "cuda":
+        r, prof = run_twice(run)
+    else:                      # a CPU rehearsal: nothing to profile
+        r, prof = run(), {}
+    mvmv_check_final(r, "mvmv_full")
+    need_launches(r, MVMV_KERNELS, "mvmv")
+    if r["finished_at"] is None:
+        raise AssertionError("mvmv_full: the backfills did not finish")
+    snap = sum(r["snapshot_rows"])
+    return dict(
+        bids=r["bids"], barriers=r["barriers"], wall_s=r["wall_s"],
+        bids_per_s=r["bids"] / r["wall_s"], agg_capacity=agg_cap,
+        agg_rows=r["agg_rows"], target_rows=target_rows,
+        bids_per_barrier=per,
+        consumers_at_barrier=before, snapshot_rows=r["snapshot_rows"],
+        backfill_rows_per_s=snap / r["backfill_s"],
+        backfill_s=r["backfill_s"],
+        barriers_to_finish=r["finished_at"] - before,
+        barrier_p50_during_s=r["barrier_p50_during_s"],
+        barrier_max_during_s=r["barrier_max_during_s"],
+        barrier_p50_after_s=r["barrier_p50_after_s"],
+        barrier_max_after_s=r["barrier_max_after_s"],
+        rows_to_columns=rows_to_columns_rate(r["agg_rows_list"]),
+        mem_peak_bytes=r["mem_peak_bytes"], drop_refused=r["drop_refused"],
+        **prof, launches=r["launches"])
+
+
+MVMV_SIZES = ((1 << 17, 2), (1 << 18, 2), (1 << 18, 8), (1 << 19, 8),
+              (1 << 20, 16))
+
+
+def mvmv_sizing(dev, smi: str) -> None:
+    """`--mvmv-sizing`: mvmv_full alone at each (mv_agg rows when the
+    consumers arrive, 131072-bid chunks a barrier) of MVMV_SIZES, small
+    to large, each line with the phase's seconds: the measurements
+    MVMV_TARGET was chosen from. A size whose backfills do not finish
+    within the phase's barriers is reported as failed."""
+    for target, per_chunks in MVMV_SIZES:
+        t0 = time.monotonic()
+        try:
+            r = phase_mvmv_full(dev, target_rows=target,
+                                per_chunks=per_chunks)
+            r.pop("launches")
+        except AssertionError as e:
+            r = dict(target_rows=target, bids_per_barrier=per_chunks
+                     * MVMV_CHUNK, failed=str(e))
+        emit({"phase": "mvmv_sizing", "nvidia_smi": smi,
+              "phase_s": time.monotonic() - t0, **r})
+
+
+def rows_to_columns_rate(rows: list) -> dict:
+    """The host cost of the snapshot's row-to-column conversion, timed
+    over mv_agg's rows (the backfill converts each snapshot row once)."""
+    from risingwave_tpu_torch.state.storage_table import rows_to_columns
+    sch = make_schema(("auction", DataType.INT64), ("cnt", DataType.INT64),
+                      ("mp", DataType.INT64), ("sp", DataType.INT64))
+    t0 = time.perf_counter()
+    rows_to_columns(sch, rows)
+    dt = time.perf_counter() - t0
+    return dict(rows=len(rows), s=dt, rows_per_s=len(rows) / dt if dt
+                else None)
+
+
+def phase_mvmv_check(dev, target_rows: int = 1 << 14,
+                     batch_rows: int = 4096, after: int = 6,
+                     per: int = 32768) -> dict:
+    """Paced barriers of one 32768-bid chunk: after every barrier from
+    the consumers' creation on, mv_hot and mv_hist equal a numpy recount
+    over the rows of mv_agg committed at that barrier that each backfill
+    has covered (all of them once it finished): during the backfill
+    (`batch_rows` rows a barrier, several barriers) and after it. DROP
+    of mv_agg is refused while it has dependents; the dependents go,
+    then mv_agg."""
+    before = mvmv_barriers_for(target_rows, per, dev)
+    checked = {"during": 0, "after": 0}
+
+    def check(k, s):
+        agg = sorted(s.catalog.mvs["mv_agg"].table.iter_committed())
+        for name, is_hot in (("mv_hot", True), ("mv_hist", False)):
+            if name not in s.catalog.mvs:
+                continue
+            (bf,) = s.catalog.mvs[name].deployment.executors(
+                BackfillExecutor)
+            hot, hist = mvmv_recount(mvmv_covered(agg, bf))
+            rows = list(s.catalog.mvs[name].table.iter_committed())
+            got = (Counter(tuple(x[:3]) for x in rows) if is_hot
+                   else Counter(tuple(x[:2]) for x in rows))
+            if got != (hot if is_hot else hist):
+                raise AssertionError(
+                    f"mvmv_check: {name} differs from the recount at "
+                    f"barrier {k} (finished {bf.finished})")
+            checked["after" if bf.finished else "during"] += 1
+
+    r = mvmv_run(dev, chunk=per, per=per, agg_cap=1 << 16, before=before,
+                 after=after, batch_rows=batch_rows, on_barrier=check)
+    mvmv_check_final(r, "mvmv_check")
+    if checked["during"] < 2 or checked["after"] < 2:
+        raise AssertionError(f"mvmv_check: checks {checked}")
+    return dict(agg_rows=r["agg_rows"], barriers=r["barriers"],
+                checks=checked, batch_rows=batch_rows,
+                finished_at=r["finished_at"], drop_refused=r["drop_refused"])
+
+
+def phase_mvmv_recover(dev, target_rows: int = 1 << 13,
+                       batch_rows: int = 2048, after: int = 8,
+                       per: int = 32768) -> dict:
+    """Durable (streaming_durability = 1, Hummock over a local-fs object
+    store, integer columns only): the consumers backfill `batch_rows`
+    rows a barrier; the session crashes two barriers into the backfill,
+    a new one recovers and runs on. Each backfill resumes from its
+    persisted progress row (rows re-read = its snapshot rows after
+    recovery), and the MVs equal the recount over mv_agg."""
+    before = mvmv_barriers_for(target_rows, per, dev)
+    crash_at = before + len(MVMV_CONSUMERS) + 2
+    kw = dict(chunk=per, per=per, agg_cap=1 << 15, before=before,
+              after=after, durable_=1, batch_rows=batch_rows)
+    with tempfile.TemporaryDirectory(prefix="mvmv_") as d:
+        a = mvmv_run(dev, store=HummockStateStore(LocalFsObjectStore(d)),
+                     crash_at=crash_at, **kw)
+        if all(a["finished"]):
+            raise AssertionError("mvmv_recover: the crash missed the "
+                                 "backfill")
+        b = mvmv_run(dev, store=lambda: HummockStateStore.open(
+            LocalFsObjectStore(d)), recover_at=crash_at, **kw)
+    mvmv_check_final(b, "mvmv_recover")
+    if not all(b["finished"]):
+        raise AssertionError("mvmv_recover: the backfills did not finish")
+    return dict(agg_rows=b["agg_rows"], crash_at=crash_at,
+                snapshot_rows_before_crash=a["snapshot_rows"],
+                rows_reread=b["snapshot_rows"],
+                recovery_ms=b["recovery_s"] * 1e3,
+                finished_at=b["finished_at"], barriers=b["barriers"])
+
+
 def main(argv) -> int:
-    unknown = [a for a in argv if a != "--host-profile"]
+    unknown = [a for a in argv if a not in ("--host-profile",
+                                            "--mvmv-sizing")]
     if unknown:
         print(f"chip_smoke: unknown arguments {unknown}", file=sys.stderr)
         return 2
@@ -7552,6 +8316,9 @@ def main(argv) -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0], "build_s": build_s,
           "ptxas": logs})
+    if "--mvmv-sizing" in argv:
+        mvmv_sizing(dev, smi)
+        return 0
     res = phase_kernels(dev)
     res.update(phase_kernels_q7(dev))
     q5 = phase_q5_full(dev)
@@ -7637,9 +8404,19 @@ def main(argv) -> int:
           **phase_strings_full(dev)})
     emit({"phase": "acd_recover", "nvidia_smi": smi,
           **phase_acd_recover(dev)})
+    emit({"phase": "queue_c", "nvidia_smi": smi, **phase_queue_c(dev)})
+    res.update(phase_kernels_backfill(dev))
+    k31_taps = {}
+    mvmv = phase_mvmv_full(dev, k31_taps=k31_taps)
+    emit({"phase": "mvmv_full", "nvidia_smi": smi, **mvmv})
+    res.update(phase_kernels_backfill_path(dev, k31_taps))
+    emit({"phase": "mvmv_check", "nvidia_smi": smi,
+          **phase_mvmv_check(dev)})
+    emit({"phase": "mvmv_recover", "nvidia_smi": smi,
+          **phase_mvmv_recover(dev)})
     paths = {"q5": q5, "q7": q7, "q8": q8, "q17": q17, "q7d": q7d,
              "q5t": q5t, "q2": q2, "q6": q6, "gagg": gagg, "q5c": q5c,
-             "lj": lj, "dynf": dynf, "acd": acd}
+             "lj": lj, "dynf": dynf, "acd": acd, "mvmv": mvmv}
     rows = []
     for name, k in kernels.KERNELS.items():
         r = res[name]

@@ -2,7 +2,9 @@
 //
 // Replaces risingwave_tpu/stream/project.py:FilterExecutor._step_impl
 // (103) after its predicate (which is kernel K5): with cond = the
-// predicate's data AND its validity (NULL filters out),
+// predicate's data AND its validity (NULL filters out; an integer
+// predicate, which the reference ANDs bitwise, holds where its low bit
+// is set, and so does a bool, stored 0/1),
 //   an UpdateInsert at i whose partner UpdateDelete at i-1 fails becomes
 //   an Insert; an UpdateDelete at i whose partner UpdateInsert at i+1
 //   fails becomes a Delete; vis &= cond.
@@ -29,28 +31,30 @@ constexpr signed char kDelete = 1;
 constexpr signed char kUpdateDelete = 2;
 constexpr signed char kUpdateInsert = 3;
 
-__device__ __forceinline__ bool cond_at(const unsigned char* data,
+// the low bit of element i lies in its first byte (little-endian)
+__device__ __forceinline__ bool cond_at(const unsigned char* data, int width,
                                         const unsigned char* valid,
                                         long long i) {
-  return data[i] != 0 && (valid == nullptr || valid[i] != 0);
+  return (data[i * width] & 1) != 0 && (valid == nullptr || valid[i] != 0);
 }
 
 __global__ void __launch_bounds__(kThreads)
-filter_fixup_kernel(const unsigned char* data, const unsigned char* valid,
+filter_fixup_kernel(const unsigned char* data, int width,
+                    const unsigned char* valid,
                     const signed char* ops, const unsigned char* vis,
                     long long n, signed char* ops_out,
                     unsigned char* vis_out) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x
                       + threadIdx.x;
   if (i >= n) return;
-  const bool c = cond_at(data, valid, i);
+  const bool c = cond_at(data, width, valid, i);
   const signed char op = ops[i];
   signed char out = op;
   if (op == kUpdateInsert && c
-      && !cond_at(data, valid, i == 0 ? n - 1 : i - 1)) {
+      && !cond_at(data, width, valid, i == 0 ? n - 1 : i - 1)) {
     out = kInsert;
   } else if (op == kUpdateDelete && c
-             && !cond_at(data, valid, i == n - 1 ? 0 : i + 1)) {
+             && !cond_at(data, width, valid, i == n - 1 ? 0 : i + 1)) {
     out = kDelete;
   }
   ops_out[i] = out;
@@ -59,7 +63,8 @@ filter_fixup_kernel(const unsigned char* data, const unsigned char* valid,
 
 }  // namespace
 
-extern "C" int rw_filter_fixup(const unsigned char* data,
+// width: the predicate's element size (1 for bool)
+extern "C" int rw_filter_fixup(const unsigned char* data, int width,
                                const unsigned char* valid,
                                const signed char* ops,
                                const unsigned char* vis, long long n,
@@ -68,7 +73,7 @@ extern "C" int rw_filter_fixup(const unsigned char* data,
   if (n > 0) {
     filter_fixup_kernel<<<rw_blocks(n, kThreads), kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-        data, valid, ops, vis, n, ops_out, vis_out);
+        data, width, valid, ops, vis, n, ops_out, vis_out);
   }
   return static_cast<int>(cudaGetLastError());
 }

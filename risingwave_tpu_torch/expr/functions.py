@@ -67,6 +67,15 @@ def fmin(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isnan(a) | torch.isnan(b), a + b, r)
 
 
+def condition(data: torch.Tensor, valid) -> torch.Tensor:
+    """A condition's rows that hold (bool), as the reference takes them
+    (`valid_mask() & data`): a NULL fails; a boolean holds where true; an
+    integer condition stays integer there, so a row holds where the low
+    bit of its value is set."""
+    hit = data if data.dtype == torch.bool else (data & 1) != 0
+    return hit if valid is None else hit & valid
+
+
 def _promoted(args) -> torch.dtype:
     dt = args[0].dtype
     for a in args[1:]:
@@ -75,6 +84,22 @@ def _promoted(args) -> torch.dtype:
 
 
 # ------------------------------------------------------------- arithmetic
+
+def _unbool(a: torch.Tensor, b: torch.Tensor):
+    """A boolean operand beside a number takes the number's type, as jnp
+    promotes it (torch refuses to subtract a bool tensor at all); two
+    booleans stay booleans."""
+    if a.dtype == torch.bool and b.dtype != torch.bool:
+        return a.to(b.dtype), b
+    if b.dtype == torch.bool and a.dtype != torch.bool:
+        return a, b.to(a.dtype)
+    return a, b
+
+
+def _int_of_bool(x: torch.Tensor) -> torch.Tensor:
+    """A boolean operand of a division as the 0/1 integer jnp divides."""
+    return x.to(torch.int64) if x.dtype == torch.bool else x
+
 
 @kernel("add", input_kinds=("num", "num"))
 @strict
@@ -85,6 +110,7 @@ def _add(node, a, b):
 @kernel("subtract", input_kinds=("num", "num"))
 @strict
 def _sub(node, a, b):
+    a, b = _unbool(a, b)
     return (a - b).to(node.ret_type.torch_dtype)
 
 
@@ -96,7 +122,7 @@ def _mul(node, a, b):
 
 @kernel("divide", input_kinds=("num", "num"))
 def _div(node, cols):
-    a, b = cols[0].data, cols[1].data
+    a, b = (_int_of_bool(c.data) for c in cols)
     valid = and_valid(cols)
     zero = b == 0
     safe = torch.where(zero, torch.ones_like(b), b)
@@ -113,7 +139,7 @@ def _div(node, cols):
 
 @kernel("modulus", input_kinds=("num", "num"))
 def _mod(node, cols):
-    a, b = cols[0].data, cols[1].data
+    a, b = (_int_of_bool(c.data) for c in cols)
     valid = and_valid(cols)
     zero = b == 0
     # x % -1 == x % 1 == 0 for integers: the substitution keeps
@@ -244,7 +270,7 @@ def _case(node, cols):
                             device=cols[1].data.device)
     for i in reversed(range(pairs)):
         cond, val = cols[2 * i], cols[2 * i + 1]
-        hit = cond.valid_mask() & cond.data
+        hit = condition(cond.data, cond.valid)
         out = torch.where(hit, astype(val.data, dt), out)
         valid = torch.where(hit, val.valid_mask(), valid)
     return Column(out, valid)

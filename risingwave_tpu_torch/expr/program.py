@@ -22,10 +22,16 @@ program is compiled once per input signature (each referenced column's
 dtype and whether it has a validity mask) and cached with its ctypes
 argument arrays.
 
-Not compiled (NotImplementedError): float32 operands, arithmetic,
-extrema and bit functions on booleans, floor division of floats (an
-integer-typed divide of a float operand), CASE conditions that are not
-booleans, and string functions of non-literal patterns or positions.
+Booleans in arithmetic are 0/1 integers that promote to the other
+operand's type, as jnp promotes them; two booleans add as a logical or
+and multiply as a logical and. An integer CASE condition holds where its
+low bit is set (the reference ANDs it bitwise with its validity).
+
+Not compiled (NotImplementedError): float32 operands, the subtraction
+of two booleans (which the reference refuses too), extrema and bit
+functions on booleans, floor division of floats (an integer-typed divide
+of a float operand), float CASE conditions, and string functions of
+non-literal patterns or positions.
 """
 
 from __future__ import annotations
@@ -90,6 +96,13 @@ TYPE_CODES = {torch.int64: 0, torch.int32: 1, torch.int16: 2, torch.int8: 3,
               torch.bool: 4, torch.float64: 5}
 _BITS = {torch.int64: 64, torch.int32: 32, torch.int16: 16, torch.int8: 8,
          torch.bool: 8}
+
+
+def _widest(dtypes) -> torch.dtype:
+    """The widest integer operand type; a boolean (0/1) widens to the
+    other operand's, and booleans alone stay in range of any."""
+    ints = [d for d in dtypes if d != torch.bool] or [torch.int64]
+    return max(ints, key=lambda d: _BITS[d])
 
 
 def _kind(dtype: torch.dtype) -> str:
@@ -207,24 +220,35 @@ class _Compiler:
         kinds = [_kind(self.info(a)[0]) for a in args]
         if name in _ARITH:
             dts = [self.info(a)[0] for a in args]
-            if torch.bool in dts:
-                raise NotImplementedError("K5: arithmetic on booleans")
+            if all(d == torch.bool for d in dts):
+                # jnp adds booleans as a logical or, multiplies them as a
+                # logical and, and refuses to subtract them
+                if name == "subtract":
+                    raise NotImplementedError(
+                        "K5: subtract of two booleans (the reference "
+                        "refuses it too)")
+                for a in args:
+                    self.emit(a)
+                self._op(_ARITH[name][0], push=-1)
+                if name == "add":
+                    self._op(I2B)
+                self._cast(torch.bool, out_dt)
+                return
             k = "f" if "f" in kinds else "i"
             for a, ka in zip(args, kinds):
                 self.emit(a)
                 self._to(ka, k)
             self._op(_ARITH[name][k == "f"], push=-1)
             if k == "i":
-                # jnp computes in the widest operand width, then casts
-                self._wrap(max(dts, key=lambda d: _BITS[d]))
+                # jnp computes in the widest operand width (a boolean
+                # operand, 0/1, promotes to the other's), then casts
+                self._wrap(_widest(dts))
             self._to(k, _kind(out_dt))
             if _kind(out_dt) == "i":
                 self._wrap(out_dt)
             return
         if name == "divide":
             dts = [self.info(a)[0] for a in args]
-            if torch.bool in dts:
-                raise NotImplementedError("K5: arithmetic on booleans")
             # the result type picks the division: true division in
             # float64, or floor division in the widest operand's width
             k = _kind(out_dt)
@@ -235,13 +259,11 @@ class _Compiler:
                 self._to(ka, k)
             self._op(DIV_F if k == "f" else DIV_I, push=-1)
             if k == "i":
-                self._wrap(max(dts, key=lambda d: _BITS[d]))
+                self._wrap(_widest(dts))
                 self._wrap(out_dt)
             return
         if name == "modulus":
             dts = [self.info(a)[0] for a in args]
-            if torch.bool in dts:
-                raise NotImplementedError("K5: arithmetic on booleans")
             # jnp's `%` in the promoted operand type, then the cast
             k = "f" if "f" in kinds else "i"
             for a, ka in zip(args, kinds):
@@ -249,7 +271,7 @@ class _Compiler:
                 self._to(ka, k)
             self._op(MOD_F if k == "f" else MOD_I, push=-1)
             if k == "i":
-                self._wrap(max(dts, key=lambda d: _BITS[d]))
+                self._wrap(_widest(dts))
             self._to(k, _kind(out_dt))
             if _kind(out_dt) == "i":
                 self._wrap(out_dt)
@@ -314,10 +336,16 @@ class _Compiler:
             pairs = n // 2
             for i in range(pairs):
                 cond, val = args[2 * i], args[2 * i + 1]
-                if self.info(cond)[0] != torch.bool:
-                    raise NotImplementedError("K5: CASE of a non-boolean "
+                cdt = self.info(cond)[0]
+                if _kind(cdt) != "i":
+                    raise NotImplementedError("K5: CASE of a float "
                                               "condition")
                 self.emit(cond)
+                if cdt != torch.bool:
+                    # the reference keeps `valid & data` integer: a row
+                    # holds where the low bit of its condition is set
+                    self._op(CONST, imm=1, push=1)
+                    self._op(BAND, push=-1)
                 self._emit_as(val, out_dt)
             if has_else:
                 self._emit_as(args[-1], out_dt)
@@ -448,7 +476,8 @@ class ExprProgram:
         if parts is not None:
             return parts
         parts = []
-        todo = list(self.computed)
+        # a mask is computed even from a bare column
+        todo = list(range(len(self.exprs))) if mask else list(self.computed)
         while todo:
             taken = []
             comp = _Compiler(sig)
@@ -462,7 +491,11 @@ class ExprProgram:
                 dt, _ = trial.info(e)
                 if mask:
                     if dt != torch.bool:
-                        raise NotImplementedError("K5 mask of non-boolean")
+                        # the join condition is `astype(bool)`: non-zero
+                        # holds (a NaN too)
+                        trial._op(CONST, push=1)
+                        trial._op(CMP_F if _kind(dt) == "f" else CMP_I,
+                                  CMP_CODES["not_equal"], push=-1)
                     trial._op(MASK, push=-1)
                 else:
                     trial._op(OUT, len(taken), push=-1)

@@ -55,8 +55,12 @@ and executor arguments:
   plain SELECT           -> project (+ row_id for a keyless MV pk)
   CREATE SINK            -> the plan ends in a sink node
 
+  FROM <mv>              -> a stream_scan fragment: a tap on the MV's
+                            root and a backfill of its table (MV-on-MV,
+                            and a sink from an MV)
+
 What the JAX planner also plans raises `BindError("... not ported yet
-(ROADMAP A9)")` here, never a different plan: MV-on-MV scans, the mesh
+(ROADMAP A9)")` here, never a different plan: the mesh
 top-N and the sharded over-window (`streaming_parallelism_devices` >
 1), non-integer inner join keys (hash join), parallelism > 1 and remote
 fragment placement.
@@ -224,8 +228,17 @@ class StreamPlanner:
     def plan_rel(self, rel) -> tuple[int, Scope, RelInfo]:
         """Returns (fragment id, scope over its output, stream info)."""
         if isinstance(rel, ast.TableRel):
+            # an MV name resolves to a backfilled stream scan over it
+            # (MV-on-MV); a source otherwise
             if rel.name in getattr(self.catalog, "mvs", {}):
-                raise not_ported("MV-on-MV stream scan")
+                mv = self.catalog.mvs[rel.name]
+                node = Node("stream_scan", dict(mv=rel.name))
+                f = self.graph.add(Fragment(self.fid(), node,
+                                            dispatch="broadcast"))
+                return (f.fid, Scope.of(mv.schema, rel.alias or rel.name),
+                        RelInfo(stream_key=tuple(mv.pk_indices),
+                                append_only=getattr(mv, "append_only",
+                                                    False)))
             src = self.catalog.source(rel.name)
             sfid = self.source_fragment(rel.name)
             # indirection fragment: grafts land here, the shared source
@@ -1144,7 +1157,12 @@ class StreamPlanner:
                         calls.append(AggCall(AggKind.SUM, a, ret, True))
                         return col(len(calls) - 1, ret)
                     if e.name not in ("min", "max"):
-                        return None     # not ported: bool_and/or, hll
+                        # the JAX package fuses approx_count_distinct,
+                        # bool_and and bool_or here as MAX of the column
+                        # (ROADMAP accepted difference 8); the port
+                        # declines the fusion rather than compute a MAX
+                        # where the SQL asks for another aggregate
+                        return None
                     kind = (AggKind.MIN if e.name == "min"
                             else AggKind.MAX)
                     calls.append(AggCall(kind, a, at, True))

@@ -22,6 +22,15 @@ executor recovers its state and every source re-seeks its committed
 offset. `crash()` abandons every actor and uncommitted epoch, as a
 killed process would.
 
+An MV or sink may read another MV (`... FROM <mv>`): its plan starts
+with a stream_scan, which taps the upstream MV's root actor and
+backfills the upstream table. The tap is attached under the
+coordinator's rounds lock, so the new flow sees a barrier-aligned
+suffix of the upstream changelog. `drop_mv` refuses an MV that another
+flow reads, and `drop_all` and `shutdown` go in reverse creation order.
+`recover()` rebuilds the whole topology, taps included, before any
+barrier runs, and each backfill resumes from its persisted progress.
+
 Left out of this slice (ROADMAP A5/A9/A10): batch SELECT and the
 serving path, DROP statements, CREATE TABLE/INSERT, EXPLAIN/SHOW, backup
 and restore, cluster mode, automatic and partial recovery, the monitor
@@ -123,6 +132,7 @@ class SinkDef:
     schema: Schema
     deployment: Deployment
     sink_fragment: int
+    upstream_taps: tuple = ()          # (upstream MvDef, Channel) to detach
 
     @property
     def executor(self):
@@ -136,6 +146,9 @@ class MvDef:
     pk_indices: tuple
     deployment: Deployment
     mv_fragment: int
+    tap: object = None                 # TapDispatcher on the MV root actor
+    upstream_taps: tuple = ()          # (upstream MvDef, Channel) to detach
+    append_only: bool = False          # its changelog has no retractions
 
     @property
     def table(self):
@@ -189,6 +202,7 @@ class Session:
         self.catalog = Catalog()
         self.coord = BarrierCoordinator(self.store)
         self.env = BuildEnv(self.store, self.coord, self.device)
+        self.env.session = self
         self.config = dict(JAX_CONFIG_DEFAULTS)
         # hook(flow name, deployment, root fragment id), called after a
         # flow is built and before its actors start: where a caller
@@ -361,41 +375,69 @@ class Session:
                              parallelism=self.config["streaming_parallelism"],
                              config=self.config)
 
-    async def _bring_up(self, name: str, dep: Deployment,
-                        root_fragment: int) -> None:
-        """Run the build hooks, spawn the new dataflow's actors; the
-        session's first flow gets the Initial barrier, a later one
-        initializes on the next ordinary barrier. During recovery no
-        barrier runs until the whole topology is back."""
+    def _spawn(self, name: str, dep: Deployment, root_fragment: int,
+               taps: list) -> None:
+        """Run the build hooks, spawn the new dataflow's actors and
+        attach its channels to the upstream taps, each with the actors
+        that consume it (a Stop barrier covering them detaches the
+        channel). Called under the rounds lock, after the whole graph
+        has built: no barrier is in flight while a tap is attached, and
+        a statement refused at build leaves no channel on a tap."""
         for hook in self.build_hooks:
             hook(name, dep, root_fragment)
         dep.spawn()
+        ids = {a.actor_id for a in dep.actors}
+        for up, ch in taps:
+            up.tap.add(ch, ids)
+
+    async def _first_barrier(self) -> None:
+        """The session's first flow gets the Initial barrier, a later one
+        initializes on the next ordinary barrier. During recovery no
+        barrier runs until the whole topology is back: a barrier between
+        two re-created flows would advance an upstream MV while a
+        consumer is not tapped yet, and lose that epoch for it."""
         if not self._recovering:
             await self.coord.run_rounds(
                 0 if not self.coord._started else 1)
 
     async def _create_mv(self, stmt: ast.CreateMV) -> MvDef:
+        from ..stream import TapDispatcher
         planner = self._planner()
         plan = planner.plan_select(stmt.select)
         async with self.coord._rounds_lock:
+            self.env.pending_taps = []
             dep = build_graph(plan.graph, self.env)
             # the JAX package allocates one more table id after each MV,
             # for the MV's changelog log; later flows' ids stay equal
             self.env.alloc_table_id()
-        mv = MvDef(stmt.name, plan.schema, plan.pk_indices, dep,
-                   plan.mv_fragment)
-        self.catalog.mvs[stmt.name] = mv
-        await self._bring_up(stmt.name, dep, plan.mv_fragment)
+            # the MV's root actor dispatches through a tap, which MVs and
+            # sinks built on this one extend
+            root = dep.roots[plan.mv_fragment][0]
+            actor = next(a for a in dep.actors if a.consumer is root)
+            if actor.dispatcher is not None:
+                raise ValueError("an MV fragment must be terminal")
+            actor.dispatcher = tap = TapDispatcher()
+            taps = list(self.env.pending_taps)
+            mv = MvDef(stmt.name, plan.schema, plan.pk_indices, dep,
+                       plan.mv_fragment, tap=tap, upstream_taps=tuple(taps),
+                       append_only=plan.append_only)
+            self.catalog.mvs[stmt.name] = mv
+            self._spawn(stmt.name, dep, plan.mv_fragment, taps)
+        await self._first_barrier()
         return mv
 
     async def _create_sink(self, stmt: ast.CreateSink) -> SinkDef:
         planner = self._planner()
         plan = planner.plan_sink(stmt.select, stmt.options)
         async with self.coord._rounds_lock:
+            self.env.pending_taps = []
             dep = build_graph(plan.graph, self.env)
-        sink = SinkDef(stmt.name, plan.schema, dep, plan.mv_fragment)
-        self.catalog.sinks[stmt.name] = sink
-        await self._bring_up(stmt.name, dep, plan.mv_fragment)
+            taps = list(self.env.pending_taps)
+            sink = SinkDef(stmt.name, plan.schema, dep, plan.mv_fragment,
+                           upstream_taps=tuple(taps))
+            self.catalog.sinks[stmt.name] = sink
+            self._spawn(stmt.name, dep, plan.mv_fragment, taps)
+        await self._first_barrier()
         return sink
 
     def mv_rows(self, name: str) -> list[tuple]:
@@ -410,14 +452,27 @@ class Session:
             return
         await self.coord.run_rounds(rounds, interval_s=interval_s)
 
+    @staticmethod
+    async def _stop(flow) -> None:
+        """Stop a flow's actors at a barrier and detach its channels from
+        the taps of the MVs it reads."""
+        await flow.deployment.stop()
+        for up, ch in flow.upstream_taps:
+            up.tap.remove(ch)
+
     async def drop_sink(self, name: str) -> None:
-        sink = self.catalog.sinks.pop(name)
-        await sink.deployment.stop()
+        await self._stop(self.catalog.sinks.pop(name))
         self._forget(name, "sink")
 
     async def drop_mv(self, name: str) -> None:
-        mv = self.catalog.mvs.pop(name)
-        await mv.deployment.stop()
+        """Stop one MV and detach its upstream taps. Flows that read this
+        MV must be dropped first."""
+        dependents = [d.name for d in list(self.catalog.mvs.values())
+                      + list(self.catalog.sinks.values())
+                      if any(up.name == name for up, _ in d.upstream_taps)]
+        if dependents:
+            raise BindError(f"cannot drop {name!r}: {dependents} read it")
+        await self._stop(self.catalog.mvs.pop(name))
         self._forget(name, "mv")
 
     def _forget(self, name: str, kind: str) -> None:
@@ -428,6 +483,7 @@ class Session:
     async def drop_all(self) -> None:
         for name in reversed(list(self.catalog.sinks)):
             await self.drop_sink(name)
+        # reverse creation order: a later MV may read an earlier one
         for name in reversed(list(self.catalog.mvs)):
             await self.drop_mv(name)
 
@@ -452,7 +508,7 @@ class Session:
         """Stop every flow at a barrier without dropping it: the durable
         catalog and state stay for the next incarnation."""
         for name in reversed(list(self.catalog.sinks)):
-            await self.catalog.sinks.pop(name).deployment.stop()
+            await self._stop(self.catalog.sinks.pop(name))
         for name in reversed(list(self.catalog.mvs)):
-            await self.catalog.mvs[name].deployment.stop()
+            await self._stop(self.catalog.mvs[name])
         self.catalog.mvs.clear()

@@ -20,7 +20,7 @@ placement (`build_partial_graph`, `cluster_remote_edges`,
 mesh-chain fusion, memory and stats registration, and the builders of
 node kinds the port cannot plan yet (the stateless simple
 and the other aggregates, joins other than sorted, the
-group and sharded top-Ns, the sharded over-window, stream_scan, dedup,
+group and sharded top-Ns, the sharded over-window, dedup,
 project_set);
 durable snapshot join-agg state; sinks other than `blackhole_device`;
 connectors other than `nexmark` and `tpch`.
@@ -74,6 +74,13 @@ class BuildEnv:
         self._next_table_id = 1
         self._next_actor_id = 1
         self.pending_source_queues: list = []
+        # the owning Session's catalog, for nodes that read another
+        # flow (stream_scan); None when graphs are built without one
+        self.session = None
+        # (upstream MvDef, Channel) of every stream_scan of the graph
+        # being built: the session attaches each channel to the MV's
+        # tap once the graph has built
+        self.pending_taps: list = []
 
     def alloc_table_id(self) -> int:
         t = self._next_table_id
@@ -196,7 +203,7 @@ def _build_fragment_actor(graph, env, dep, channels, built_schema, f, fid,
             # routes other deployments' stops here too)
             return ChannelInput(ch, built_schema[n.upstream],
                                 stop_on=lambda b, aid=actor_id:
-                                b.is_stop(aid))
+                                b.is_stop(aid), actor_id=actor_id)
         inputs = [build_node(i) for i in n.inputs]
         if n.kind not in BUILDERS:
             raise NotImplementedError(
@@ -227,14 +234,24 @@ def build_graph(graph: StreamGraph, env: BuildEnv) -> Deployment:
                 "(ROADMAP A9)")
         for d_fid, k in consumers[fid]:
             channels[(fid, d_fid, k)] = Channel(env.channel_capacity)
-    for fid in order:
-        f = graph.fragments[fid]
-        dep.roots[fid] = []
-        root, actor = _build_fragment_actor(
-            graph, env, dep, channels, built_schema, f, fid,
-            env.alloc_actor_id(), consumers)
-        dep.actors.append(actor)
-        built_schema[fid] = root.schema
+    try:
+        for fid in order:
+            f = graph.fragments[fid]
+            dep.roots[fid] = []
+            root, actor = _build_fragment_actor(
+                graph, env, dep, channels, built_schema, f, fid,
+                env.alloc_actor_id(), consumers)
+            dep.actors.append(actor)
+            built_schema[fid] = root.schema
+    except BaseException:
+        # a graph refused part-way leaves nothing registered: the
+        # session's later barriers must not wait on actors that never run
+        for a in dep.actors:
+            env.coord.actor_ids.discard(a.actor_id)
+        for q in env.pending_source_queues:
+            if q in env.coord.source_queues:
+                env.coord.source_queues.remove(q)
+        raise
     dep.source_queues = list(env.pending_source_queues)
     return dep
 
@@ -510,6 +527,36 @@ def _build_simple_agg(args, inputs, ctx: ActorCtx, key):
 @register_builder("row_id_gen")
 def _build_row_id(args, inputs, ctx: ActorCtx, key):
     return RowIdGenExecutor(inputs[0], instance=ctx.actor_id)
+
+
+@register_builder("stream_scan")
+def _build_stream_scan(args, inputs, ctx: ActorCtx, key):
+    """CREATE MV ... FROM <mv>: a live tap on the upstream MV's root
+    actor and a snapshot backfill over its table. The progress table is
+    durable unless the node says otherwise, in a volatile session too,
+    as the JAX package builds it."""
+    from ..state.storage_table import StorageTable
+    from ..stream.backfill import BackfillExecutor, backfill_progress_schema
+    session = ctx.env.session
+    if session is None:
+        raise ValueError("stream_scan needs a session catalog")
+    mv = session.catalog.mvs[args["mv"]]
+    # the session attaches the channel to the MV's tap once the whole
+    # graph has built: a builder that raises later leaves no channel
+    # that nobody drains on the upstream's root
+    ch = Channel(ctx.env.channel_capacity)
+    ctx.env.pending_taps.append((mv, ch))
+    storage = StorageTable.for_state_table(mv.table)
+    st = None
+    if args.get("durable", True):
+        sch = backfill_progress_schema(mv.schema, mv.pk_indices)
+        st = ctx.env.state_table(ctx.table_id(key), sch, (0,))
+    return BackfillExecutor(
+        ChannelInput(ch, mv.schema,
+                     stop_on=lambda b, aid=ctx.actor_id: b.is_stop(aid),
+                     actor_id=ctx.actor_id),
+        storage, state_table=st, batch_rows=args.get("batch_rows", 65536),
+        device=ctx.env.device)
 
 
 @register_builder("sink")

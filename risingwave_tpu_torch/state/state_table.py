@@ -92,6 +92,16 @@ class StateTable:
             self.table_id, vnode,
             encode_memcomparable(pk, self._pk_types, self.pk_descending))
 
+    def vnode_of_pk(self, pk: tuple) -> int:
+        """Vnode of a pk tuple (the distribution key must lie within the
+        pk, the batch point-get's precondition)."""
+        if not self.dist_key_indices:
+            return 0
+        pos = [self.pk_indices.index(i) for i in self.dist_key_indices]
+        cols = [np.asarray([pk[p]]).astype(self.schema[i].data_type.np_dtype)
+                for p, i in zip(pos, self.dist_key_indices)]
+        return int(compute_vnodes_numpy(cols)[0])
+
     def vnode_key_range(self, vnode: int) -> tuple[bytes, bytes]:
         """[start, end) covering one vnode of this table."""
         start = encode_table_key(self.table_id, vnode, b"")

@@ -3,6 +3,7 @@ from .align import barrier_align
 from .dynamic import DynamicFilterExecutor, NowExecutor
 from .exchange import (
     BroadcastDispatcher, Channel, ChannelInput, Dispatcher, SimpleDispatcher,
+    TapDispatcher,
 )
 from .eowc_over_window import EowcOverWindowExecutor
 from .executor import (
@@ -24,7 +25,8 @@ from .sorted_join import SortedJoinExecutor
 from .source import SourceExecutor
 
 __all__ = ["Actor", "barrier_align", "BroadcastDispatcher", "Channel",
-           "ChannelInput", "Dispatcher", "SimpleDispatcher", "Executor",
+           "ChannelInput", "Dispatcher", "SimpleDispatcher", "TapDispatcher",
+           "Executor",
            "DynamicFilterExecutor", "NowExecutor",
            "StatefulUnaryExecutor", "StatelessUnaryExecutor",
            "EowcOverWindowExecutor", "GeneralOverWindowExecutor",

@@ -62,7 +62,7 @@ from ..device import resolve_device
 from ..expr.program import TYPE_CODES
 from ..ops import kernels
 from ..ops.sort import lexsort_plain, stable_lexsort, stable_sort
-from ..state.storage_table import rows_to_columns
+from ..state.storage_table import rows_to_chunk
 from ..utils.d2h import as_i64_lanes
 from .executor import Executor, StatefulUnaryExecutor
 from .message import Barrier, Watermark
@@ -670,24 +670,9 @@ class GeneralOverWindowExecutor(GrowableSortedStore, StatefulUnaryExecutor):
         self._presize_for(len(rows))
         in_schema = Schema(tuple(self.schema)[:self.in_width])
         cap = 1 << max(6, (len(rows) - 1).bit_length())
-        dev = self.device
         for ofs in range(0, len(rows), cap):
-            part = rows[ofs:ofs + cap]
-            arrays, valids = rows_to_columns(in_schema, part)
-            m = len(part)
-            cols = []
-            for a, v, dt in zip(arrays, valids, self._col_dtypes):
-                data = torch.zeros(cap, dtype=dt, device=dev)
-                data[:m] = torch.from_numpy(a).to(dev)
-                valid = None
-                if not v.all():
-                    valid = torch.zeros(cap, dtype=torch.bool, device=dev)
-                    valid[:m] = torch.from_numpy(v).to(dev)
-                cols.append(Column(data, valid))
-            vis = torch.arange(cap, device=dev) < m
-            ops = torch.full((cap,), OP_INSERT, dtype=torch.int8,
-                             device=dev)
-            self._apply(StreamChunk(tuple(cols), ops, vis, in_schema))
+            self._apply(rows_to_chunk(in_schema, rows[ofs:ofs + cap], cap,
+                                      self.device))
         return True
 
     def recover_state(self, epoch: int) -> None:

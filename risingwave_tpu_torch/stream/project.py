@@ -26,6 +26,7 @@ from ..common.chunk import (
     OP_DELETE, OP_INSERT, OP_UPDATE_DELETE, OP_UPDATE_INSERT, StreamChunk,
 )
 from ..common.types import Field, Schema
+from ..expr.functions import condition
 from ..expr.ir import Expr, InputRef
 from ..expr.program import ExprProgram
 from ..ops import kernels
@@ -80,20 +81,20 @@ _P = ctypes.c_void_p
 K_FILTER = kernels.register(kernels.CudaKernel(
     "filter_ops",
     replaces="risingwave_tpu/stream/project.py:103",
-    functions={"rw_filter_fixup": [_P, _P, _P, _P, ctypes.c_longlong, _P,
-                                   _P, _P]}))
+    functions={"rw_filter_fixup": [_P, ctypes.c_int, _P, _P, _P,
+                                   ctypes.c_longlong, _P, _P, _P]}))
 
 
 def filter_fixup_plain(pred_data: torch.Tensor,
                        pred_valid: Optional[torch.Tensor],
                        ops: torch.Tensor, vis: torch.Tensor):
     """Plain PyTorch version of kernel K22: (ops, vis) after the filter.
-    NULL filters out; an update pair whose one side fails degrades to
-    an Insert or a Delete of the side that passes (the partners are
-    read with jnp.roll's wrap-around at both ends)."""
-    cond = pred_data.to(torch.bool)
-    if pred_valid is not None:
-        cond = cond & pred_valid
+    NULL filters out; an integer predicate passes a row where the low bit
+    of its value is set (the reference ANDs it bitwise with its
+    validity and the visibility); an update pair whose one side fails
+    degrades to an Insert or a Delete of the side that passes (the
+    partners are read with jnp.roll's wrap-around at both ends)."""
+    cond = condition(pred_data, pred_valid)
     is_ud = ops == OP_UPDATE_DELETE
     is_ui = ops == OP_UPDATE_INSERT
     cond_prev = torch.roll(cond, 1)     # for UI rows: partner UD at i-1
@@ -113,10 +114,13 @@ def filter_fixup(pred_data: torch.Tensor, pred_valid: Optional[torch.Tensor],
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     n = ops.shape[0]
+    if pred_data.is_floating_point():
+        raise ValueError("K22 takes a bool or integer predicate")
     for t in (pred_data, pred_valid, vis):
-        if t is not None and (t.dtype != torch.bool or t.shape != (n,)
-                              or not t.is_contiguous() or t.device != dev):
-            raise ValueError("K22 takes contiguous bool predicate, "
+        if t is not None and ((t is not pred_data and t.dtype != torch.bool)
+                              or t.shape != (n,) or not t.is_contiguous()
+                              or t.device != dev):
+            raise ValueError("K22 takes a contiguous predicate and bool "
                              "validity and visibility of the chunk's "
                              "length")
     if ops.dtype != torch.int8 or not ops.is_contiguous():
@@ -125,6 +129,7 @@ def filter_fixup(pred_data: torch.Tensor, pred_valid: Optional[torch.Tensor],
     vis_out = torch.empty_like(vis)
     K_FILTER.launches += 1
     K_FILTER.call("rw_filter_fixup", kernels.ptr(pred_data),
+                  pred_data.element_size(),
                   kernels.ptr_or_null(pred_valid), kernels.ptr(ops),
                   kernels.ptr(vis), n, kernels.ptr(ops_out),
                   kernels.ptr(vis_out), kernels.stream_of(ops))

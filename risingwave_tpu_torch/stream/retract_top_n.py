@@ -51,7 +51,7 @@ from ..ops import kernels
 from ..ops.sort import (
     lexsort_plain, order_key_plain, stable_lexsort, stable_sort,
 )
-from ..state.storage_table import rows_to_columns
+from ..state.storage_table import rows_to_chunk
 from .executor import Executor, StatefulUnaryExecutor
 from .message import Barrier, Watermark
 from .sorted_join import (
@@ -427,24 +427,9 @@ class RetractableTopNExecutor(GrowableSortedStore, StatefulUnaryExecutor):
             return
         self._presize_for(len(rows))
         cap = 1 << max(6, (len(rows) - 1).bit_length())
-        dev = self.device
         for ofs in range(0, len(rows), cap):
-            part = rows[ofs:ofs + cap]
-            arrays, valids = rows_to_columns(self.schema, part)
-            m = len(part)
-            cols = []
-            for a, v, dt in zip(arrays, valids, self._col_dtypes):
-                data = torch.zeros(cap, dtype=dt, device=dev)
-                data[:m] = torch.from_numpy(a).to(dev)
-                valid = None
-                if not v.all():
-                    valid = torch.zeros(cap, dtype=torch.bool, device=dev)
-                    valid[:m] = torch.from_numpy(v).to(dev)
-                cols.append(Column(data, valid))
-            vis = torch.arange(cap, device=dev) < m
-            ops = torch.full((cap,), OP_INSERT, dtype=torch.int8,
-                             device=dev)
-            self._apply(StreamChunk(tuple(cols), ops, vis, self.schema))
+            self._apply(rows_to_chunk(self.schema, rows[ofs:ofs + cap],
+                                      cap, self.device))
         # seed the diff's baseline: the downstream MV holds exactly the
         # top set of this recovered (checkpoint-consistent) store, so
         # compute it once and discard the output; without this, rows that

@@ -26,6 +26,7 @@ volatile sessions count what JAX's durable and volatile sessions count.
 
 import asyncio
 import types
+from collections import Counter
 
 import jax.numpy as jnp
 import numpy as np
@@ -700,3 +701,133 @@ def test_durable_acd_state_and_recovery_match_jax(det_epochs, tmp_path,
     _, rmv = _acd_session("port", path, N + 1, N + M + 1, recover=True,
                           **kw)
     assert rmv == jmv
+
+
+# ------------------------------------------------------------ MV-on-MV
+
+def _mvmv_ddl():
+    """chip_smoke's mv_agg durable (all-integer columns) at CS-bid chunks
+    and PER bids a barrier, a 2^12-slot agg."""
+    return [
+        "SET streaming_durability = 1",
+        "SET streaming_agg_capacity = 4096",
+        ("CREATE SOURCE bid WITH (connector='nexmark', table='bid', "
+         f"chunk_size={CS}, rate_limit={PER})"),
+        f"CREATE MATERIALIZED VIEW mv_agg AS {chip_smoke.MVMV_AGG_SELECT}"]
+
+
+MVMV_AT = 3          # paced barriers of mv_agg before mv_hot is created
+
+
+def _mvmv_session(engine, mp, path, stop, crash_at=None, recover_at=None):
+    """mv_agg over paced bids and, from barrier MVMV_AT + 1 (its
+    bring-up barrier, at a known offset), mv_hot over it, backfilled two
+    rows a barrier; barriers up to `stop`, a snapshot of the whole store
+    after each from mv_hot's bring-up on. With `crash_at` the session
+    crashes after that barrier; with `recover_at` (the barrier it
+    crashed after) it replays the store's catalog and runs on."""
+    if engine == "jax":
+        from risingwave_tpu.stream.backfill import BackfillExecutor as BF
+        S, Store, Fs, Src = JaxSession, JaxH, JaxLocalFs, JaxSource
+        mk = {}
+    else:
+        from risingwave_tpu_torch.stream.backfill import (
+            BackfillExecutor as BF)
+        S, Store, Fs, Src = PortSession, H, LocalFs, PortSource
+        mk = {"device": "cpu"}
+    init = BF.__init__
+
+    def small(self, *a, **kw):
+        kw["batch_rows"] = 2
+        init(self, *a, **kw)
+    mp.setattr(BF, "__init__", small)
+
+    async def go():
+        snaps = []
+        if recover_at is not None:
+            s = S(store=Store.open(Fs(path)), **mk)
+            await s.recover()
+            start = recover_at + 1
+        else:
+            s = S(store=Store(Fs(path)), **mk)
+            for st in _mvmv_ddl():
+                await s.execute(st)
+            snaps += await _paced(s, Src, 1, MVMV_AT + 1, name="mv_agg")
+            src = _walk(s.catalog.mvs["mv_agg"].deployment, Src)[0]
+            while src.connector.offset < (MVMV_AT + 1) * PER:
+                await asyncio.sleep(0)
+            await s.execute("CREATE MATERIALIZED VIEW mv_hot AS "
+                            + chip_smoke.MVMV_HOT_SELECT)
+            await s.coord.drain_uploads()
+            snaps.append(list(s.store.iter_range(b"", b"")))
+            start = MVMV_AT + 2
+        end = (crash_at if crash_at is not None else stop) + 1
+        snaps += await _paced(s, Src, start, end, name="mv_agg")
+        bfs = _walk(s.catalog.mvs["mv_hot"].deployment, BF)
+        rows = {n: _mv_committed(s, n) for n in ("mv_agg", "mv_hot")}
+        done = [bf.finished for bf in bfs]
+        if crash_at is not None:
+            await s.crash()
+        elif engine == "port":
+            await s.shutdown()
+        return snaps, rows, done
+    return asyncio.run(go())
+
+
+def test_durable_mv_on_mv_state_and_mid_backfill_recovery_match_jax(
+        det_epochs, tmp_path, monkeypatch):
+    """mv_hot over mv_agg, durable: after every barrier the whole store
+    (the backfill's progress table, both MVs, the agg and the source)
+    holds the same bytes in both engines, during the backfill and after
+    it; the port's crash() in the middle of the backfill, reopen and
+    recover() resumes from the persisted progress and ends at JAX's
+    uninterrupted MVs, mv_hot equal to the recount over mv_agg."""
+    stop = MVMV_AT + 12
+    with monkeypatch.context() as mp:
+        jsnaps, jrows, jdone = _mvmv_session("jax", mp, str(tmp_path / "j"),
+                                             stop)
+    with monkeypatch.context() as mp:
+        psnaps, prows, pdone = _mvmv_session("port", mp,
+                                             str(tmp_path / "p"), stop)
+    assert len(psnaps) == len(jsnaps) == stop
+    for r, (a, b) in enumerate(zip(psnaps, jsnaps)):
+        assert a == b, f"state differs after barrier {r + 1}"
+    tables = {int.from_bytes(k[:4], "big") for k, _ in jsnaps[-1]}
+    assert len(tables) == 5, tables   # source, agg, 2 MVs, progress
+    assert prows == jrows and pdone == jdone == [True]
+    hot, _ = chip_smoke.mvmv_recount(jrows["mv_agg"])
+    assert Counter(tuple(r) for r in jrows["mv_hot"]) == hot and hot
+    # a crash in the middle of the backfill, then recovery
+    path = str(tmp_path / "c")
+    crash_at = MVMV_AT + 3
+    with monkeypatch.context() as mp:
+        _, _, mid = _mvmv_session("port", mp, path, stop, crash_at=crash_at)
+        assert mid == [False], "the crash must land mid-backfill"
+        _, rrows, rdone = _mvmv_session("port", mp, path, stop,
+                                        recover_at=crash_at)
+    assert rrows == jrows and rdone == [True]
+
+
+def test_refused_mv_on_mv_leaves_upstream_ticking(tmp_path):
+    """A durable MV over mv_agg with a VARCHAR column is refused at
+    build, after its stream scan was built: no channel of it is left on
+    mv_agg's tap, and mv_agg runs on through more barriers than that
+    channel could hold (its root would block on it)."""
+    async def go():
+        s = PortSession(device="cpu", store=H(LocalFs(str(tmp_path / "p"))))
+        for st in _mvmv_ddl():
+            await s.execute(st)
+        await s.tick(2)
+        s.env.channel_capacity = 2
+        with pytest.raises(NotImplementedError, match="VARCHAR"):
+            await s.execute("CREATE MATERIALIZED VIEW v AS "
+                            "SELECT auction, 'x' AS t FROM mv_agg")
+        up = s.catalog.mvs["mv_agg"]
+        assert up.tap.channels == [] and set(s.catalog.mvs) == {"mv_agg"}
+        before = len(_mv_committed(s, "mv_agg"))
+        await asyncio.wait_for(s.tick(6), timeout=60)
+        after = len(_mv_committed(s, "mv_agg"))
+        await s.shutdown()
+        return before, after
+    before, after = asyncio.run(go())
+    assert 0 < before < after

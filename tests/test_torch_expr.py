@@ -216,6 +216,18 @@ def _breadth(call, col, lit, DT, FC):
              lit("none")),
         FC("cast", (g,), DT.INT64), FC("cast", (g,), DT.INT32),
         FC("cast", (g,), DT.INT16), FC("cast", (g,), DT.BOOLEAN),
+        # integer CASE conditions (a row holds where the low bit of its
+        # condition is set) and booleans in arithmetic, promoted as jnp
+        # promotes them (ROADMAP Queue C 1 and 3)
+        call("case", a, lit(1), lit(0)), call("case", c, a),
+        call("case", m, g, p, c, lit(None)),
+        call("add", call("greater_than", a, lit(10)), lit(1)),
+        call("add", p, q), call("multiply", p, q), call("add", p, c),
+        call("multiply", q, a), call("subtract", c, p),
+        call("add", p, f), call("subtract", g, q),
+        call("divide", p, call("add", a, lit(0))), call("divide", c, q),
+        call("divide", p, lit(2.0)), call("modulus", a, p),
+        call("modulus", p, c), call("modulus", p, q),
     ]
     return out
 
@@ -632,6 +644,21 @@ def test_mask_mode_matches_tree_walk():
     (prog,) = ep._compile(program._signature(pcols, ep.refs), mask=True)
     _emulate(prog, pcols, N, mask=emulated)
     np.testing.assert_array_equal(emulated, want)
+    # a non-boolean condition holds where it is non-zero (the join's
+    # `astype(bool)`), a NaN included
+    for cond in (col(9, DataType.INT64), col(11, DataType.FLOAT64)):
+        ep = program.ExprProgram([cond])
+        pred = cond.eval(pcols)
+        want = (start & (pred.data.numpy() != 0)
+                & pred.valid_mask().numpy())
+        mask = torch.from_numpy(start.copy())
+        ep.and_into(pcols, mask)
+        np.testing.assert_array_equal(mask.numpy(), want)
+        emulated = start.copy()
+        (prog,) = ep._compile(program._signature(pcols, ep.refs),
+                              mask=True)
+        _emulate(prog, pcols, N, mask=emulated)
+        np.testing.assert_array_equal(emulated, want)
 
 
 def test_unsupported_expressions_raise():
@@ -640,7 +667,11 @@ def test_unsupported_expressions_raise():
     bools = Column(torch.zeros(4, dtype=torch.bool))
     cases = [
         ([call("add", col(0, DataType.FLOAT32), col(1))], [f32, i64]),
-        ([call("add", col(0, DataType.BOOLEAN), col(1))], [bools, i64]),
+        # jnp refuses to subtract two booleans, and so does K5
+        ([call("subtract", col(0, DataType.BOOLEAN),
+               col(1, DataType.BOOLEAN))], [bools, bools]),
+        ([call("case", col(0, DataType.FLOAT64), col(1))],
+         [Column(torch.zeros(4, dtype=torch.float64)), i64]),
         ([call("and", col(0), col(1))], [i64, i64]),
     ]
     for exprs, cols in cases:

@@ -72,11 +72,15 @@ def _exprs(call, col, lit, DT):
                                call("is_not_null", x)),
         "or_kleene": call("or", call("greater_than", x, lit(250)),
                           call("less_than", x, lit(-250))),
+        # an integer predicate: JAX keeps `vis & (data & valid)` int64,
+        # so a row passes where the low bit of x is set (ROADMAP Queue
+        # C 2); the pairs degrade by the same rule
+        "int_x": x,
     }
 
 
 @pytest.mark.parametrize("pred", ["q2_mod", "gt", "float_and_null",
-                                  "or_kleene"])
+                                  "or_kleene", "int_x"])
 @pytest.mark.parametrize("seed", [0, 1])
 def test_filter_matches_jax(pred, seed):
     arrays, ops, vis, valids = _chunk_arrays(seed)

@@ -523,13 +523,14 @@ def _nodes(n, exchange_cls) -> list:
 
 
 @pytest.mark.parametrize("sql", [
-    # bool_and / bool_or and approx_count_distinct plan since they were
-    # ported; these shapes are still refused: an MV over an MV, the hash
-    # join (inner joins on FLOAT64 keys), parallelism > 1, the mesh, a
-    # batch SELECT
-    lambda: [("CREATE MATERIALIZED VIEW m0 AS SELECT auction, count(*) AS "
-              "n FROM bid GROUP BY auction"),
-             "CREATE MATERIALIZED VIEW m AS SELECT auction, n FROM m0"],
+    # bool_and / bool_or, approx_count_distinct and MVs over MVs plan
+    # since they were ported; these shapes are still refused: the hash
+    # join (inner joins on FLOAT64 keys, here of an MV with itself),
+    # parallelism > 1, the mesh, a batch SELECT
+    lambda: [("CREATE MATERIALIZED VIEW m0 AS SELECT auction, avg(price) "
+              "AS ap FROM bid GROUP BY auction"),
+             ("CREATE MATERIALIZED VIEW m AS SELECT X.auction FROM m0 X "
+              "JOIN m0 Y ON X.ap = Y.ap")],
     lambda: ("CREATE MATERIALIZED VIEW m AS SELECT X.auction FROM "
              "(SELECT auction, avg(price) AS ap FROM bid GROUP BY auction) X"
              " JOIN (SELECT auction, avg(price) AS ap FROM bid "
@@ -1252,3 +1253,303 @@ def test_acd_over_a_retracting_input_is_refused_like_jax():
             await s.execute(sql)
     asyncio.run(go(JaxSession, JaxBindError))
     asyncio.run(go(lambda: PortSession(device="cpu"), BindError))
+
+
+# ---- Queue C: integer conditions, boolean arithmetic, the q17 fusion
+
+def _queue_c_rows(engine: str, view: str) -> Counter:
+    """A Queue C view over 4 paced barriers of 512 bids (256-bid
+    chunks), its row id dropped."""
+    async def go():
+        s = (JaxSession() if engine == "jax"
+             else PortSession(device="cpu"))
+        for stmt in BREADTH_SOURCES[:1] + [BREADTH_SOURCES[3]]:
+            await s.execute(stmt)
+        await s.execute("CREATE MATERIALIZED VIEW m AS "
+                        + chip_smoke.QUEUE_C_SELECTS[view])
+        await paced_ticks(s, "m", 4)
+        rows = _decoded_rows(s, engine, "m")
+        if engine == "port":
+            await s.shutdown()
+        return rows
+    return asyncio.run(go())
+
+
+@pytest.mark.parametrize("view", ["case_int", "case_int_no_else",
+                                  "bool_arith"])
+def test_queue_c_views_match_jax(view):
+    """An integer CASE condition (with and without ELSE) holds where the
+    low bit of its value is set, as JAX ANDs it bitwise with its
+    validity; boolean arithmetic promotes as jnp does. Each view through
+    both sessions to the same MV."""
+    got, want = _queue_c_rows("port", view), _queue_c_rows("jax", view)
+    assert got == want and sum(got.values()) == 2048
+    if view == "case_int":
+        assert {r[1] for r in got} == {0, 1}
+    if view == "bool_arith":
+        assert 2 in {r[1] for r in got} <= {1, 2}
+
+
+def test_integer_where_keeps_the_low_bit_rows():
+    """`WHERE auction`: JAX's filter keeps, on the device, the rows whose
+    auction has its low bit set (int64 `vis & (data & valid)`; the
+    executor's lockstep case is tests/test_torch_filter.py's `int_x`),
+    and so does the port: its MV holds exactly the odd auctions' bids.
+    JAX's MV does not: its host path reads the int64 visibility as row
+    indices (`np.asarray(vis)` as an index in StreamChunk.to_rows), so
+    each 256-bid chunk lands as its rows 0 and 1 (ROADMAP accepted
+    difference 9). The port does not copy that."""
+    got, want = (_queue_c_rows("port", "where_int"),
+                 _queue_c_rows("jax", "where_int"))
+    auction, price = chip_smoke._bid_prefix(2048, chip_smoke.NexmarkConfig(),
+                                            "cpu", [0, 2])
+    odd = auction % 2 == 1
+    assert got == Counter(zip(auction[odd].tolist(), price[odd].tolist()))
+    assert 0 < sum(got.values()) < 2048
+    at01 = {(int(auction[i]), int(price[i])) for j in range(0, 2048, 256)
+            for i in (j, j + 1)}
+    assert set(want) <= at01 and want != got
+
+
+@pytest.mark.parametrize("where", ["outer", "sub"])
+def test_q17_fusion_of_a_distinct_count_is_accepted_difference_8(where):
+    """JAX's q17 fusion maps every aggregate other than count, avg and
+    sum to MAX (ROADMAP accepted difference 8): approx_count_distinct
+    added to q17's outer SELECT fuses there as MAX of its argument, and
+    in the subquery as a third sub call. The port declines the fusion
+    for it, so it never computes a MAX where the SQL asks for a
+    distinct count: the outer form raises JAX's own cascade refusal,
+    the subquery form plans the cascade (hash_agg, sorted_join,
+    simple_agg)."""
+    from risingwave_tpu.expr.agg import AggKind as JAggKind
+    ddl = BENCH_DDL["q17"]()
+    if where == "outer":
+        ddl[-1] = ddl[-1].replace(
+            "AS avg_yearly ",
+            "AS avg_yearly, approx_count_distinct(L.l_orderkey) AS d ")
+    else:
+        ddl[-1] = ddl[-1].replace(
+            "AS avg_quantity ",
+            "AS avg_quantity, approx_count_distinct(l_orderkey) AS dq ")
+    assert "approx_count_distinct" in ddl[-1]
+
+    async def jax_plan():
+        s = JaxSession()
+        for stmt in ddl[:-1]:
+            await s.execute(stmt)
+        st = jsql.parse(ddl[-1])
+        return JaxPlanner(s.catalog, config=s.config).plan_sink(
+            st.select, st.options)
+    jp = asyncio.run(jax_plan())
+    (fused,) = [n for f in jp.graph.fragments.values()
+                for n in _nodes(f.root, JExchange)
+                if n.kind == "snapshot_join_agg"]
+    if where == "outer":
+        kinds = [c.kind for c in fused.args["final_agg_calls"]]
+        assert kinds == [JAggKind.SUM, JAggKind.MAX], kinds
+    else:
+        kinds = [c.kind for c in fused.args["sub_agg_calls"]]
+        assert kinds == [JAggKind.SUM, JAggKind.COUNT, JAggKind.MAX], kinds
+
+    async def port():
+        s = PortSession(device="cpu")
+        for stmt in ddl[:-1]:
+            await s.execute(stmt)
+        st = psql.parse(ddl[-1])
+        return PortPlanner(s.catalog, config=s.config).plan_sink(
+            st.select, st.options)
+    if where == "outer":
+        with pytest.raises(BindError, match="needs an append-only input"):
+            asyncio.run(port())
+        return
+    pp = asyncio.run(port())
+    kinds = {n.kind for f in pp.graph.fragments.values()
+             for n in _nodes(f.root, PExchange)}
+    assert {"hash_agg", "sorted_join", "simple_agg"} <= kinds
+    assert "snapshot_join_agg" not in kinds
+
+
+# ---- MV-on-MV and sink-from-MV
+
+MVMV_SOURCES = [
+    "SET streaming_durability = 0",
+    "SET streaming_agg_capacity = 4096",
+    ("CREATE SOURCE bid WITH (connector='nexmark', table='bid', "
+     "chunk_size=256, rate_limit=512)"),
+]
+MVMV_RATE = 512
+
+
+def _mvmv_consumers():
+    return [f"CREATE MATERIALIZED VIEW mv_hot AS {chip_smoke.MVMV_HOT_SELECT}",
+            f"CREATE MATERIALIZED VIEW mv_hist AS "
+            f"{chip_smoke.MVMV_HIST_SELECT}",
+            chip_smoke.MVMV_SINK]
+
+
+@pytest.mark.parametrize("which", [0, 1, 2])
+def test_mv_on_mv_plans_as_jax(which):
+    """A filter and an aggregate over an MV and a sink from it: a
+    stream_scan fragment (broadcast) under the same nodes and
+    arguments as JAX's, with JAX's state-table ids (the backfill's
+    progress table included: durable in a volatile session)."""
+    from risingwave_tpu.plan.build import assign_graph_ids as jax_ids
+    from risingwave_tpu_torch.plan.build import assign_graph_ids
+    ddl = MVMV_SOURCES + [
+        f"CREATE MATERIALIZED VIEW mv_agg AS {chip_smoke.MVMV_AGG_SELECT}",
+        _mvmv_consumers()[which]]
+    jp, pp = _plans(ddl)
+    assert _graph_sig(pp.graph, PExchange) == _graph_sig(
+        jp.graph, JExchange, strip=JAX_ONLY_ARGS)
+    kinds = [n.kind for f in pp.graph.fragments.values()
+             for n in _nodes(f.root, PExchange)]
+    assert "stream_scan" in kinds and "nexmark_source" not in kinds
+    assert assign_graph_ids(pp.graph, 10, 20) == jax_ids(jp.graph, 10, 20)
+    assert pp.pk_indices == tuple(jp.pk_indices)
+
+
+class _Recorder:
+    """Every message a blackhole sink consumes, per engine: its chunks'
+    visible (op, row) pairs and a marker at each barrier."""
+
+    def __init__(self, mp, cls, chunk_cls, barrier_cls):
+        self.log = []
+        orig = cls.execute
+        log = self.log
+
+        async def execute(ex):
+            async for msg in orig(ex):
+                if isinstance(msg, chunk_cls):
+                    log.extend(msg.to_rows())
+                elif isinstance(msg, barrier_cls):
+                    log.append(None)
+                yield msg
+        mp.setattr(cls, "execute", execute)
+
+    def net(self, barriers: int) -> Counter:
+        """The net rows (inserts minus deletes) before barrier
+        `barriers`."""
+        out, seen = Counter(), 0
+        for m in self.log:
+            if m is None:
+                seen += 1
+                if seen == barriers:
+                    break
+                continue
+            op, row = m
+            out[row] += 1 if op in (0, 3) else -1
+        return +out
+
+
+async def _wait_offset(s, name, rows):
+    """Until every source of flow `name` emitted `rows` rows (each
+    stops at its rate limit until the next barrier)."""
+    flows = {**s.catalog.mvs, **s.catalog.sinks}
+    dep = flows[name].deployment
+    srcs = _flow_sources(dep)
+    while any(x.connector.offset < rows for x in srcs):
+        for t in dep.tasks:
+            if t.done():
+                t.result()
+        await asyncio.sleep(0.001)
+
+
+def _mvmv_run(engine, mp, batch_rows=16, before=3, after=9):
+    """mv_agg over paced bids; after `before` barriers, mv_hot, mv_hist
+    and the sink from mv_agg, each brought up by a barrier of its own
+    at a known offset, with backfills of `batch_rows` rows a barrier;
+    then `after` paced barriers. Returns, after each barrier from the
+    consumers' first, the committed rows of the three MVs, the sink's
+    net rows and whether the backfills had finished."""
+    if engine == "jax":
+        from risingwave_tpu.common.chunk import StreamChunk as C
+        from risingwave_tpu.stream import Barrier as B
+        from risingwave_tpu.stream.backfill import BackfillExecutor as BF
+        from risingwave_tpu.stream.sink import (
+            DeviceBlackholeSinkExecutor as Sink)
+    else:
+        from risingwave_tpu_torch.common.chunk import StreamChunk as C
+        from risingwave_tpu_torch.stream import Barrier as B
+        from risingwave_tpu_torch.stream.backfill import (
+            BackfillExecutor as BF)
+        from risingwave_tpu_torch.stream.sink import (
+            DeviceBlackholeSinkExecutor as Sink)
+    init = BF.__init__
+
+    def small(self, *a, **kw):
+        kw["batch_rows"] = batch_rows
+        init(self, *a, **kw)
+    mp.setattr(BF, "__init__", small)
+    rec = _Recorder(mp, Sink, C, B)
+
+    async def go():
+        s = JaxSession() if engine == "jax" else PortSession(device="cpu")
+        for stmt in MVMV_SOURCES:
+            await s.execute(stmt)
+        await s.execute("CREATE MATERIALIZED VIEW mv_agg AS "
+                        + chip_smoke.MVMV_AGG_SELECT)
+        k = 0
+        for k in range(1, before + 1):
+            await _wait_offset(s, "mv_agg", k * MVMV_RATE)
+            await s.tick(1)
+        snaps = []
+
+        def snap():
+            snaps.append(dict(
+                {n: Counter(tuple(r) for r in
+                            _committed_rows(s.catalog.mvs[n]))
+                 for n in s.catalog.mvs},
+                finished=[bf.finished for d in s.catalog.mvs.values()
+                          for bf in _backfills(d.deployment, BF)]))
+        for stmt in _mvmv_consumers():
+            k += 1
+            await _wait_offset(s, "mv_agg", k * MVMV_RATE)
+            await s.execute(stmt)
+            snap()
+        sink_at = k
+        for k in range(k + 1, k + after + 1):
+            await _wait_offset(s, "mv_agg", k * MVMV_RATE)
+            await s.tick(1)
+            snap()
+        with pytest.raises(Exception, match="cannot drop"):
+            await s.drop_mv("mv_agg")
+        await s.drop_all()
+        return snaps, rec.net(k - sink_at + 1)
+    return asyncio.run(go())
+
+
+def _backfills(dep, cls) -> list:
+    out = []
+    for a in dep.actors:
+        ex = a.consumer
+        while ex is not None:
+            if isinstance(ex, cls):
+                out.append(ex)
+            ex = getattr(ex, "input", None)
+    return out
+
+
+def test_mv_on_mv_and_sink_match_jax_at_every_barrier(monkeypatch):
+    """mv_hot (a filter), mv_hist (an aggregate over mv_agg's retracting
+    changelog, which a row applied twice would break) and a sink from
+    mv_agg, created while bids flow and backfilled 16 rows a barrier:
+    after every barrier, during the backfill and after it, the
+    committed rows of every MV equal JAX's; once the backfills end the
+    consumers equal a recount over mv_agg; the sink's net rows equal
+    JAX's; DROP of mv_agg is refused while it has dependents, and
+    drop_all drops in reverse order."""
+    with monkeypatch.context() as mp:
+        got, gsink = _mvmv_run("port", mp)
+    with monkeypatch.context() as mp:
+        want, wsink = _mvmv_run("jax", mp)
+    assert len(got) == len(want) == 12
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a == b, f"MVs differ after consumer barrier {i}"
+    during = [sn for sn in got if not all(sn["finished"])]
+    assert len(during) >= 3, "the backfill ended too soon to test it"
+    last = got[-1]
+    assert all(last["finished"])
+    hot, hist = chip_smoke.mvmv_recount(list(last["mv_agg"]))
+    assert last["mv_hot"] == hot and sum(hot.values()) >= 5
+    assert last["mv_hist"] == hist
+    assert gsink == wsink and len(gsink) >= 10

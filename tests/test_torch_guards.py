@@ -224,7 +224,8 @@ def test_every_kernel_is_registered_with_its_source():
     import chip_smoke  # noqa: F401  (imports every wrapper module)
     from risingwave_tpu_torch.ops import kernels
     names = sorted(kernels.KERNELS)
-    assert names == ["agg_flush", "compact", "dynamic_filter", "expr_eval",
+    assert names == ["agg_flush", "backfill_filter", "compact",
+                     "dynamic_filter", "expr_eval",
                      "extrema_update", "filter_ops", "hash_agg",
                      "hash_table", "hll_update", "hop_window",
                      "nexmark_auction",
@@ -254,6 +255,7 @@ def test_wrappers_refuse_other_devices():
     from risingwave_tpu_torch.stream import row_id, sorted_join as sj
     from risingwave_tpu_torch.stream import snapshot_join_agg as sja
     from risingwave_tpu_torch.stream import project
+    from risingwave_tpu_torch.common import vnode
     from risingwave_tpu_torch.stream import retract_top_n as rtn
     from risingwave_tpu_torch.stream import general_over_window as gow
     from risingwave_tpu_torch.stream import simple_agg as sagg
@@ -293,6 +295,8 @@ def test_wrappers_refuse_other_devices():
                                  errs, [], [count_star(True)], [], []),
         lambda: sja.final_diff([Column(i64[:1])], [i64[0]], [b[0]], b[0]),
         lambda: project.filter_fixup(b, None, i64.to(torch.int8), b),
+        lambda: vnode.compute_vnodes([i64]),
+        lambda: vnode.backfill_filter([i64], [i64], (0,), 0, True, b),
         lambda: sj.net_pk_runs(StreamChunk(
             (Column(i64),), i64.to(torch.int8), b,
             schema(("k", DataType.INT64))), b, (0,)),
