@@ -45,7 +45,10 @@ plain PyTorch version on the card:
   the expression registry, HLL — Nexmark q3, q14 and the q15 shape,
        approx_count_distinct / bool_and / bool_or per auction and
        globally, string functions over persons, through the Session, and
-       a durable approx_count_distinct with a crash.
+       a durable approx_count_distinct with a crash;
+  MV-on-MV — MVs and a sink over an MV while it grows (backfill);
+  the hash join — inner joins on FLOAT64 keys (Nexmark q20's join, a
+       retracting side, durable with a crash) through the Session.
 Phases, one JSON line each:
 
   1. device: the card, torch/CUDA versions, the kernels' build time;
@@ -267,12 +270,31 @@ Phases, one JSON line each:
      consumers equal the recount over mv_agg's covered rows; DROP of
      mv_agg refused while read; mvmv_recover: durable, crash in the
      middle of the backfill, recover, resume from the progress rows;
- 36. the kernels line: launches on the first run of each kernel's own
+ 36. kernels_hash_join: K3 on float64 hazard keys and over poisoned
+     scratch buffers (scripts/k3_float_fault.py, also in queue_c);
+     extra figures at larger shapes than the path's: K32 (the hash
+     join's probe) on a 131072-row bid chunk probing 2^21 auctions and
+     an auction chunk probing the 2^21-row bid side's chains, K33's
+     insert of a bid chunk and its 131072 deletes, K34's keep, dirty
+     and evict packs of the 2^21-row side, each against its plain
+     version, exactly (output rows as multisets, chains as sets per
+     key); hj_full: Nexmark q20's join keyed by FLOAT64 through
+     Session(device="cuda"), paced by a ramp while the rebuilds double
+     the executor's default capacities, to 2^21 live bid rows, its net
+     output equal to the numpy recount; hj_retract (each auction's max
+     price, a FLOAT64-keyed agg, joined to its auction; exact after
+     every barrier); kernels_hash_join_path: K32, K3, K33 and K34 on
+     the chunks and rehashes hj_full's and hj_retract's joins applied
+     (recorded in their unprofiled runs), against their plain versions
+     and the path's own output and state, and timed there for the
+     kernels line; hj_recover (durable, crash after 4 barriers,
+     recover, on to 8: the MV equal to the recount);
+ 37. the kernels line: launches on the first run of each kernel's own
      slice's path (q5 for K1-K4 and K12, q7 for K5-K8, q8 for K9-K11,
      q17 for K13-K16, q7d for K17-K18, q5_topn for K19-K21, q2 for K22,
      q6 for K23-K24, the global agg for K25, q5c for K26-K27, lj_full
-     for K28, dynf for K29, acd_full for K30, mvmv_full for K31), error,
-     times, bounds. K27
+     for K28, dynf for K29, acd_full for K30, mvmv_full for K31,
+     hj_full for K32-K34), error, times, bounds. K27
      runs in every hash agg's flush, so every earlier path drives it
      too.
 With --host-profile, phase 4 also runs q5 under cProfile and lists the
@@ -334,7 +356,7 @@ from risingwave_tpu_torch.state import (
 from risingwave_tpu_torch.stream import (
     Actor, BroadcastDispatcher, Channel, ChannelInput,
     DeviceBlackholeSinkExecutor, Executor, HashAggExecutor,
-    HopWindowExecutor, MaterializeExecutor, NoOpExecutor, ProjectExecutor,
+    HashJoinExecutor, HopWindowExecutor, MaterializeExecutor, NoOpExecutor, ProjectExecutor,
     GeneralOverWindowExecutor, RetractableTopNExecutor, RowIdGenExecutor,
     SimpleAggExecutor, SimpleDispatcher, SnapshotJoinAggExecutor,
     SortedJoinExecutor, SourceExecutor,
@@ -387,7 +409,8 @@ from risingwave_tpu_torch.common.vnode import (
 )
 from risingwave_tpu_torch.frontend.binder import BindError
 from risingwave_tpu_torch.stream.backfill import BackfillExecutor
-from risingwave_tpu_torch.stream.message import BarrierKind
+from risingwave_tpu_torch.stream.message import BarrierKind, ThrottleMutation
+from risingwave_tpu_torch.stream import hash_join as hj
 
 SLIDE_US = 2_000_000
 SIZE_US = 10_000_000
@@ -3094,7 +3117,9 @@ KERNEL_PATH = {"nexmark_bid": "q5", "hop_window": "q5", "hash_table": "q5",
                "window_diff": "q6", "simple_agg": "gagg",
                "extrema_update": "q5c", "agg_flush": "q5c",
                "outer_join": "lj", "dynamic_filter": "dynf",
-               "hll_update": "acd", "backfill_filter": "mvmv"}
+               "hll_update": "acd", "backfill_filter": "mvmv",
+               "hash_join_probe": "hj", "hash_join_update": "hj",
+               "hash_join_pack": "hj"}
 
 
 def phase_q5_full(dev, repeats: int = 5) -> dict:
@@ -3306,31 +3331,42 @@ def null_first(row: tuple) -> tuple:
 def session_run(dev, ddl: list, rounds: int, per_barrier: int,
                 name: str = "q7", store=None, collect: int = 0,
                 recover_to: int = 0, crash: bool = False, on_flow=None,
-                on_barrier=None, pace=None) -> dict:
+                on_barrier=None, pace=None, on_build=None) -> dict:
     """The statements `ddl` through the port's Session on `dev`, flow
     `name` (a sink or an MV; over `store`, a MemoryStateStore when None,
     or a function that opens the store, called on the clock of
-    recovery_ms). Each source is throttled to its rows a barrier, `pace`
-    ({nexmark table: rows}; equal event-time spans for two sources) or
-    else `per_barrier` (a build hook sets its rate limit before it
-    starts), and barriers are paced by rows: barrier k follows every
-    source's offset reaching base + k * its rows a barrier, for k in
-    1..rounds (base 0); the last is the Stop barrier, or with `crash`
-    the session crashes there instead. With `recover_to`, the session
-    replays the store's catalog (`recover()`, timed from the store's
-    opening, or the session's construction, to its first collected
-    barrier) instead of running `ddl`, base is the recovered offset and
-    barriers run on until barrier `recover_to` counted from the start.
-    Counts are set to 0 just before the flow starts and read just after
-    the last barrier. `on_flow(session, deployment)` runs once the flow
-    exists; `on_barrier(k, session, rows)` after each collected barrier,
-    with rows ({nexmark table: rows}) each source emitted before it.
-    With `collect`, a DeviceCollectSinkExecutor of that many rows
-    replaces the flow's root. The flow's first join, agg, top-N,
+    recovery_ms). Each source is paced by a schedule of cumulative rows
+    at barriers 1, 2, ...: `pace` ({nexmark table: rows a barrier, or
+    the cumulative rows at barriers 1..rounds, the last held after}; a
+    constant p is the schedule k * p, and equal event-time spans for two
+    sources) or else `per_barrier` a barrier. A build hook sets each
+    source's limit for the first interval before it starts, and each
+    barrier carries the next interval's limits as a ThrottleMutation,
+    which the sources take with it. Barrier k follows every source's
+    offset reaching base + its schedule at k, for k in 1..rounds (base
+    0); the last is the Stop barrier, or with `crash` the session
+    crashes there instead. With `recover_to`, the session replays the
+    store's catalog (`recover()`, timed from the store's opening, or
+    the session's construction, to its first collected barrier) instead
+    of running `ddl`, base is the recovered offset and barriers run on
+    until barrier `recover_to` counted from the start (constant paces
+    only). Counts are set to 0 just before the flow starts and read just
+    after the last barrier. `on_build(deployment)` runs in the build
+    hook, before the flow starts; `on_flow(session, deployment)` once
+    the flow exists; `on_barrier(k, session, rows)` after each collected
+    barrier, with rows ({nexmark table: rows}) each source emitted
+    before it. With `collect`, a DeviceCollectSinkExecutor of that many
+    rows replaces the flow's root. The flow's first join, agg, top-N,
     over-window and simple agg executor (None where it has none) come
     back with the run's figures."""
     pace = pace or {}
     on_card = torch.device(dev).type == "cuda"
+
+    def goal(table, k):
+        p = pace.get(table, per_barrier)
+        if isinstance(p, int):
+            return k * p
+        return p[min(k, len(p)) - 1] if k else 0
 
     async def go():
         if on_card:
@@ -3342,8 +3378,9 @@ def session_run(dev, ddl: list, rounds: int, per_barrier: int,
 
         def attach(_name, dep, fid):
             for src_ in dep.executors(SourceExecutor):
-                src_.rate_limit = pace.get(src_.connector.table,
-                                           per_barrier)
+                src_.rate_limit = goal(src_.connector.table, 1)
+            if on_build is not None:
+                on_build(dep)
             if collect:
                 root = dep.roots[fid][0]
                 actor = next(a for a in dep.actors if a.consumer is root)
@@ -3366,20 +3403,20 @@ def session_run(dev, ddl: list, rounds: int, per_barrier: int,
         dep = flows[name].deployment
         srcs = dep.executors(SourceExecutor)
         gen = srcs[0].connector
-        paced = [(x.connector, pace.get(x.connector.table, per_barrier))
-                 for x in srcs]
+        paced = [x.connector for x in srcs]
         bases = [0] * len(srcs)
         n_rounds = rounds
         if recover_to:
             bases = [x.state_table.get_row((0,))[1] for x in srcs]
-            n_rounds = recover_to - bases[0] // paced[0][1]
+            n_rounds = recover_to - bases[0] // goal(paced[0].table, 1)
         base = bases[0]
 
         def first(cls):
             found = dep.executors(cls)
             return found[0] if found else None
 
-        join, agg = first(SortedJoinExecutor), first(HashAggExecutor)
+        join = first(SortedJoinExecutor) or first(HashJoinExecutor)
+        agg = first(HashAggExecutor)
         top = first(RetractableTopNExecutor)
         ow, sagg = first(GeneralOverWindowExecutor), first(SimpleAggExecutor)
         if on_flow is not None:
@@ -3393,18 +3430,20 @@ def session_run(dev, ddl: list, rounds: int, per_barrier: int,
 
         t0 = time.perf_counter()
         for k in range(1, n_rounds + 1):
-            while any(g.offset < b + k * p
-                      for (g, p), b in zip(paced, bases)):
+            while any(g.offset < b + goal(g.table, k)
+                      for g, b in zip(paced, bases)):
                 check()
                 await asyncio.sleep(0)
             if k < n_rounds or crash:
-                b = await coord.inject_barrier()
+                b = await coord.inject_barrier(ThrottleMutation(tuple(
+                    (x.source_id, goal(g.table, k + 1) - goal(g.table, k))
+                    for x, g in zip(srcs, paced))))
                 await coord.wait_collected(b)
                 if on_barrier is not None:
                     # the rows before this barrier (a source may have
                     # begun the next interval already)
-                    on_barrier(k, s, {g.table: b0 + k * p for (g, p), b0
-                                      in zip(paced, bases)})
+                    on_barrier(k, s, {g.table: b0 + goal(g.table, k)
+                                      for g, b0 in zip(paced, bases)})
             else:
                 await coord.stop_all({a.actor_id for a in dep.actors})
         wall = time.perf_counter() - t0
@@ -3419,7 +3458,7 @@ def session_run(dev, ddl: list, rounds: int, per_barrier: int,
         mv = s.catalog.mvs.get(name)
         out = dict(
             bids=gen.offset, base=base, barriers=n_rounds, wall_s=wall,
-            offsets={g.table: g.offset for g, _ in paced},
+            offsets={g.table: g.offset for g in paced},
             inflight_at_end=inflight, join=join, agg=agg, top=top, ow=ow,
             sagg=sagg,
             sink=held.get("sink"), coord=coord, session=s,
@@ -7895,7 +7934,9 @@ def phase_queue_c(dev, rounds: int = 2) -> dict:
     without ELSE, an integer WHERE, boolean arithmetic) through
     Session(device="cuda") as an MV over 32768-bid chunks, one a
     barrier: K5 and K22 take the integer conditions, and the MV equals
-    the numpy recount (a condition holds where its low bit is set)."""
+    the numpy recount (a condition holds where its low bit is set).
+    Then K3's float64 keys against the plain version
+    (`k3_float64_checks`)."""
     out = {}
     for view, select in QUEUE_C_SELECTS.items():
         ddl = breadth_ddl(select, "qc", bid_chunk=QC_CHUNK, sink=False)
@@ -7909,6 +7950,8 @@ def phase_queue_c(dev, rounds: int = 2) -> dict:
         out[view] = dict(rows=sum(got.values()), bids=r["bids"],
                          launches={k: r["launches"][k]
                                    for k in QC_KERNELS[view]})
+    # closed fault: K3 hashed and compared float64 keys by their bits
+    out["k3_float64"] = k3_float64_checks(dev)
     return out
 
 
@@ -8295,6 +8338,899 @@ def phase_mvmv_recover(dev, target_rows: int = 1 << 13,
                 finished_at=b["finished_at"], barriers=b["barriers"])
 
 
+# ---- the hash join (inner joins on FLOAT64 keys)
+
+# Nexmark q20's join keyed by FLOAT64: every bid with its auction
+HJ_Q20_SELECT = (
+    "SELECT B.auction, B.bidder, B.price, A.seller, A.reserve FROM "
+    "(SELECT auction * 1.0 AS k, auction, bidder, price FROM bid) AS B "
+    "JOIN (SELECT id * 1.0 AS k, id, seller, reserve FROM auction) AS A "
+    "ON B.k = A.k")
+# a retracting side: each auction's max price (a FLOAT64-keyed agg, one
+# U-/U+ pair a rise) joined to its auction
+HJ_RETRACT_SELECT = (
+    "SELECT A.id, A.seller, M.mp FROM (SELECT k, max(price) AS mp FROM "
+    "(SELECT auction * 1.0 AS k, price FROM bid) AS X GROUP BY k) AS M "
+    "JOIN (SELECT id * 1.0 AS k, id, seller FROM auction) AS A "
+    "ON M.k = A.k")
+# a non-equi condition, boolean and int64 (`data & valid`: the low bit)
+HJ_COND_SELECT = (
+    "SELECT B.auction, B.price, A.reserve FROM "
+    "(SELECT auction * 1.0 AS k, auction, price FROM bid) AS B JOIN "
+    "(SELECT id * 1.0 AS k, id, reserve FROM auction) AS A "
+    "ON B.k = A.k AND B.price > A.reserve")
+HJ_INT_COND_SELECT = HJ_COND_SELECT.replace("B.price > A.reserve",
+                                            "B.price - A.reserve")
+HJ_KERNELS = ("nexmark_bid", "nexmark_auction", "expr_eval", "row_id",
+              "radix_sort", "pk_net", "hash_table", "hash_join_probe",
+              "hash_join_update", "hash_join_pack")
+HJR_KERNELS = HJ_KERNELS + ("hash_agg", "agg_flush")
+HJ_BID_CHUNK = 16384
+HJ_AUCTION_CHUNK = 512
+# hj_full's schedule, cumulative rows at barriers 1..7 (the SQL path
+# keeps the executor's 2^14-key / 2^16-row capacities): the bid side
+# fills to 3/4 of its row capacity a barrier, past the 0.7 line, so
+# each barrier's rebuild doubles it, up to 2^21 live rows; the auction
+# side (every row a new key) to 0.71875 of its key capacity a barrier,
+# then past the largest auction id the bids name (136748)
+HJ_BID_RAMP = (49152, 98304, 196608, 393216, 786432, 1572864, 1 << 21)
+HJ_AUCTION_RAMP = (11776, 23552, 47104, 94208, 141312, 141312, 141312)
+
+
+def hj_ddl(select: str, name: str, *, bid_chunk: int = HJ_BID_CHUNK,
+           auction_chunk: int = HJ_AUCTION_CHUNK, durable_: int = 0,
+           sink: bool = True, agg_cap: int = 1 << 16) -> list:
+    """`outer_ddl`'s sources and one flow (a hash join needs no join
+    capacity: the SQL path keeps the executor's defaults)."""
+    return outer_ddl(select, name, auction_chunk=auction_chunk,
+                     bid_chunk=bid_chunk, durable_=durable_, sink=sink,
+                     extra=(f"SET streaming_agg_capacity = {agg_cap}",))
+
+
+def bid_cols_dev(n: int, dev, idx=(0, 1, 2), start: int = 0) -> list:
+    """Columns `idx` of bids [start, start + n) on the card (plain
+    generator)."""
+    vocabs = {k: torch.tensor(v, dtype=torch.int32, device=dev)
+              for k, v in vocab_ids().items()}
+    parts = []
+    for off in range(start, start + n, 1 << 21):
+        cols = gen_bid_columns_plain(off, min(1 << 21, start + n - off),
+                                     NexmarkConfig(), vocabs, dev)
+        parts.append([cols[i] for i in idx])
+    return [torch.cat(x) for x in zip(*parts)]
+
+
+def net_rows(sink, ncols: int) -> torch.Tensor:
+    """The collect sink's rows (first `ncols` columns, NULL as 0) with
+    a non-zero net count, one row per unit of count, sorted."""
+    k = min(int(sink.count), sink.capacity)
+    if int(sink.count) > sink.capacity:
+        raise AssertionError(f"collect sink overflow: {int(sink.count)}")
+    rows = torch.stack([torch.where(v[:k], d[:k].to(torch.int64), 0)
+                        for d, v in zip(sink.data[:ncols],
+                                        sink.valid[:ncols])], 1)
+    u, inv = torch.unique(rows, dim=0, return_inverse=True)
+    cnt = torch.zeros(u.shape[0], dtype=torch.int64, device=rows.device)
+    cnt.index_add_(0, inv, sink.sign[:k].to(torch.int64))
+    if bool((cnt < 0).any()):
+        raise AssertionError("collect sink: a row retracted more often "
+                             "than it was inserted")
+    return torch.repeat_interleave(u, cnt, dim=0)
+
+
+def sorted_rows(rows: torch.Tensor) -> torch.Tensor:
+    u, c = torch.unique(rows, dim=0, return_counts=True)
+    return torch.repeat_interleave(u, c, dim=0)
+
+
+def hj_q20_recount(n_bids: int, n_auctions: int, dev) -> torch.Tensor:
+    """HJ_Q20_SELECT's rows (auction, bidder, price, seller, reserve)
+    over bids [0, n_bids) and auctions [0, n_auctions), sorted."""
+    auction, bidder, price = bid_cols_dev(n_bids, dev)
+    _, reserve, seller = auction_cols_dev(n_auctions, dev, (0, 4, 7))
+    idx = auction - 1000
+    hit = (idx >= 0) & (idx < n_auctions)
+    i = idx[hit]
+    return sorted_rows(torch.stack([auction[hit], bidder[hit], price[hit],
+                                    seller[i], reserve[i]], 1))
+
+
+def hj_retract_recount(n_bids: int, n_auctions: int, dev) -> torch.Tensor:
+    """HJ_RETRACT_SELECT's rows (id, seller, max price) for auctions
+    [0, n_auctions) with a bid among bids [0, n_bids), sorted."""
+    auction, _, price = bid_cols_dev(n_bids, dev)
+    _, seller = auction_cols_dev(n_auctions, dev, (0, 7))
+    idx = auction - 1000
+    hit = (idx >= 0) & (idx < n_auctions)
+    mp = torch.full((n_auctions,), -1, dtype=torch.int64, device=dev)
+    mp.scatter_reduce_(0, idx[hit], price[hit], "amax")
+    has = mp >= 0
+    ids = torch.arange(n_auctions, device=dev) + 1000
+    return sorted_rows(torch.stack([ids[has], seller[has], mp[has]], 1))
+
+
+def phase_hj_full(dev, taps: dict = None) -> dict:
+    """Nexmark q20's join keyed by FLOAT64 (HJ_Q20_SELECT) through
+    Session(device="cuda") into a device collect sink: bids in 16384-row
+    chunks, auctions in 512-row chunks, paced by HJ_BID_RAMP and
+    HJ_AUCTION_RAMP (a ramp, because the SQL path leaves the executor
+    its 2^14-key / 2^16-row capacities and each barrier's inserts must
+    fit them until the rebuilds have doubled them), to 2^21 live bid
+    rows. Every bid meets its auction: the net output equals the numpy
+    recount, errs [0, 0, 0, 0], every hash-join kernel launched, the
+    rebuilds counted. Run twice (`run_twice`): rates and barrier
+    latencies unprofiled, the idle share profiled. The unprofiled run
+    records its join's work into `taps` (`hj_record`: the first and last
+    bid chunk, the last auction chunk, each side's last rehash)."""
+    rounds = len(HJ_BID_RAMP)
+    pace = {"bid": list(HJ_BID_RAMP), "auction": list(HJ_AUCTION_RAMP)}
+    ddl = hj_ddl(HJ_Q20_SELECT, "hj")
+    keep = ({1, HJ_BID_RAMP[-1] // HJ_BID_CHUNK},
+            {HJ_AUCTION_RAMP[-1] // HJ_AUCTION_CHUNK})
+
+    def on_build(dep):
+        if taps is not None and "applies" not in taps:
+            hj_record(dep.executors(HashJoinExecutor)[0], taps, keep)
+
+    def run():
+        r = session_run(dev, ddl, rounds, 0, name="hj", pace=pace,
+                        collect=1 << 22, on_build=on_build)
+        if r["join"].errs() != [0, 0, 0, 0]:
+            raise AssertionError(f"hj_full: join errs {r['join'].errs()}")
+        return r
+
+    r, prof = run_twice(run)
+    need_launches(r, HJ_KERNELS, "hj_full")
+    nB, nA = r["offsets"]["bid"], r["offsets"]["auction"]
+    got = net_rows(r["sink"], 5)
+    want = hj_q20_recount(nB, nA, dev)
+    if got.shape != want.shape or not torch.equal(got, want) \
+            or nB != HJ_BID_RAMP[-1]:
+        raise AssertionError(f"hj_full: {got.shape[0]} net rows against "
+                             f"{want.shape[0]} recounted ({nB} bids)")
+    join = r["join"]
+    live = [int(s_.live.sum()) for s_ in join.sides]
+    if live[0] != nB or join.rebuilds < 8:
+        raise AssertionError(f"hj_full: {live} live rows, "
+                             f"{join.rebuilds} rebuilds")
+    return dict(run_figures(r, nB + nA), **prof, bids=nB, auctions=nA,
+                output_rows=int(got.shape[0]), join_live_rows=live,
+                join_key_capacity=join.key_capacity,
+                join_row_capacity=join.row_capacity,
+                rebuilds=join.rebuilds, join_errs=join.errs(),
+                launches=r["launches"])
+
+
+def phase_hj_retract(dev, rounds: int = 8, per: int = 65536,
+                     auctions: int = 4096, taps: dict = None) -> dict:
+    """HJ_RETRACT_SELECT (each auction's max price, a FLOAT64-keyed agg
+    whose every rise is a U-/U+ pair on one pk, joined to its auction)
+    through Session(device="cuda"): after every barrier of both runs
+    (`run_twice`) the net output equals the numpy recount; the join's
+    deletes walk K33's chains (errs [0, 0, 0, 0]). The unprofiled run
+    records the join's 3rd and 8th applies of the agg side into `taps`
+    (`hj_record`)."""
+    pace = {"bid": per, "auction": auctions}
+    ddl = hj_ddl(HJ_RETRACT_SELECT, "hjr", bid_chunk=per // 4,
+                 auction_chunk=1024, agg_cap=1 << 16)
+    checked, held = [], {}
+
+    def on_barrier(k, s, rows):
+        got = net_rows(held["sink"], 3)
+        want = hj_retract_recount(rows["bid"], rows["auction"], dev)
+        if got.shape != want.shape or not torch.equal(got, want):
+            raise AssertionError(f"hj_retract: barrier {k}: "
+                                 f"{got.shape[0]} rows against "
+                                 f"{want.shape[0]}")
+        checked.append(k)
+
+    def on_flow(s, dep):
+        held["sink"] = next(a.consumer for a in dep.actors
+                            if isinstance(a.consumer,
+                                          DeviceCollectSinkExecutor))
+
+    def on_build(dep):
+        if taps is not None and "applies" not in taps:
+            hj_record(dep.executors(HashJoinExecutor)[0], taps,
+                      ({3, 8}, set()))
+
+    def run():
+        r = session_run(dev, ddl, rounds + 1, 0, name="hjr", pace=pace,
+                        collect=1 << 22, on_flow=on_flow,
+                        on_barrier=on_barrier, on_build=on_build)
+        if r["join"].errs() != [0, 0, 0, 0]:
+            raise AssertionError(f"hj_retract: join errs "
+                                 f"{r['join'].errs()}")
+        return r
+
+    r, prof = run_twice(run)
+    need_launches(r, HJR_KERNELS, "hj_retract")
+    if len(checked) < 2 * rounds:
+        raise AssertionError(f"hj_retract: {len(checked)} barriers checked")
+    emitted = int(r["sink"].count)
+    return dict(run_figures(r, sum(r["offsets"].values())), **prof,
+                barriers_checked=len(checked), rows_emitted=emitted,
+                join_errs=r["join"].errs(), launches=r["launches"])
+
+
+def phase_hj_recover(dev, r1: int = 4, r2: int = 4,
+                     per: int = 16384) -> dict:
+    """HJ_Q20_SELECT as a durable MV on a Hummock store over a local-fs
+    object store (16384 bids and 1024 auctions a barrier): crash at
+    barrier r1, HummockStateStore.open, a new Session, recover() (both
+    sides re-applied from their state tables), on to r1 + r2 barriers:
+    the MV equals an uninterrupted durable run's and the numpy
+    recount."""
+    pace = {"bid": per, "auction": per // 16}
+    ddl = hj_ddl(HJ_Q20_SELECT, "hj", bid_chunk=per,
+                 auction_chunk=per // 16, durable_=1, sink=False)
+
+    def mv_rows(rows):
+        return sorted_rows(torch.tensor([r[:5] for r in rows],
+                                        dtype=torch.int64, device=dev))
+
+    with tempfile.TemporaryDirectory(prefix="hjr_") as d:
+        a = session_run(dev, ddl, r1, 0, name="hj", crash=True, pace=pace,
+                        store=HummockStateStore(LocalFsObjectStore(d)))
+        b = session_run(dev, ddl, 0, 0, name="hj", pace=pace,
+                        recover_to=r1 + r2, store=lambda: HummockStateStore
+                        .open(LocalFsObjectStore(d)))
+    with tempfile.TemporaryDirectory(prefix="hju_") as d:
+        u = session_run(dev, ddl, r1 + r2, 0, name="hj", pace=pace,
+                        store=HummockStateStore(LocalFsObjectStore(d)))
+    got, ref = mv_rows(b["mv"]), mv_rows(u["mv"])
+    want = hj_q20_recount(b["offsets"]["bid"], b["offsets"]["auction"],
+                          dev)
+    if not (torch.equal(got, ref) and torch.equal(got, want)) \
+            or not a["mv"] or b["join"].errs() != [0, 0, 0, 0]:
+        raise AssertionError(f"hj_recover: {got.shape[0]} MV rows, "
+                             f"uninterrupted {ref.shape[0]}, recount "
+                             f"{want.shape[0]}")
+    return dict(run_figures(b, sum(b["offsets"].values())),
+                barriers_before_crash=r1,
+                barriers_after_recovery=b["barriers"],
+                recovery_ms=b["recovery_s"] * 1e3, mv_rows=len(b["mv"]),
+                mv_rows_at_crash=len(a["mv"]), launches=b["launches"])
+
+
+# ---- kernels_hash_join
+
+def k3_float64_checks(dev) -> list:
+    """K3 against its plain version on float64 hazard keys
+    (scripts/k3_float_fault.py: one slot for -0.0 and +0.0, a slot per
+    NaN row, the plain version's partition, buckets, key bits and
+    fills), over an empty and a pre-filled table; then the same, and
+    int64 keys half of which exist, with K3's scratch buffers poisoned
+    before the call (`lookup_or_insert_stale`: K3 reads no entry it did
+    not write in the same call); raises on a difference."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "k3_float_fault", os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "scripts", "k3_float_fault.py"))
+    k3f = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(k3f)
+    out = [dict(k3f.k3_float_report(ht, torch.device(dev), prefill=p,
+                                    stale=st), stale=st)
+           for st in (None, *k3f.STALE) for p in (False, True)]
+    if not all(r["ok"] for r in out):
+        raise AssertionError(f"K3 float64: {out}")
+    # integer keys over poisoned scratch: half the chunk's keys exist
+    g = torch.Generator(device="cpu").manual_seed(34)
+    pre = torch.randint(-(1 << 40), 1 << 40, (8192,), generator=g)
+    keys = torch.cat([pre[:4096], torch.randint(1 << 41, 1 << 42, (4096,),
+                                                generator=g)])
+    keys = keys[torch.randperm(8192, generator=g)].to(dev)
+    act = (torch.rand(8192, generator=g) < 0.8).to(dev)
+    before = ht.HashTable.empty(1 << 15, [torch.int64], dev)
+    ht.lookup_or_insert_plain(before, [pre.to(dev)], torch.ones(
+        8192, dtype=torch.bool, device=dev))
+    for st in k3f.STALE:
+        tk = ht.HashTable(tuple(k.clone() for k in before.keys),
+                          before.occupied.clone())
+        tp = ht.HashTable(tuple(k.clone() for k in before.keys),
+                          before.occupied.clone())
+        _, sk, nk = k3f.lookup_or_insert_stale(ht, kernels, tk, [keys], act,
+                                               st)
+        _, sp, np_ = ht.lookup_or_insert_plain(tp, [keys], act)
+        out.append(dict(k3_invariants(before, [keys], act, sk, nk, tk, sp,
+                                      np_, tp), stale=st, key="int64"))
+    return out
+
+
+def hj_auction_side(dev, n: int, ck: int, cr: int):
+    """The auction side of the q20 join at n auctions: (k, seller,
+    reserve, row id), keyed on k = id * 1.0."""
+    aid, reserve, seller = auction_cols_dev(n, dev, (0, 4, 7))
+    rid = torch.arange(n, dtype=torch.int64, device=dev)
+    return hj.side_from_rows([aid.double(), seller, reserve, rid], [0], ck,
+                             cr)
+
+
+def hj_bid_side(dev, n: int, ck: int, cr: int):
+    """The bid side at n bids: (k, auction, bidder, price, row id)."""
+    auction, bidder, price = bid_cols_dev(n, dev)
+    rid = torch.arange(n, dtype=torch.int64, device=dev)
+    return hj.side_from_rows([auction.double(), auction, bidder, price,
+                              rid], [0], ck, cr)
+
+
+def hj_clone(st):
+    return hj.HashJoinSideState(
+        ht.HashTable(tuple(k.clone() for k in st.key_table.keys),
+                     st.key_table.occupied.clone()),
+        st.head.clone(), tuple(r.clone() for r in st.rows),
+        tuple(v.clone() for v in st.valids), st.next.clone(),
+        st.live.clone(), st.dirty.clone(), st.top.clone())
+
+
+def hj_restore(dst, src) -> None:
+    for a, b in zip(dst.tensors(), src.tensors()):
+        a.copy_(b)
+
+
+def chain_slots(st) -> torch.Tensor:
+    """Each row's chain, named by its key slot (-1 for a row on no
+    chain), by pointer jumping to the chain's last row: two stores whose
+    rows are equal have the same chains as sets per key iff these are
+    equal."""
+    CR = st.row_capacity
+    rows = torch.arange(CR, device=st.next.device)
+    tail = torch.where(st.next >= 0, st.next.long(), rows)
+    for _ in range(40):
+        nt = tail[tail]
+        if torch.equal(nt, tail):
+            break
+        tail = nt
+    else:
+        raise AssertionError("a chain does not end")
+    slot_of_tail = torch.full((CR + 1,), -1, dtype=torch.int64,
+                              device=rows.device)
+    heads = torch.nonzero(st.head >= 0)[:, 0]
+    slot_of_tail[tail[st.head[heads].long()]] = heads
+    return slot_of_tail[tail]
+
+
+def hj_side_err(a, b) -> int:
+    """Rows, valids, live, dirty, top and key table exactly, chains as
+    sets per key: the count of differing elements."""
+    err = int(a.top) != int(b.top)
+    for x, y in zip([*a.rows, *a.valids, a.live, a.dirty,
+                     a.key_table.occupied, *a.key_table.keys],
+                    [*b.rows, *b.valids, b.live, b.dirty,
+                     b.key_table.occupied, *b.key_table.keys]):
+        if x.dtype == torch.float64:
+            x, y = x.view(torch.int64), y.view(torch.int64)
+        err += int((x != y).sum())
+    return err + int((chain_slots(a) != chain_slots(b)).sum())
+
+
+def probe_rows(own_m, oth_m, ops, vis) -> torch.Tensor:
+    """A probe's visible output rows (op, then every column, floats by
+    bits, NULL as 0), sorted."""
+    cols = [ops.to(torch.int64)] + [
+        torch.where(c.valid_mask(), c.data.view(torch.int64)
+                    if c.data.dtype == torch.float64
+                    else c.data.to(torch.int64), 0)
+        for c in own_m + oth_m]
+    return sorted_rows(torch.stack(cols, 1)[vis])
+
+
+def _row_bytes(cols) -> int:
+    return sum(c.element_size() for c in cols)
+
+
+def k32_bytes(N: int, n_keys: int, n_match: int, own_b: int, oth_b: int,
+              n_own: int, n_oth: int, M: int) -> int:
+    """K32's bytes: the chunk's keys, ops and columns read; two buckets
+    of occupancy and keys per distinct key; each match's stored row
+    read (next, live, columns, valids) and its output row written (both
+    sides' columns and valids, op); the vis bytes of all M slots."""
+    return (N * (1 + 1 + own_b) + n_keys * 2 * 16 * 9
+            + n_match * (5 + oth_b + n_oth)
+            + n_match * (own_b + oth_b + n_own + n_oth + 1) + M)
+
+
+def k33_insert_bytes(N: int, n_ins: int, row_b: int) -> int:
+    """K33's insert: the mask and slot of every row; each inserted row
+    read (columns, valids) and written with its next, live and dirty
+    bytes, its key's head swapped (4 + 4 bytes)."""
+    return N * (1 + 4) + n_ins * (2 * row_b + 2 + 4 + 8)
+
+
+def k34_bytes(CR: int, n: int, row_b: int, n_cols: int, mode: int) -> int:
+    """K34's pack: live and dirty of every row (and the cleaning column
+    for an evict); each kept row read and written, with its valids,
+    live and dirty (keep) or op (dirty)."""
+    extra = (n_cols + 2 if mode == hj.PACK_KEEP
+             else 1 if mode == hj.PACK_DIRTY else 0)
+    return (CR * 2 + (CR * 8 if mode == hj.PACK_EVICT else 0)
+            + n * row_b + n * (row_b + extra))
+
+
+def pack_err(a, b, mode: int) -> int:
+    """K34's pack against its plain version: the count, then the kept
+    prefix of every output, exactly."""
+    n_ = int(b[5])
+    e = int(int(a[5]) != n_)
+    pairs = list(zip(a[0], b[0]))
+    if mode == hj.PACK_KEEP:
+        pairs += list(zip(a[1], b[1]))
+    if mode == hj.PACK_DIRTY:
+        pairs.append((a[2], b[2]))
+    for x, y in pairs:
+        if x.dtype == torch.float64:
+            x, y = x.view(torch.int64), y.view(torch.int64)
+        e += int((x[:n_] != y[:n_]).sum())
+    if mode == hj.PACK_KEEP:
+        e += int((a[3] != b[3]).sum()) + int((a[4] != b[4]).sum())
+    return e
+
+
+def chain_walked(st, victims: torch.Tensor) -> int:
+    """Rows a delete walks to reach each of `victims` (its place in its
+    chain from the head, counted from 1), by pointer jumping."""
+    rows = torch.arange(st.row_capacity, device=st.next.device)
+    nxt = torch.where(st.next >= 0, st.next.long(), rows)
+    depth = (st.next >= 0).long()        # rows after this one, so far
+    for _ in range(40):
+        nn = nxt[nxt]
+        if torch.equal(nn, nxt):
+            break
+        depth = depth + depth[nxt]
+        nxt = nn
+    else:
+        raise AssertionError("a chain does not end")
+    slot = chain_slots(st)[victims]
+    head_row = st.head[slot].long()
+    return int((depth[head_row] - depth[victims] + 1).sum())
+
+
+def clone_chunk(chunk: StreamChunk) -> StreamChunk:
+    return StreamChunk(
+        tuple(Column(c.data.clone(),
+                     None if c.valid is None else c.valid.clone())
+              for c in chunk.columns),
+        chunk.ops.clone(), chunk.vis.clone(), chunk.schema)
+
+
+def hj_record(join, taps: dict, keep: tuple) -> None:
+    """Wrap hash join `join`'s chunk apply and rehash as the path runs
+    them. Every apply appends (side, rows) to taps["applies"]; the
+    applies whose ordinal on their side (from 1) is in keep[side] also
+    keep copies of both sides before it, the chunk, the path's output
+    and the own side after it (taps["kept"]). Each side's last rehash
+    keeps its old side and the fresh one (taps["rehash"][side])."""
+    inner_apply, inner_rehash = join._apply, join._rehash
+    count = [0, 0]
+    taps.update(applies=[], kept=[], rehash={},
+                key_indices=join.key_indices,
+                pk_indices=join.pk_indices_side,
+                match_factor=join.match_factor,
+                key_dtypes=join._key_dtypes, col_dtypes=join._col_dtypes)
+
+    def apply(side, chunk):
+        count[side] += 1
+        rec = None
+        if count[side] in keep[side]:
+            rec = dict(side=side, ordinal=count[side],
+                       own=hj_clone(join.sides[side]),
+                       other=hj_clone(join.sides[1 - side]),
+                       chunk=clone_chunk(chunk))
+        out = inner_apply(side, chunk)
+        taps["applies"].append((side, chunk.capacity))
+        if rec is not None:
+            cols, ops, vis = out
+            rec.update(out=([Column(c.data.clone(), c.valid_mask().clone())
+                             for c in cols], ops.clone(), vis.clone()),
+                       own_after=hj_clone(join.sides[side]))
+            taps["kept"].append(rec)
+        return out
+
+    def rehash(s, new_ck, new_cr):
+        old = hj_clone(join.sides[s])
+        inner_rehash(s, new_ck, new_cr)
+        taps["rehash"][s] = dict(old=old, fresh=hj_clone(join.sides[s]))
+
+    join._apply, join._rehash = apply, rehash
+
+
+def hj_replay(taps: dict, rec: dict, bufs) -> dict:
+    """One apply the path recorded (`hj_record`), again: K32 on the
+    other side as it was, against its plain version and the path's own
+    output (visible rows as multisets); K3's slots of the path (read
+    from its table after the apply) against the plain K3's invariants;
+    K33's deletes and inserts from the own side as it was, with the
+    path's key table, against the plain versions and the path's own
+    side after the apply (rows, valids, live, dirty, top and key table
+    exactly, chains as sets per key), errs exactly. Returns the errors,
+    counts and the inputs to time."""
+    side = rec["side"]
+    key_idx = taps["key_indices"][side]
+    pk_idx = taps["pk_indices"][side]
+    ch, other, own = rec["chunk"], rec["other"], rec["own"]
+    dev = ch.vis.device
+    key_cols = [ch.columns[i].data for i in key_idx]
+    active = ch.vis
+    for i in key_idx:
+        if ch.columns[i].valid is not None:
+            active = active & ch.columns[i].valid
+    M = taps["match_factor"] * ch.capacity
+    ek = torch.zeros(4, dtype=torch.int32, device=dev)
+    ep = torch.zeros(4, dtype=torch.int32, device=dev)
+    cols = list(ch.columns)
+    k_out = hj.probe(other, key_cols, active, cols, ch.ops, M, ek, bufs)
+    p_out = hj.probe_plain(other, key_cols, active, cols, ch.ops, M, ep)
+    full, ops, vis = rec["out"]
+    n_own = len(cols)
+    own_m, oth_m = ((full[:n_own], full[n_own:]) if side == 0
+                    else (full[len(full) - n_own:], full[:len(full) - n_own]))
+    rk, rp = probe_rows(*k_out), probe_rows(*p_out)
+    r_path = probe_rows(own_m, oth_m, ops, vis)
+    e32 = (int(rk.shape != rp.shape or not torch.equal(rk, rp))
+           + int(r_path.shape != rp.shape or not torch.equal(r_path, rp))
+           + exact_err([ek], [ep]))
+    n_match = int(p_out[3].sum())
+    # K3: the path's slots, read from its table after the apply
+    after = rec["own_after"]
+    slots = ht.lookup(after.key_table, key_cols, active)
+    tp = ht.HashTable(tuple(k.clone() for k in own.key_table.keys),
+                      own.key_table.occupied.clone())
+    _, sp, np_ = ht.lookup_or_insert_plain(tp, key_cols, active)
+    k3 = k3_invariants(own.key_table, key_cols, active, slots,
+                       torch.zeros((), dtype=torch.int32, device=dev),
+                       after.key_table, sp, np_, tp)
+    # K33 from the own side as it was, with the path's key table
+    _, is_ins, is_del, _ = net_pk_runs(ch, active, pk_idx, bufs)
+    base = hj_clone(own)
+    base.key_table = ht.HashTable(tuple(k.clone()
+                                        for k in after.key_table.keys),
+                                  after.key_table.occupied.clone())
+    pk_chunk = [ch.columns[p].data for p in pk_idx]
+    data = [c.data for c in cols]
+    valids = [c.valid_mask() for c in cols]
+    wk, wp = hj_clone(base), hj_clone(base)
+    ek.zero_()
+    ep.zero_()
+    hj.delete_rows(wk, pk_chunk, pk_idx, is_del, slots, ek)
+    hj.delete_rows_plain(wp, pk_chunk, pk_idx, is_del, slots, ep)
+    e33d = hj_side_err(wk, wp) + exact_err([ek], [ep])
+    mid = hj_clone(wk)                    # after the deletes
+    victims = torch.nonzero(base.live & ~mid.live)[:, 0]
+    walked = chain_walked(base, victims) if victims.numel() else 0
+    hj.insert_rows(wk, is_ins, slots, data, valids, errs=ek, bufs=bufs)
+    hj.insert_rows_plain(wp, is_ins, slots, data, valids, errs=ep)
+    e33 = (hj_side_err(wk, wp) + hj_side_err(wk, after)
+           + exact_err([ek], [ep]))
+    return dict(side=side, ordinal=rec["ordinal"], rows=ch.capacity,
+                active=int(active.sum()), matches=n_match,
+                distinct_keys=int(torch.unique(
+                    torch.stack([k.view(torch.int64) if k.dtype ==
+                                 torch.float64 else k.to(torch.int64)
+                                 for k in key_cols], 1)[active],
+                    dim=0).shape[0]),
+                deletes=int(is_del.sum()), inserts=int(is_ins.sum()),
+                chain_rows_walked=walked, e32=e32, e33=e33 + e33d,
+                k3_existing_rows=k3["existing_rows"],
+                args=dict(other=other, key_cols=key_cols, active=active,
+                          cols=cols, ops=ch.ops, M=M, base=base, mid=mid,
+                          pk_chunk=pk_chunk, pk_idx=pk_idx, is_del=is_del,
+                          is_ins=is_ins, slots=slots, data=data,
+                          valids=valids))
+
+
+def hj_rehash_replay(taps: dict, s: int, bufs) -> dict:
+    """Side s's last rehash on the path (`hj_record`), again: K34's keep
+    pack of the old side against its plain version, exactly; the plain
+    rehash (pack, K33's inserts into the path's fresh key table) against
+    the path's fresh side (`hj_side_err`); K34's stats of the fresh side
+    against the plain counts."""
+    rec = taps["rehash"][s]
+    old, fresh = rec["old"], rec["fresh"]
+    a = hj.pack(old, hj.PACK_KEEP, bufs=bufs)
+    b = hj.pack_plain(old, hj.PACK_KEEP)
+    e = pack_err(a, b, hj.PACK_KEEP)
+    cols, vals, _, live, dirty, n = b
+    re = hj.empty_side(fresh.key_capacity, fresh.row_capacity,
+                       taps["key_dtypes"], taps["col_dtypes"][s],
+                       old.device)
+    re.key_table = ht.HashTable(tuple(k.clone()
+                                      for k in fresh.key_table.keys),
+                                fresh.key_table.occupied.clone())
+    slots = ht.lookup(re.key_table, [cols[i] for i in
+                                     taps["key_indices"][s]], live)
+    hj.insert_rows_plain(re, live, slots, cols, vals, dirty_vals=dirty)
+    hj.insert_rows_plain(re, ~live & dirty, None, cols, None,
+                         live_val=False)
+    e += hj_side_err(re, fresh)
+    e += exact_err([hj.side_stats(fresh)], [hj.side_stats_plain(fresh)])
+    return dict(err=e, rows=int(n), old_row_capacity=old.row_capacity,
+                old_key_capacity=old.key_capacity,
+                row_capacity=fresh.row_capacity,
+                key_capacity=fresh.key_capacity, old=old)
+
+
+def phase_kernels_hash_join_path(dev, taps: dict, rtaps: dict) -> dict:
+    """K32, K33 and K34 on the work hj_full's and hj_retract's joins did
+    (`hj_record` in their unprofiled runs): each kept apply again from
+    the sides as they were (`hj_replay`: the kernels, their plain
+    versions and the path's own output and state agree) and each side's
+    last rehash (`hj_rehash_replay`). The kernels line's rows are timed
+    here: K32 and K33's insert on hj_full's last bid chunk (16384 rows
+    probing the 141,312-row auction side, inserted into the bid side),
+    K34's keep pack on the bid side's last rehash; extra figures: K32 on
+    the last auction chunk (512 rows along the bid side's chains), K33's
+    deletes on hj_retract's kept chunks (U- rows walking their chains)."""
+    d = torch.device(dev)
+    bufs = _Buffers(d)
+    out, res = {}, {}
+    err = 0
+    reps = {}
+    for name, t in (("hj_full", taps), ("hj_retract", rtaps)):
+        if not t.get("kept"):
+            raise AssertionError(f"kernels_hash_join_path: {name} kept no "
+                                 "apply")
+        reps[name] = [hj_replay(t, rec, bufs) for rec in t["kept"]]
+        err += sum(r["e32"] + r["e33"] for r in reps[name])
+        out[name] = dict(
+            applies=len(t["applies"]),
+            chunk_rows=sorted({n for _, n in t["applies"]}),
+            kept=[{k: v for k, v in r.items() if k != "args"}
+                  for r in reps[name]])
+    rh = {s: hj_rehash_replay(taps, s, bufs) for s in sorted(taps["rehash"])}
+    err += sum(r["err"] for r in rh.values())
+    out["hj_full"]["rehash"] = {s: {k: v for k, v in r.items() if k != "old"}
+                                for s, r in rh.items()}
+    torch.cuda.synchronize()
+    if err:
+        raise AssertionError(f"hash join kernels differ on the path's own "
+                             f"work: {out}")
+    ek = torch.zeros(4, dtype=torch.int32, device=d)
+    ep = torch.zeros(4, dtype=torch.int32, device=d)
+
+    def k32_time(r):
+        a = r["args"]
+        tm = timings(lambda: hj.probe(a["other"], a["key_cols"],
+                                      a["active"], a["cols"], a["ops"],
+                                      a["M"], ek, bufs),
+                     lambda: hj.probe_plain(a["other"], a["key_cols"],
+                                            a["active"], a["cols"],
+                                            a["ops"], a["M"], ep))
+        n_bytes = k32_bytes(r["rows"], r["distinct_keys"], r["matches"],
+                            _row_bytes([c.data for c in a["cols"]]),
+                            _row_bytes(a["other"].rows), len(a["cols"]),
+                            len(a["other"].rows), a["M"])
+        return dict(tm, n_bytes=n_bytes, bound_ms=bytes_bound_ms(n_bytes))
+
+    full = reps["hj_full"]
+    last_bid = max((r for r in full if r["side"] == 0),
+                   key=lambda r: r["ordinal"])
+    last_auc = max((r for r in full if r["side"] == 1),
+                   key=lambda r: r["ordinal"])
+    t32 = k32_time(last_bid)
+    out["k32_bid_chunk"] = dict(t32, rows=last_bid["rows"],
+                                matches=last_bid["matches"],
+                                other_rows=int(last_bid["args"]["other"]
+                                               .live.sum()))
+    out["k32_auction_chunk"] = dict(
+        k32_time(last_auc), rows=last_auc["rows"],
+        matches=last_auc["matches"],
+        other_rows=int(last_auc["args"]["other"].live.sum()))
+    res["hash_join_probe"] = dict(
+        max_abs_err=err, ms=t32["ms"], plain_ms=t32["plain_ms"],
+        bound_ms=t32["bound_ms"], bound_by="bytes", library_ms=None)
+    # K33's insert of the last bid chunk, from the side after its deletes
+    a = last_bid["args"]
+    work = hj_clone(a["mid"])
+    tmi = timings(lambda: hj.insert_rows(work, a["is_ins"], a["slots"],
+                                         a["data"], a["valids"], errs=ek,
+                                         bufs=bufs),
+                  lambda: hj.insert_rows_plain(work, a["is_ins"], a["slots"],
+                                               a["data"], a["valids"],
+                                               errs=ep),
+                  setup=lambda: hj_restore(work, a["mid"]))
+    row_b = _row_bytes(work.rows) + len(work.rows)
+    ib = k33_insert_bytes(last_bid["rows"], last_bid["inserts"], row_b)
+    out["k33_insert"] = dict(tmi, rows=last_bid["rows"],
+                             inserts=last_bid["inserts"], n_bytes=ib,
+                             bound_ms=bytes_bound_ms(ib),
+                             store_rows=int(a["mid"].live.sum()),
+                             row_capacity=a["mid"].row_capacity)
+    res["hash_join_update"] = dict(
+        max_abs_err=err, ms=tmi["ms"], plain_ms=tmi["plain_ms"],
+        bound_ms=bytes_bound_ms(ib), bound_by="bytes", library_ms=None)
+    # K33's deletes on hj_retract's kept chunks
+    out["k33_delete"] = []
+    for r in reps["hj_retract"]:
+        a = r["args"]
+        work = hj_clone(a["base"])
+        tmd = timings(lambda: hj.delete_rows(work, a["pk_chunk"], a["pk_idx"],
+                                             a["is_del"], a["slots"], ek),
+                      lambda: hj.delete_rows_plain(work, a["pk_chunk"],
+                                                   a["pk_idx"], a["is_del"],
+                                                   a["slots"], ep),
+                      setup=lambda: hj_restore(work, a["base"]))
+        pk_b = _row_bytes(a["pk_chunk"])
+        db = (r["rows"] * (pk_b + 4 + 1 + 4)
+              + r["chain_rows_walked"] * (4 + 1 + pk_b) + r["deletes"] * 2)
+        out["k33_delete"].append(dict(tmd, rows=r["rows"],
+                                      deletes=r["deletes"],
+                                      chain_rows_walked=r["chain_rows_walked"],
+                                      n_bytes=db,
+                                      bound_ms=bytes_bound_ms(db)))
+    # K34's keep pack of the bid side's last rehash
+    old = rh[0]["old"]
+    n_keep = rh[0]["rows"]
+    pb = k34_bytes(old.row_capacity, n_keep, row_b, len(old.rows),
+                   hj.PACK_KEEP)
+
+    def library():
+        idx = torch.nonzero(old.live | old.dirty)[:, 0]
+        return [r_.index_select(0, idx) for r_ in old.rows]
+
+    t34 = timings(lambda: hj.pack(old, hj.PACK_KEEP, bufs=bufs),
+                  lambda: hj.pack_plain(old, hj.PACK_KEEP),
+                  library_fn=library)
+    out["k34_keep"] = dict(t34, rows=n_keep, row_capacity=old.row_capacity,
+                           n_bytes=pb, bound_ms=bytes_bound_ms(pb))
+    res["hash_join_pack"] = dict(
+        max_abs_err=err, ms=t34["ms"], plain_ms=t34["plain_ms"],
+        library_ms=t34["library_ms"], bound_ms=bytes_bound_ms(pb),
+        bound_by="bytes")
+    emit({"phase": "kernels_hash_join_path", **out})
+    return res
+
+
+def phase_kernels_hash_join(dev, n_side: int = 1 << 21,
+                            N: int = 131072) -> None:
+    """K32, K33 and K34 against their plain versions on the card at
+    larger shapes than hj_full's (whose own work
+    `phase_kernels_hash_join_path` checks and times for the kernels
+    line), and K3's float64 mode (`k3_float64_checks`): a 131072-row bid
+    chunk probing a 2^21-row auction side (2^22 keys and rows) and, the
+    other way, a 131072-row auction chunk probing a 2^21-row bid side
+    (its chains as long as an auction's bids); K33 inserting that bid
+    chunk into the bid side and deleting 131072 of its rows; K34's keep,
+    dirty and evict packs of the 2^21-row bid side. Exact: output rows
+    as multisets, stores slot for slot (chains as sets per key), errs.
+    Emits its figures; returns nothing."""
+    out = {}
+    d = torch.device(dev)
+    out["k3_float64"] = k3_float64_checks(d)
+    # ---- K32: a bid chunk probing the auction side
+    aside = hj_auction_side(dev, n_side, 1 << 22, 1 << 22)
+    auction, bidder, price = bid_cols_dev(N, dev)
+    bcols = [Column(auction.double()), Column(auction), Column(bidder),
+             Column(price),
+             Column(torch.arange(N, dtype=torch.int64, device=dev))]
+    bops = torch.zeros(N, dtype=torch.int8, device=dev)
+    bops[1::7] = 1                               # a few Deletes
+    bact = torch.ones(N, dtype=torch.bool, device=dev)
+    M = 64 * N
+    bufs = _Buffers(d)
+    ek = torch.zeros(4, dtype=torch.int32, device=dev)
+    ep = torch.zeros(4, dtype=torch.int32, device=dev)
+    k_out = hj.probe(aside, [bcols[0].data], bact, bcols, bops, M, ek, bufs)
+    p_out = hj.probe_plain(aside, [bcols[0].data], bact, bcols, bops, M, ep)
+    rk, rp = probe_rows(*k_out), probe_rows(*p_out)
+    e32 = (int(rk.shape != rp.shape or not torch.equal(rk, rp))
+           + exact_err([ek], [ep]))
+    n_match = int(k_out[3].sum())
+    n_keys = int(torch.unique(auction).numel())
+    b32 = k32_bytes(N, n_keys, n_match, _row_bytes([c.data for c in bcols]),
+                    _row_bytes(aside.rows), len(bcols), len(aside.rows), M)
+    tm = timings(lambda: hj.probe(aside, [bcols[0].data], bact, bcols, bops,
+                                  M, ek, bufs),
+                 lambda: hj.probe_plain(aside, [bcols[0].data], bact, bcols,
+                                        bops, M, ep))
+    out["k32_bid_chunk"] = dict(max_abs_err=e32, matches=n_match,
+                                distinct_keys=n_keys, n_bytes=b32,
+                                bound_ms=bytes_bound_ms(b32), **tm)
+    del aside
+    # ---- K32 the other way: auctions probing the bid side's chains
+    bside = hj_bid_side(dev, n_side, 1 << 22, 1 << 22)
+    aid, reserve, seller = auction_cols_dev(N, dev, (0, 4, 7))
+    acols = [Column(aid.double()), Column(seller), Column(reserve),
+             Column(torch.arange(N, dtype=torch.int64, device=dev))]
+    aops = torch.zeros(N, dtype=torch.int8, device=dev)
+    ek.zero_()
+    ep.zero_()
+    k_out = hj.probe(bside, [acols[0].data], bact, acols, aops, M, ek, bufs)
+    p_out = hj.probe_plain(bside, [acols[0].data], bact, acols, aops, M, ep)
+    rk, rp = probe_rows(*k_out), probe_rows(*p_out)
+    e32b = (int(rk.shape != rp.shape or not torch.equal(rk, rp))
+            + exact_err([ek], [ep]))
+    ms_b, _ = time_ms(lambda: hj.probe(bside, [acols[0].data], bact, acols,
+                                       aops, M, ek, bufs), reps=5)
+    counts = torch.bincount(bside.rows[1][:n_side] - 1000)
+    out["k32_auction_chunk"] = dict(
+        max_abs_err=e32b, matches=int(k_out[3].sum()), ms=ms_b,
+        longest_chain=int(counts.max()))
+    # ---- K33: insert a bid chunk, delete stored bids
+    nb_auction, nb_bidder, nb_price = bid_cols_dev(N, dev, start=n_side)
+    icols = [nb_auction.double(), nb_auction, nb_bidder, nb_price,
+             torch.arange(n_side, n_side + N, dtype=torch.int64,
+                          device=dev)]
+    ivalid = [bact] * len(icols)
+    base = hj_clone(bside)
+    _, islots, _ = ht.lookup_or_insert(base.key_table, [icols[0]], bact)
+    sk, sp = hj_clone(base), hj_clone(base)
+    ek.zero_()
+    ep.zero_()
+    hj.insert_rows(sk, bact, islots, icols, ivalid, errs=ek, bufs=bufs)
+    hj.insert_rows_plain(sp, bact, islots, icols, ivalid, errs=ep)
+    e33i = hj_side_err(sk, sp) + exact_err([ek], [ep])
+    g = torch.Generator(device="cpu").manual_seed(33)
+    victims = torch.randperm(n_side, generator=g)[:N].to(dev)
+    dpk = [bside.rows[4][victims]]
+    dkey = bside.rows[0][victims].contiguous()
+    _, dslots, _ = ht.lookup_or_insert(base.key_table, [dkey], bact)
+    dk, dp = hj_clone(base), hj_clone(base)
+    hj.delete_rows(dk, dpk, (4,), bact, dslots, ek)
+    hj.delete_rows_plain(dp, dpk, (4,), bact, dslots, ep)
+    e33d = hj_side_err(dk, dp) + exact_err([ek], [ep])
+    e33 = e33i + e33d
+    work = hj_clone(base)
+    row_b = _row_bytes(base.rows) + len(base.rows)
+    k33i_bytes = k33_insert_bytes(N, N, row_b)
+    tmi = timings(lambda: hj.insert_rows(work, bact, islots, icols, ivalid,
+                                         errs=ek, bufs=bufs),
+                  lambda: hj.insert_rows_plain(work, bact, islots, icols,
+                                               ivalid, errs=ep),
+                  setup=lambda: hj_restore(work, base))
+    # a delete reads its pk, slot and mask, then its chain up to its
+    # victim (next, live and pk a row: on average half of its key's
+    # bids) and writes the victim's live and dirty bytes
+    per_key = counts[(dkey.long() - 1000)].double()
+    visited = int((per_key / 2).sum())
+    k33d_bytes = N * (8 + 4 + 1 + 4) + visited * (4 + 1 + 8) + N * 2
+    tmd = timings(lambda: hj.delete_rows(work, dpk, (4,), bact, dslots, ek),
+                  lambda: hj.delete_rows_plain(work, dpk, (4,), bact,
+                                               dslots, ep),
+                  setup=lambda: hj_restore(work, base))
+    out["k33_insert"] = dict(max_abs_err=e33i, rows=N, n_bytes=k33i_bytes,
+                             bound_ms=bytes_bound_ms(k33i_bytes), **tmi)
+    out["k33_delete"] = dict(max_abs_err=e33d, rows=N,
+                             chain_rows_visited=visited,
+                             n_bytes=k33d_bytes,
+                             bound_ms=bytes_bound_ms(k33d_bytes), **tmd)
+    # ---- K34: packs of the bid side after the insert and the deletes
+    hj_restore(work, sk)
+    hj.delete_rows(work, dpk, (4,), bact, dslots, ek)
+    e34 = 0
+    cases = {"keep": (hj.PACK_KEEP, None, None),
+             "dirty": (hj.PACK_DIRTY, None, None),
+             "evict": (hj.PACK_EVICT, 4, n_side // 2)}
+    for name, (mode, col_, wm) in cases.items():
+        a = hj.pack(work, mode, col_, wm, bufs)
+        b = hj.pack_plain(work, mode, col_, wm)
+        n_ = int(b[5])
+        e = pack_err(a, b, mode)
+        n_bytes = k34_bytes(work.row_capacity, n_, row_b, len(work.rows),
+                            mode)
+        mask = {hj.PACK_KEEP: lambda: work.live | work.dirty,
+                hj.PACK_DIRTY: lambda: work.dirty,
+                hj.PACK_EVICT: lambda: work.live & (work.rows[4] < wm)}[mode]
+
+        def library():
+            idx = torch.nonzero(mask())[:, 0]
+            return [r.index_select(0, idx) for r in work.rows]
+
+        tm4 = timings(lambda: hj.pack(work, mode, col_, wm, bufs),
+                      lambda: hj.pack_plain(work, mode, col_, wm),
+                      library_fn=library)
+        out[f"k34_{name}"] = dict(max_abs_err=e, rows=n_, n_bytes=n_bytes,
+                                  bound_ms=bytes_bound_ms(n_bytes), **tm4)
+        e34 += e
+    st_k, st_p = hj.side_stats(work), hj.side_stats_plain(work)
+    e34 += exact_err([st_k], [st_p])
+    torch.cuda.synchronize()
+    if e32 or e32b or e33 or e34:
+        raise AssertionError(f"hash join kernels disagree with their plain "
+                             f"versions: K32 {e32}/{e32b}, K33 {e33i}/"
+                             f"{e33d}, K34 {e34}")
+    emit({"phase": "kernels_hash_join", **out})
+
+
 def main(argv) -> int:
     unknown = [a for a in argv if a not in ("--host-profile",
                                             "--mvmv-sizing")]
@@ -8414,9 +9350,19 @@ def main(argv) -> int:
           **phase_mvmv_check(dev)})
     emit({"phase": "mvmv_recover", "nvidia_smi": smi,
           **phase_mvmv_recover(dev)})
+    phase_kernels_hash_join(dev)
+    hj_taps, hjr_taps = {}, {}
+    hjf = phase_hj_full(dev, taps=hj_taps)
+    emit({"phase": "hj_full", "nvidia_smi": smi, **hjf})
+    emit({"phase": "hj_retract", "nvidia_smi": smi,
+          **phase_hj_retract(dev, taps=hjr_taps)})
+    res.update(phase_kernels_hash_join_path(dev, hj_taps, hjr_taps))
+    del hj_taps, hjr_taps
+    emit({"phase": "hj_recover", "nvidia_smi": smi,
+          **phase_hj_recover(dev)})
     paths = {"q5": q5, "q7": q7, "q8": q8, "q17": q17, "q7d": q7d,
              "q5t": q5t, "q2": q2, "q6": q6, "gagg": gagg, "q5c": q5c,
-             "lj": lj, "dynf": dynf, "acd": acd, "mvmv": mvmv}
+             "lj": lj, "dynf": dynf, "acd": acd, "mvmv": mvmv, "hj": hjf}
     rows = []
     for name, k in kernels.KERNELS.items():
         r = res[name]

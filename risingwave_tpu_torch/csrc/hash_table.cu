@@ -30,8 +30,22 @@
 //            differ). A leader takes position atomicAdd(count[bucket])
 //            and owns slot bucket*16 + fill + position if that is inside
 //            the bucket, else it is unresolved.
-//   resolve— every other missing row copies its leader's slot; rows left
-//            without a slot are counted (one atomic per warp).
+//            With integer keys only, the leader writes its key there.
+//   resolve— with a float64 key column, a leader writes its key into its
+//            slot here instead, taken from the key's first row in chunk
+//            order (an atomicMin in the claim: the reference's sort-1
+//            run leader, so -0.0 and +0.0 store the bits the reference
+//            stores); every other missing row copies its leader's slot;
+//            rows left without a slot are counted (one atomic per warp).
+//            Integer keys skip the first-row set: a key's rows all hold
+//            the same bits, so the integer path does the work it did
+//            before float64 keys were taken.
+// Key columns are int64, int32 or float64, each with its type code
+// (csrc/hash_probe.cuh): a float64 key hashes by its `astype(uint64)`
+// value lane and compares with IEEE `==`, in the probe, the election
+// and the warp dedup. So -0.0 and +0.0 are one key, and every NaN row
+// is a key of its own and its own leader, as in the reference's sort-1
+// runs (NaN == NaN is false there too).
 // Because the bucket choice reads the pre-chunk fill, every bucket
 // receives the same number of new keys as in the reference, so the
 // per-bucket fill, the number of distinct unresolved keys and
@@ -39,126 +53,62 @@
 // a bucket (and so which key of an overfull bucket is unresolved) may
 // differ.
 
-#include "common.cuh"
+#include "hash_probe.cuh"
 
 namespace {
 
-constexpr int kSlots = 16;
-constexpr int kMaxKeys = 4;
+constexpr int kSlots = kHtSlots;
+constexpr int kMaxKeys = kHtMaxKeys;
 constexpr int kThreads = 256;
 
-struct KeyCols {
-  const void* col[kMaxKeys];   // chunk key columns [N]
-  void* tcol[kMaxKeys];        // table key columns [C]
-  int width[kMaxKeys];
-  int n;
-};
-
-__device__ __forceinline__ u64 key_hash(const KeyCols& kc, const i64* keys) {
-  u64 h = 0x243F6A8885A308D3ULL;
-#pragma unroll
-  for (int c = 0; c < kMaxKeys; ++c) {
-    if (c < kc.n) {
-      h = rw_splitmix64(h ^ (static_cast<u64>(keys[c]) *
-                             0x9E3779B97F4A7C15ULL));
-    }
-  }
-  return h;
-}
-
-__device__ __forceinline__ void load_keys(const KeyCols& kc, long long i,
-                                          i64* keys) {
-#pragma unroll
-  for (int c = 0; c < kMaxKeys; ++c) {
-    keys[c] = c < kc.n ? rw_load_key(kc.col[c], kc.width[c], i) : 0;
-  }
-}
-
-__device__ __forceinline__ bool table_key_equals(const KeyCols& kc,
-                                                 long long slot,
-                                                 const i64* keys) {
-  bool eq = true;
-#pragma unroll
-  for (int c = 0; c < kMaxKeys; ++c) {
-    if (c < kc.n) eq &= rw_load_key(kc.tcol[c], kc.width[c], slot) == keys[c];
-  }
-  return eq;
-}
-
-__device__ __forceinline__ bool row_key_equals(const KeyCols& kc,
-                                               long long row,
-                                               const i64* keys) {
-  bool eq = true;
-#pragma unroll
-  for (int c = 0; c < kMaxKeys; ++c) {
-    if (c < kc.n) eq &= rw_load_key(kc.col[c], kc.width[c], row) == keys[c];
-  }
-  return eq;
-}
-
-// Lanes of `grp` whose keys equal those of the group's first lane.
+// Lanes of `grp` whose keys equal those of the group's first lane (a
+// float64 NaN equals nothing, so a NaN row always probes on its own).
 __device__ __forceinline__ bool same_as_leader(unsigned grp, int ldr,
-                                               const KeyCols& kc,
+                                               const HtKeyCols& kc,
                                                const i64* keys) {
   bool same = true;
 #pragma unroll
   for (int c = 0; c < kMaxKeys; ++c) {
-    if (c < kc.n) same &= __shfl_sync(grp, keys[c], ldr) == keys[c];
+    if (c < kc.n) {
+      same &= rw_ht_eq(__shfl_sync(grp, keys[c], ldr), keys[c], kc.type[c]);
+    }
   }
   return same;
 }
 
-__device__ void probe(const KeyCols& kc, const unsigned char* occupied,
-                      int n_buckets, u64 h, const i64* keys, int* slot,
-                      int* cbucket, int* cfill) {
-  const u64 nb = static_cast<u64>(n_buckets);
-  const int b1 = static_cast<int>((h & 0xFFFFFFFFULL) % nb);
-  const int b2 = static_cast<int>((h >> 32) % nb);
-  const bool tie = (h >> 31) & 1ULL;
-  int found = -1, fill1 = 0, fill2 = 0;
-  for (int s = 0; s < kSlots; ++s) {
-    const long long at = static_cast<long long>(b1) * kSlots + s;
-    if (occupied[at]) {
-      ++fill1;
-      if (found < 0 && table_key_equals(kc, at, keys)) found = (int)at;
-    }
-  }
-  for (int s = 0; s < kSlots; ++s) {
-    const long long at = static_cast<long long>(b2) * kSlots + s;
-    if (occupied[at]) {
-      ++fill2;
-      if (found < 0 && table_key_equals(kc, at, keys)) found = (int)at;
-    }
-  }
-  const bool choose2 = fill2 < fill1 || (fill2 == fill1 && tie);
-  *slot = found;
-  *cbucket = choose2 ? b2 : b1;
-  *cfill = fill1 < fill2 ? fill1 : fill2;
-}
-
-__global__ void ht_probe_kernel(KeyCols kc, const unsigned char* occupied,
+__global__ void ht_probe_kernel(HtKeyCols kc, const unsigned char* occupied,
                                 int n_buckets,
                                 const unsigned char* __restrict__ active,
                                 int N, int* __restrict__ slots,
                                 int* __restrict__ cbucket,
                                 int* __restrict__ cfill, int* scratch,
+                                int* first_row, bool first_bits,
                                 int scratch_cap, int* bucket_count,
-                                int* n_unresolved) {
+                                int* n_unresolved,
+                                int* __restrict__ leader_of) {
   const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x +
                         threadIdx.x;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long j = tid; j < scratch_cap; j += stride) scratch[j] = -1;
+  for (long long j = tid; j < scratch_cap; j += stride) {
+    scratch[j] = -1;
+    if (first_bits) first_row[j] = 0x7fffffff;
+  }
   for (long long j = tid; j < n_buckets; j += stride) bucket_count[j] = 0;
   if (tid == 0) *n_unresolved = 0;
 
   const int lane = threadIdx.x & 31;
   const bool in = tid < N;
   const bool act = in && active[tid];
+  // no leader until the claim elects one: the resolve launch reads it
+  // for every active row, and the buffer holds whatever the last user
+  // left there (a hit row whose stale entry named itself would write a
+  // key from an unset first_row entry)
+  if (in) leader_of[tid] = -1;
   i64 keys[kMaxKeys];
   u64 h = 0;
   if (act) {
-    load_keys(kc, tid, keys);
-    h = key_hash(kc, keys);
+    rw_ht_load_keys(kc, tid, keys);
+    h = rw_ht_hash(kc, keys);
   }
   const unsigned amask = __ballot_sync(RW_FULL_MASK, act);
   if (!act) {
@@ -170,7 +120,7 @@ __global__ void ht_probe_kernel(KeyCols kc, const unsigned char* occupied,
   const bool same = same_as_leader(grp, ldr, kc, keys);
   int slot = -1, cb = 0, cf = 0;
   if (lane == ldr || !same) {
-    probe(kc, occupied, n_buckets, h, keys, &slot, &cb, &cf);
+    rw_ht_probe(kc, occupied, n_buckets, h, keys, &slot, &cb, &cf);
   }
   const int l_slot = __shfl_sync(grp, slot, ldr);
   const int l_cb = __shfl_sync(grp, cb, ldr);
@@ -185,28 +135,36 @@ __global__ void ht_probe_kernel(KeyCols kc, const unsigned char* occupied,
   cfill[tid] = cf;
 }
 
-// Row id of the chunk-wide leader of `keys` (this row if it won).
-__device__ int elect(const KeyCols& kc, int* scratch, int scratch_cap,
-                     u64 h, const i64* keys, int row) {
+// Row id of the chunk-wide leader of `keys` (this row if it won), and
+// the key's entry in the chunk-local set.
+__device__ int elect(const HtKeyCols& kc, int* scratch, int scratch_cap,
+                     u64 h, const i64* keys, int row, unsigned* entry) {
   const unsigned mask = static_cast<unsigned>(scratch_cap - 1);
   unsigned p = static_cast<unsigned>(h ^ (h >> 29)) & mask;
   while (true) {
     int cur = scratch[p];
     if (cur == -1) {
       const int prev = atomicCAS(&scratch[p], -1, row);
-      if (prev == -1) return row;
+      if (prev == -1) {
+        *entry = p;
+        return row;
+      }
       cur = prev;
     }
-    if (row_key_equals(kc, cur, keys)) return cur;
+    if (rw_ht_row_eq(kc, cur, keys)) {
+      *entry = p;
+      return cur;
+    }
     p = (p + 1) & mask;
   }
 }
 
-__global__ void ht_claim_kernel(KeyCols kc, unsigned char* occupied,
+__global__ void ht_claim_kernel(HtKeyCols kc, unsigned char* occupied,
                                 const unsigned char* __restrict__ active,
                                 int N, int* slots,
-                                const int* __restrict__ cbucket,
+                                int* __restrict__ cbucket,
                                 const int* __restrict__ cfill, int* scratch,
+                                int* first_row, bool first_bits,
                                 int scratch_cap, int* bucket_count,
                                 int* __restrict__ leader_of) {
   const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x +
@@ -216,28 +174,36 @@ __global__ void ht_claim_kernel(KeyCols kc, unsigned char* occupied,
   const unsigned mmask = __ballot_sync(RW_FULL_MASK, miss);
   if (!miss) return;
   i64 keys[kMaxKeys];
-  load_keys(kc, tid, keys);
-  const u64 h = key_hash(kc, keys);
+  rw_ht_load_keys(kc, tid, keys);
+  const u64 h = rw_ht_hash(kc, keys);
   const unsigned grp = __match_any_sync(mmask, h);
   const int ldr = __ffs(grp) - 1;
   const bool same = same_as_leader(grp, ldr, kc, keys);
   const int row = static_cast<int>(tid);
   int leader = -1;
+  unsigned entry = 0;
   if (lane == ldr || !same) {
-    leader = elect(kc, scratch, scratch_cap, h, keys, row);
+    leader = elect(kc, scratch, scratch_cap, h, keys, row, &entry);
+    // the key's first row in chunk order (a warp group's first lane is
+    // its first row): the reference's sort-1 run leader, whose key bits
+    // the table keeps (-0.0 or +0.0)
+    if (first_bits) atomicMin(&first_row[entry], row);
   }
   const int l_leader = __shfl_sync(grp, leader, ldr);
   if (lane != ldr && same) leader = l_leader;
   leader_of[tid] = leader;
   if (leader == row) {
     const int cb = cbucket[tid];
+    if (first_bits) cbucket[tid] = static_cast<int>(entry);  // for resolve
     const int pos = atomicAdd(&bucket_count[cb], 1);
     const int at = cfill[tid] + pos;
     if (at < kSlots) {
       const long long slot = static_cast<long long>(cb) * kSlots + at;
+      if (!first_bits) {
 #pragma unroll
-      for (int c = 0; c < kMaxKeys; ++c) {
-        if (c < kc.n) rw_store_key(kc.tcol[c], kc.width[c], slot, keys[c]);
+        for (int c = 0; c < kMaxKeys; ++c) {
+          if (c < kc.n) rw_ht_store(kc.tcol[c], kc.type[c], slot, keys[c]);
+        }
       }
       occupied[slot] = 1;
       slots[tid] = static_cast<int>(slot);
@@ -245,23 +211,34 @@ __global__ void ht_claim_kernel(KeyCols kc, unsigned char* occupied,
   }
 }
 
-__global__ void ht_resolve_kernel(const unsigned char* __restrict__ active,
+__global__ void ht_resolve_kernel(HtKeyCols kc,
+                                  const unsigned char* __restrict__ active,
                                   int N, int* slots,
                                   const int* __restrict__ leader_of,
-                                  int* n_unresolved) {
+                                  const int* __restrict__ cbucket,
+                                  const int* __restrict__ first_row,
+                                  bool first_bits, int* n_unresolved) {
   const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x +
                         threadIdx.x;
   bool unresolved = false;
   if (tid < N && active[tid]) {
     int s = slots[tid];
-    if (s < 0) {
-      // a follower copies its leader's slot; a leader's own entry was
-      // final after the claim launch (leaders are never written here)
-      const int l = leader_of[tid];
-      if (l != tid) {
-        s = slots[l];
-        slots[tid] = s;
+    const int l = leader_of[tid];
+    if (first_bits && l == tid && s >= 0) {
+      // a leader writes its new key, as the run's first row holds it
+      const int src = first_row[cbucket[tid]];
+#pragma unroll
+      for (int c = 0; c < kMaxKeys; ++c) {
+        if (c < kc.n) {
+          rw_ht_store(kc.tcol[c], kc.type[c], s,
+                      rw_ht_load(kc.col[c], kc.type[c], src));
+        }
       }
+    } else if (s < 0 && l >= 0 && l != tid) {
+      // a follower copies its leader's slot; a leader's slot was final
+      // after the claim launch
+      s = slots[l];
+      slots[tid] = s;
     }
     unresolved = s < 0;
   }
@@ -273,33 +250,44 @@ __global__ void ht_resolve_kernel(const unsigned char* __restrict__ active,
 
 extern "C" int rw_ht_lookup_or_insert(
     int n_keys, void* const* key_cols, void* const* table_keys,
-    const int* widths, unsigned char* occupied, int capacity,
+    const int* types, unsigned char* occupied, int capacity,
     const unsigned char* active, int N, int* slots, int* n_unresolved,
-    int* scratch, int scratch_cap, int* bucket_count, int* leader_of,
-    int* cbucket, int* cfill, void* stream) {
+    int* scratch, int* first_row, int scratch_cap, int* bucket_count,
+    int* leader_of, int* cbucket, int* cfill, void* stream) {
   if (n_keys < 1 || n_keys > kMaxKeys || capacity % kSlots ||
       (scratch_cap & (scratch_cap - 1)) || scratch_cap < 2 * N) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  KeyCols kc;
+  HtKeyCols kc;
   kc.n = n_keys;
+  bool first_bits = false;     // a float64 key column: -0.0 and +0.0
   for (int c = 0; c < kMaxKeys; ++c) {
     kc.col[c] = c < n_keys ? key_cols[c] : nullptr;
     kc.tcol[c] = c < n_keys ? table_keys[c] : nullptr;
-    kc.width[c] = c < n_keys ? widths[c] : 8;
+    kc.type[c] = c < n_keys ? types[c] : RW_I64;
+    if (kc.type[c] != RW_I64 && kc.type[c] != RW_I32 &&
+        kc.type[c] != RW_F64) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    first_bits |= kc.type[c] == RW_F64;
+  }
+  if (first_bits && first_row == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_buckets = capacity / kSlots;
   const int blocks = N > 0 ? rw_blocks(N, kThreads) : 1;
   ht_probe_kernel<<<blocks, kThreads, 0, s>>>(
       kc, occupied, n_buckets, active, N, slots, cbucket, cfill, scratch,
-      scratch_cap, bucket_count, n_unresolved);
+      first_row, first_bits, scratch_cap, bucket_count, n_unresolved,
+      leader_of);
   if (N > 0) {
     ht_claim_kernel<<<blocks, kThreads, 0, s>>>(
-        kc, occupied, active, N, slots, cbucket, cfill, scratch, scratch_cap,
-        bucket_count, leader_of);
-    ht_resolve_kernel<<<blocks, kThreads, 0, s>>>(active, N, slots,
-                                                   leader_of, n_unresolved);
+        kc, occupied, active, N, slots, cbucket, cfill, scratch, first_row,
+        first_bits, scratch_cap, bucket_count, leader_of);
+    ht_resolve_kernel<<<blocks, kThreads, 0, s>>>(
+        kc, active, N, slots, leader_of, cbucket, first_row, first_bits,
+        n_unresolved);
   }
   return static_cast<int>(cudaGetLastError());
 }

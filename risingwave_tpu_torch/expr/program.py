@@ -45,7 +45,7 @@ import torch
 from ..common.chunk import Column
 from ..ops import kernels
 from . import strings
-from .functions import EXTRACT_FIELDS, TRUNC_US
+from .functions import EXTRACT_FIELDS, TRUNC_US, condition
 from .ir import Expr, FuncCall, InputRef, Literal
 
 _P = ctypes.c_void_p
@@ -467,11 +467,13 @@ class ExprProgram:
                          if not isinstance(e, InputRef)]
         self._cache: dict = {}
 
-    def _compile(self, sig, mask: bool) -> tuple:
+    def _compile(self, sig, mask: bool, low_bit: bool = False) -> tuple:
         """The computed expressions as programs of one launch each: one
         program while the list fits K5's limits, else split between
-        expressions (NotImplementedError if one alone does not fit)."""
-        key = (sig, mask)
+        expressions (NotImplementedError if one alone does not fit).
+        A mask program takes a non-boolean predicate as `astype(bool)`,
+        or with `low_bit` by the low bit of an integer one."""
+        key = (sig, mask, low_bit)
         parts = self._cache.get(key)
         if parts is not None:
             return parts
@@ -490,7 +492,17 @@ class ExprProgram:
                 trial.emit(e)
                 dt, _ = trial.info(e)
                 if mask:
-                    if dt != torch.bool:
+                    if dt != torch.bool and low_bit:
+                        # `data & valid`: a row holds where the low bit
+                        # of its integer predicate is set
+                        if _kind(dt) != "i":
+                            raise NotImplementedError(
+                                "a float condition has no low bit")
+                        trial._op(CONST, imm=1, push=1)
+                        trial._op(BAND, push=-1)
+                        trial._op(CONST, push=1)
+                        trial._op(CMP_I, CMP_CODES["not_equal"], push=-1)
+                    elif dt != torch.bool:
                         # the join condition is `astype(bool)`: non-zero
                         # holds (a NaN too)
                         trial._op(CONST, push=1)
@@ -520,10 +532,15 @@ class ExprProgram:
         return [e.eval(columns) for e in self.exprs]
 
     def and_into_plain(self, columns: Sequence[Column],
-                       mask: torch.Tensor) -> None:
+                       mask: torch.Tensor, low_bit: bool = False) -> None:
         (e,) = self.exprs
         pred = e.eval(columns)
-        mask &= pred.data.to(torch.bool) & pred.valid_mask()
+        if low_bit:
+            if pred.data.is_floating_point():
+                raise NotImplementedError("a float condition has no low bit")
+            mask &= condition(pred.data, pred.valid)
+        else:
+            mask &= pred.data.to(torch.bool) & pred.valid_mask()
 
     # ------------------------------------------------------------ K5
     def eval(self, columns: Sequence[Column]) -> list[Column]:
@@ -551,19 +568,24 @@ class ExprProgram:
                 out[j] = Column(d, v)
         return out
 
-    def and_into(self, columns: Sequence[Column], mask: torch.Tensor) -> None:
-        """mask &= pred.data & pred.valid for the one boolean expression,
-        in place (the join condition on the match buffer)."""
+    def and_into(self, columns: Sequence[Column], mask: torch.Tensor,
+                 low_bit: bool = False) -> None:
+        """mask &= pred.data & pred.valid for the one expression, in
+        place (the join condition on the match buffer): a non-boolean
+        predicate holds where it is non-zero (the sorted join's
+        `astype(bool)`), or with `low_bit` where the low bit of its
+        integer value is set (the hash join's `data & valid`)."""
         dev = mask.device
         if dev.type == "cpu":
-            return self.and_into_plain(columns, mask)
+            return self.and_into_plain(columns, mask, low_bit)
         if dev.type != "cuda":
             raise ValueError(f"unsupported device {dev}")
         if len(self.exprs) != 1 or mask.dtype != torch.bool \
                 or not mask.is_contiguous():
             raise ValueError("and_into takes one expression and a "
                              "contiguous bool mask")
-        (prog,) = self._compile(_signature(columns, self.refs), mask=True)
+        (prog,) = self._compile(_signature(columns, self.refs), mask=True,
+                                low_bit=low_bit)
         self._launch(prog, columns, [], [], mask, mask.shape[0])
 
     def _launch(self, prog: _Compiled, columns, datas, valids,

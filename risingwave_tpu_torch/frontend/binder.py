@@ -37,6 +37,9 @@ and executor arguments:
                             join-input pruning pushed into the upstream
                             fragments; outer joins never clean, carry no
                             watermark and are not append-only
+  JOIN ... ON a FLOAT64 key
+                         -> hash_join fragment (inner joins only; the
+                            chained hash join, default capacities)
   JOIN t FOR SYSTEM_TIME AS OF PROCTIME() ON ...
                          -> a temporal sorted_join (inner or left, over
                             an append-only stream side)
@@ -62,8 +65,7 @@ and executor arguments:
 What the JAX planner also plans raises `BindError("... not ported yet
 (ROADMAP A9)")` here, never a different plan: the mesh
 top-N and the sharded over-window (`streaming_parallelism_devices` >
-1), non-integer inner join keys (hash join), parallelism > 1 and remote
-fragment placement.
+1), parallelism > 1 and remote fragment placement.
 """
 
 from __future__ import annotations
@@ -402,27 +404,35 @@ class StreamPlanner:
         key_int = all(
             np.issubdtype(sc.schema[i].data_type.np_dtype, np.integer)
             for sc, keys in ((ls, lkeys), (rs, rkeys)) for i in keys)
-        if not key_int:
+        wd = 1 if self.cfg("streaming_watchdog", 1) else None
+        mf = self.cfg("streaming_join_match_factor", 64)
+        if key_int:
+            # per-side match buffers: probing a side whose rows are
+            # unique per join key yields at most one match per probe row
+            mf_l = min(2, mf) if set(rpk) <= set(rkeys) else mf
+            mf_r = min(2, mf) if set(lpk) <= set(lkeys) else mf
+            node = Node("sorted_join", dict(
+                left_key_indices=lkeys, right_key_indices=rkeys,
+                left_pk_indices=list(lpk), right_pk_indices=list(rpk),
+                condition=cond, join_type=jt, temporal=temporal,
+                capacity=self.cfg("streaming_join_capacity", 1 << 17),
+                match_factor=mf, match_factors=(mf_l, mf_r),
+                append_only=(li.append_only, ri.append_only),
+                clean_specs=(clean_l, clean_r),
+                watchdog_interval=wd, durable=self.durable()),
+                inputs=(Exchange(lf), Exchange(rf)))
+        else:
+            # the chained hash join (stream/hash_join.py): JAX's node, its
+            # capacities left at their defaults
             if jt != "inner" or temporal:
                 raise BindError(
                     "outer/temporal joins require integer-comparable keys")
-            raise not_ported("hash join (non-integer join keys)")
-        wd = 1 if self.cfg("streaming_watchdog", 1) else None
-        # per-side match buffers: probing a side whose rows are unique
-        # per join key yields at most one match per probe row
-        mf = self.cfg("streaming_join_match_factor", 64)
-        mf_l = min(2, mf) if set(rpk) <= set(rkeys) else mf
-        mf_r = min(2, mf) if set(lpk) <= set(lkeys) else mf
-        node = Node("sorted_join", dict(
-            left_key_indices=lkeys, right_key_indices=rkeys,
-            left_pk_indices=list(lpk), right_pk_indices=list(rpk),
-            condition=cond, join_type=jt, temporal=temporal,
-            capacity=self.cfg("streaming_join_capacity", 1 << 17),
-            match_factor=mf, match_factors=(mf_l, mf_r),
-            append_only=(li.append_only, ri.append_only),
-            clean_specs=(clean_l, clean_r),
-            watchdog_interval=wd, durable=self.durable()),
-            inputs=(Exchange(lf), Exchange(rf)))
+            node = Node("hash_join", dict(
+                left_key_indices=lkeys, right_key_indices=rkeys,
+                left_pk_indices=list(lpk), right_pk_indices=list(rpk),
+                condition=cond, match_factor=mf, watchdog_interval=wd,
+                durable=self.durable()),
+                inputs=(Exchange(lf), Exchange(rf)))
         f = self.graph.add(Fragment(self.fid(), node, dispatch="broadcast"))
         # stash for _optimize_join, which runs once the SELECT is known
         self._join_frags[f.fid] = dict(

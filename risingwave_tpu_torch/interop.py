@@ -19,6 +19,7 @@ from .common.types import Schema
 from .device import DEFAULT_DEVICE, resolve_device
 from .ops.hash_table import HashTable
 from .stream.hash_agg import AggState
+from .stream.hash_join import HashJoinSideState
 from .stream.sorted_join import SortedSideState
 
 
@@ -99,6 +100,38 @@ def sorted_side_to_numpy(st: SortedSideState) -> dict:
                 cols=[c.cpu().numpy() for c in st.cols],
                 valids=[v.cpu().numpy() for v in st.valids],
                 degree=st.degree.cpu().numpy(), n=int(st.n))
+
+
+def hash_join_side_from_numpy(table_keys: Sequence[np.ndarray],
+                              occupied: np.ndarray, head: np.ndarray,
+                              rows: Sequence[np.ndarray],
+                              valids: Sequence[np.ndarray], next: np.ndarray,
+                              live: np.ndarray, dirty: np.ndarray, top: int,
+                              device=DEFAULT_DEVICE) -> HashJoinSideState:
+    """The port's HashJoinSideState from the arrays of one hash-join
+    side (the JAX package's `JoinSideState` fields, same layout)."""
+    device = resolve_device(device)
+    return HashJoinSideState(
+        key_table=hash_table_from_numpy(table_keys, occupied, device),
+        head=_t(np.asarray(head, dtype=np.int32), device),
+        rows=tuple(_t(np.asarray(r), device) for r in rows),
+        valids=tuple(_t(np.asarray(v, dtype=bool), device) for v in valids),
+        next=_t(np.asarray(next, dtype=np.int32), device),
+        live=_t(np.asarray(live, dtype=bool), device),
+        dirty=_t(np.asarray(dirty, dtype=bool), device),
+        top=_t(np.asarray(top, dtype=np.int32), device))
+
+
+def hash_join_side_to_numpy(st: HashJoinSideState) -> dict:
+    """The arrays of a hash-join side, keyed as the from_numpy
+    arguments, for comparison or carrying out."""
+    return dict(table_keys=[k.cpu().numpy() for k in st.key_table.keys],
+                occupied=st.key_table.occupied.cpu().numpy(),
+                head=st.head.cpu().numpy(),
+                rows=[r.cpu().numpy() for r in st.rows],
+                valids=[v.cpu().numpy() for v in st.valids],
+                next=st.next.cpu().numpy(), live=st.live.cpu().numpy(),
+                dirty=st.dirty.cpu().numpy(), top=int(st.top))
 
 
 def top_n_state_from_numpy(ex, khash: np.ndarray, cols: Sequence[np.ndarray],

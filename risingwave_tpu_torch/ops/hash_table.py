@@ -13,6 +13,11 @@ reference step for step (two stable sorts), so it places keys in the
 same slots as the JAX package. The kernel claims slots with atomics: it
 fills each bucket with the same number of new keys as the reference but
 may order them differently inside the bucket (see ROADMAP Queue C).
+Key columns are int64, int32 or float64: a float64 key hashes by its
+`astype(uint64)` value lane and compares with IEEE `==`, so -0.0 and
++0.0 are one key and every NaN row is a new key, on the card as in the
+plain version. `lookup` runs on the card inside kernel K32 (the hash
+join's probe, stream/hash_join.py).
 
 `compact_mask` (the agg's flush, evict and rehash compaction) is kernel
 K12 (`csrc/compact.cu`) on a CUDA device; `stable_lexsort` lives in
@@ -254,12 +259,33 @@ K_HT = kernels.register(kernels.CudaKernel(
     replaces="risingwave_tpu/ops/hash_table.py:190",
     functions={"rw_ht_lookup_or_insert": [
         _I, ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.POINTER(_I),
-        _P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P]}))
+        _P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P]}))
+
+# key column types K3 and K32 take, with their RwType codes
+# (csrc/key_hash.cuh, as expr/program.py's TYPE_CODES)
+KEY_TYPE_CODES = {torch.int64: 0, torch.int32: 1, torch.float64: 5}
 
 
 def scratch_capacity(n: int) -> int:
     """Slots of K3's chunk-local leader set: a power of two >= 2n."""
     return max(64, 1 << (2 * max(n, 1) - 1).bit_length())
+
+
+def check_key_columns(table: HashTable, key_cols: Sequence[torch.Tensor],
+                      n: int, what: str) -> None:
+    """Raise unless `key_cols` are n-row contiguous columns of the
+    table's key dtypes (int64, int32 or float64) on its device."""
+    if not 1 <= len(key_cols) <= MAX_KEY_COLUMNS \
+            or len(key_cols) != len(table.keys):
+        raise ValueError(f"{what} takes 1..{MAX_KEY_COLUMNS} key columns, "
+                         "one per table key column")
+    for tk, k in zip(table.keys, key_cols):
+        if (k.dtype != tk.dtype or k.dtype not in KEY_TYPE_CODES
+                or k.shape[0] != n or not k.is_contiguous()
+                or k.device != tk.device):
+            raise ValueError(f"{what}'s key columns must be contiguous "
+                             "int64, int32 or float64 of the table's "
+                             "dtypes, on the table's device")
 
 
 def lookup_or_insert(table: HashTable, key_cols: Sequence[torch.Tensor],
@@ -273,21 +299,21 @@ def lookup_or_insert(table: HashTable, key_cols: Sequence[torch.Tensor],
         raise ValueError(f"unsupported device {dev}")
     N = active.shape[0]
     C = table.capacity
-    if not 1 <= len(key_cols) <= MAX_KEY_COLUMNS:
-        raise ValueError(f"K3 takes 1..{MAX_KEY_COLUMNS} key columns")
     if active.dtype != torch.bool or not active.is_contiguous():
         raise ValueError("active must be a contiguous bool tensor")
-    for tk, k in zip(table.keys, key_cols):
-        if (k.dtype != tk.dtype or k.element_size() not in (4, 8)
-                or k.shape[0] != N or not k.is_contiguous()
-                or k.device != dev or tk.device != dev):
-            raise ValueError("key columns must be contiguous int32/int64 "
-                             "of the table's dtypes, on the table's device")
+    check_key_columns(table, key_cols, N, "K3")
+    if table.device != dev:
+        raise ValueError("K3's table must be on the rows' device")
     i32 = dict(dtype=torch.int32, device=dev)
     slots = torch.empty(N, **i32)
     n_unresolved = torch.empty((), **i32)
     cap = scratch_capacity(N)
     scratch = torch.empty(cap, **i32)
+    # the first-row set only where a key column is float64 (K3 keeps
+    # the bits of a key's first row: -0.0 or +0.0)
+    first_row = (torch.empty(cap, **i32)
+                 if any(k.dtype == torch.float64 for k in key_cols)
+                 else None)
     bucket_count = torch.empty(C // BUCKET_SLOTS, **i32)
     leader_of = torch.empty(N, **i32)
     cbucket = torch.empty(N, **i32)
@@ -295,12 +321,13 @@ def lookup_or_insert(table: HashTable, key_cols: Sequence[torch.Tensor],
     K_HT.launches += 1
     K_HT.call("rw_ht_lookup_or_insert", len(key_cols),
               kernels.ptr_array(key_cols), kernels.ptr_array(table.keys),
-              kernels.int_array(k.element_size() for k in key_cols),
+              kernels.int_array(KEY_TYPE_CODES[k.dtype] for k in key_cols),
               kernels.ptr(table.occupied), C, kernels.ptr(active), N,
               kernels.ptr(slots), kernels.ptr(n_unresolved),
-              kernels.ptr(scratch), cap, kernels.ptr(bucket_count),
-              kernels.ptr(leader_of), kernels.ptr(cbucket),
-              kernels.ptr(cfill), kernels.stream_of(active))
+              kernels.ptr(scratch), kernels.ptr_or_null(first_row), cap,
+              kernels.ptr(bucket_count), kernels.ptr(leader_of),
+              kernels.ptr(cbucket), kernels.ptr(cfill),
+              kernels.stream_of(active))
     return table, slots, n_unresolved
 
 

@@ -133,5 +133,9 @@ def stable_lexsort(keys: Sequence[torch.Tensor],
     order = None
     for k, b in zip(keys, bits):
         kk = k if order is None else k[order]
-        _, order = stable_sort(kk.to(torch.int64).contiguous(), b, order)
+        # a float64 key sorts by its order key, not by its value cut to
+        # an integer (which would interleave 0.5 with 0.7's equal rows)
+        kk = float_key_plain(kk) if kk.is_floating_point() \
+            else kk.to(torch.int64)
+        _, order = stable_sort(kk.contiguous(), b, order)
     return order

@@ -19,7 +19,7 @@ placement (`build_partial_graph`, `cluster_remote_edges`,
 `_infer_fragment_schema`), per-fragment rebuild and channel replay,
 mesh-chain fusion, memory and stats registration, and the builders of
 node kinds the port cannot plan yet (the stateless simple
-and the other aggregates, joins other than sorted, the
+and the other aggregates, the sharded joins, the
 group and sharded top-Ns, the sharded over-window, dedup,
 project_set);
 durable snapshot join-agg state; sinks other than `blackhole_device`;
@@ -41,7 +41,8 @@ from ..stream import (
     Actor, BroadcastDispatcher, Channel, ChannelInput,
     DeviceBlackholeSinkExecutor, DynamicFilterExecutor,
     EowcOverWindowExecutor, FilterExecutor,
-    GeneralOverWindowExecutor, HashAggExecutor, HopWindowExecutor,
+    GeneralOverWindowExecutor, HashAggExecutor, HashJoinExecutor,
+    HopWindowExecutor,
     MaterializeExecutor,
     NoOpExecutor, NowExecutor, ProjectExecutor, RetractableTopNExecutor,
     RowIdGenExecutor, SimpleAggExecutor, SimpleDispatcher,
@@ -376,6 +377,34 @@ def _build_hash_agg(args, inputs, ctx: ActorCtx, key):
         minput_k=minput_k, device=ctx.env.device)
 
 
+@register_builder("hash_join")
+def _build_hash_join(args, inputs, ctx: ActorCtx, key):
+    state_tables = None
+    if args.get("durable"):
+        state_tables = tuple(
+            ctx.env.state_table(
+                ctx.table_id((key, s)), inp.schema,
+                tuple(args["left_pk_indices" if s == 0
+                           else "right_pk_indices"]))
+            for s, inp in enumerate(inputs))
+    return HashJoinExecutor(
+        inputs[0], inputs[1],
+        left_key_indices=args["left_key_indices"],
+        right_key_indices=args["right_key_indices"],
+        left_pk_indices=args["left_pk_indices"],
+        right_pk_indices=args["right_pk_indices"],
+        key_capacity=args.get("key_capacity", 1 << 14),
+        row_capacity=args.get("row_capacity", 1 << 16),
+        match_factor=args.get("match_factor", 2),
+        condition=args.get("condition"),
+        output_indices=args.get("output_indices"),
+        state_tables=state_tables,
+        clean_watermark_cols=tuple(args.get("clean_watermark_cols",
+                                            (None, None))),
+        watchdog_interval=args.get("watchdog_interval", 1),
+        device=ctx.env.device)
+
+
 @register_builder("sorted_join")
 def _build_sorted_join(args, inputs, ctx: ActorCtx, key):
     state_tables = None
@@ -691,7 +720,7 @@ def infer_fragment_schemas(graph: StreamGraph,
         if k == "row_id_gen":
             return Schema(tuple(ins[0])
                           + (SchemaField("_row_id", DataType.SERIAL),))
-        if k == "sorted_join":
+        if k in ("sorted_join", "hash_join"):
             fields = tuple(ins[0]) + tuple(ins[1])
             oi = a.get("output_indices")
             if oi is not None:

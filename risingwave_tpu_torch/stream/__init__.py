@@ -11,6 +11,7 @@ from .executor import (
 )
 from .general_over_window import GeneralOverWindowExecutor, WindowSpec
 from .hash_agg import HashAggExecutor
+from .hash_join import HashJoinExecutor
 from .hop_window import HopWindowExecutor
 from .materialize import ConflictBehavior, MaterializeExecutor
 from .message import Barrier, BarrierKind, StopMutation, Watermark
@@ -32,7 +33,7 @@ __all__ = ["Actor", "barrier_align", "BroadcastDispatcher", "Channel",
            "EowcOverWindowExecutor", "GeneralOverWindowExecutor",
            "SimpleAggExecutor", "WindowSpec",
            "FilterExecutor", "RetractableTopNExecutor",
-           "HashAggExecutor", "HopWindowExecutor",
+           "HashAggExecutor", "HashJoinExecutor", "HopWindowExecutor",
            "ConflictBehavior", "MaterializeExecutor", "Barrier",
            "BarrierKind", "StopMutation", "Watermark", "NoOpExecutor",
            "ProjectExecutor", "RowIdGenExecutor",

@@ -42,6 +42,35 @@ def _port():
     from risingwave_tpu_torch.expr.ir import FuncCall
 
 
+@pytest.fixture(autouse=True)
+def _minted_strings_leave():
+    """The strings a test mints (its inputs', literals' and string
+    tables' results) leave both engines' dictionaries when it ends, and
+    the string-table caches with them. A string-result table mints a
+    result for every dictionary entry, so without this the dictionaries
+    grew with every earlier test's tables and a serial run spent most of
+    its time rebuilding tables over strings no later test reads. The
+    strings present when the test starts keep their ids (the JAX
+    generator's vocabularies, whose ids it caches, are minted first)."""
+    from risingwave_tpu.common.types import GLOBAL_DICT as jdict
+    from risingwave_tpu.connectors.nexmark import _ensure_vocabs
+    from risingwave_tpu.expr import strings as jstrings
+    from risingwave_tpu_torch.common.types import GLOBAL_DICT as pdict
+    from risingwave_tpu_torch.expr import strings as pstrings
+    _ensure_vocabs()
+    sizes = [(d, len(d)) for d in (jdict, pdict)]
+    yield
+    for d, n in sizes:
+        for s in d._strings[n:]:
+            del d._ids[s]
+        del d._strings[n:]
+    jstrings._MAP_CACHE.clear()
+    pstrings._HOST.clear()
+    pstrings._DEVICE.clear()
+    pstrings._MINTED.clear()
+    pstrings._MINTED["all"] = 0
+
+
 def _inputs(seed=0):
     """(arrays, valids): a int64, b int64, c int32, d int32, f float64,
     p bool, q bool, ts timestamp, ts2 timestamp, z int64 (small, with

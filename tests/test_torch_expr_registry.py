@@ -42,6 +42,9 @@ from risingwave_tpu.expr.registry import infer_ret_type as jinfer
 from risingwave_tpu.expr.registry import registered_functions
 
 import test_kernel_registry as gen
+# the autouse fixture that drops the strings a test minted from both
+# engines' dictionaries when it ends (one definition, in test_torch_expr)
+from test_torch_expr import _minted_strings_leave  # noqa: F401
 
 ULP_FNS = {"pow", "cbrt", "exp", "ln", "log10", "sin", "cos", "tan",
            "atan"}

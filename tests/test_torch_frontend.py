@@ -379,6 +379,29 @@ def _window_ddl(view: str, durable: bool = False) -> list:
     return ddl
 
 
+# the hash join: inner joins on FLOAT64 keys (chip_smoke's views)
+HJ_SOURCES = [
+    "SET streaming_durability = 0",
+    "SET streaming_agg_capacity = 1024",
+    *(f"CREATE SOURCE {t} WITH (connector='nexmark', table='{t}', "
+      f"chunk_size=256, rate_limit=512)" for t in ("bid", "auction")),
+]
+HJ_VIEW_NAMES = ("q20", "retract", "cond", "int_cond")
+
+
+def _hj_ddl(view: str, durable: bool = False) -> list:
+    select = {"q20": chip_smoke.HJ_Q20_SELECT,
+              "retract": chip_smoke.HJ_RETRACT_SELECT,
+              "cond": chip_smoke.HJ_COND_SELECT,
+              "int_cond": chip_smoke.HJ_INT_COND_SELECT,
+              "no_cond": chip_smoke.HJ_COND_SELECT.replace(
+                  " AND B.price > A.reserve", "")}[view]
+    ddl = HJ_SOURCES + ["CREATE MATERIALIZED VIEW m AS " + select]
+    if durable:
+        ddl[0] = "SET streaming_durability = 1"
+    return ddl
+
+
 PLANNED_DDL = {
     "q8": BENCH_DDL["q8"], "q8_mv": lambda: WM_Q8_DDL,
     "q1": BENCH_DDL["q1"], "q17": BENCH_DDL["q17"],
@@ -403,6 +426,8 @@ PLANNED_DDL = {
     **{f"window_{v}_durable": (lambda v=v: _window_ddl(v, True))
        for v in ("q6", "eowc", "gagg")},
     **{f"outer_{v}": (lambda v=v: _outer_ddl(v)) for v in OUTER_VIEWS},
+    **{f"hj_{v}": (lambda v=v: _hj_ddl(v)) for v in HJ_VIEW_NAMES},
+    "hj_q20_durable": lambda: _hj_ddl("q20", durable=True),
     # the WHERE sink the port refused before it planned filters
     "where_sink": lambda: [
         "SET streaming_durability = 0", BID_SOURCE,
@@ -495,6 +520,17 @@ def test_planner_gives_jax_fragments_and_arguments(query):
         assert a["capacity"] == 1 << 17
         assert a["durable"] is (query != "q5_topn")
         assert a["watchdog_interval"] is None
+    if query.startswith("hj_"):
+        # JAX's hash_join node: no capacity arguments (the executor's
+        # 2^14 keys and 2^16 rows), match factor 64, FLOAT64 keys
+        join = next(n for f in pp.graph.fragments.values()
+                    for n in _nodes(f.root, PExchange)
+                    if n.kind == "hash_join")
+        a = join.args
+        assert "sorted_join" not in kinds
+        assert a["match_factor"] == 64 and "key_capacity" not in a
+        assert a["durable"] is query.endswith("_durable")
+        assert (a["condition"] is not None) == query.endswith("cond")
     if query in ("q2", "where_agg", "where_sink"):
         assert kinds.count("filter") == 1
     if query == "where_join":
@@ -523,21 +559,19 @@ def _nodes(n, exchange_cls) -> list:
 
 
 @pytest.mark.parametrize("sql", [
-    # bool_and / bool_or, approx_count_distinct and MVs over MVs plan
-    # since they were ported; these shapes are still refused: the hash
-    # join (inner joins on FLOAT64 keys, here of an MV with itself),
-    # parallelism > 1, the mesh, a batch SELECT
-    lambda: [("CREATE MATERIALIZED VIEW m0 AS SELECT auction, avg(price) "
-              "AS ap FROM bid GROUP BY auction"),
-             ("CREATE MATERIALIZED VIEW m AS SELECT X.auction FROM m0 X "
-              "JOIN m0 Y ON X.ap = Y.ap")],
-    lambda: ("CREATE MATERIALIZED VIEW m AS SELECT X.auction FROM "
-             "(SELECT auction, avg(price) AS ap FROM bid GROUP BY auction) X"
-             " JOIN (SELECT auction, avg(price) AS ap FROM bid "
-             "GROUP BY auction) Y ON X.ap = Y.ap"),
-    lambda: ("CREATE MATERIALIZED VIEW m AS SELECT X.a FROM "
-             "(SELECT auction AS a, 0.908 * price AS p FROM bid) X JOIN "
-             "(SELECT id, 1.0 * reserve AS r FROM auction) Y ON X.p = Y.r"),
+    # bool_and / bool_or, approx_count_distinct, MVs over MVs and the
+    # hash join (inner joins on FLOAT64 keys) plan since they were
+    # ported; these shapes are still refused: the hash join under hash
+    # dispatch (parallelism > 1), split sources, remote fragment
+    # placement, parallelism > 1, the mesh, a batch SELECT
+    lambda: ["SET streaming_parallelism = 2",
+             ("CREATE MATERIALIZED VIEW m AS SELECT X.a FROM "
+              "(SELECT auction AS a, 0.908 * price AS p FROM bid) X JOIN "
+              "(SELECT id, 1.0 * reserve AS r FROM auction) Y "
+              "ON X.p = Y.r")],
+    lambda: ("CREATE SOURCE bid2 WITH (connector='nexmark', table='bid', "
+             "splits=2)"),
+    lambda: "SET streaming_fragment_worker = 'w1'",
     lambda: ["SET streaming_parallelism = 2",
              ("CREATE MATERIALIZED VIEW m AS SELECT auction, count(*) AS n "
               "FROM bid GROUP BY auction")],
@@ -983,7 +1017,8 @@ def test_q1_statements_run_through_the_session():
                                    "window_eowc_durable",
                                    "window_gagg_durable", "outer_full",
                                    "outer_temporal_left",
-                                   "outer_now_keyless"])
+                                   "outer_now_keyless", "hj_q20",
+                                   "hj_retract", "hj_q20_durable"])
 def test_plan_ids_and_schemas_match_jax(query):
     """The deterministic actor/table ids and the planner-level fragment
     schemas of a plan agree with the JAX package's."""
@@ -1553,3 +1588,48 @@ def test_mv_on_mv_and_sink_match_jax_at_every_barrier(monkeypatch):
     assert last["mv_hot"] == hot and sum(hot.values()) >= 5
     assert last["mv_hist"] == hist
     assert gsink == wsink and len(gsink) >= 10
+
+
+def _hj_rows(engine: str, view: str, rounds: int = 4) -> Counter:
+    """A hash-join view's MV rows as committed at the last of `rounds`
+    paced barriers."""
+    async def go():
+        s = (JaxSession() if engine == "jax"
+             else PortSession(device="cpu"))
+        for stmt in _hj_ddl(view):
+            await s.execute(stmt)
+        await paced_ticks(s, "m", rounds)
+        mv = s.catalog.mvs["m"]
+        keep = [j for j, f in enumerate(mv.schema)
+                if not f.name.startswith("_")]
+        rows = Counter(tuple(r[j] for j in keep)
+                       for r in _committed_rows(mv))
+        if engine == "port":
+            await s.shutdown()
+        return rows
+    return asyncio.run(go())
+
+
+@pytest.mark.parametrize("view", ["q20", "retract", "cond"])
+def test_float_key_join_views_match_jax(view):
+    """Inner joins on FLOAT64 keys through both sessions to the same MV:
+    Nexmark q20's join (every bid with its auction), a retracting side
+    (each auction's max price from a FLOAT64-keyed agg) and a boolean
+    non-equi condition."""
+    got, want = _hj_rows("port", view), _hj_rows("jax", view)
+    assert got == want and sum(got.values()) >= 10
+
+
+def test_integer_join_condition_is_accepted_difference_12():
+    """An int64 join condition (`ON B.k = A.k AND B.price - A.reserve`):
+    the reference's hash join masks its output with `data & valid`, an
+    int64 visibility whose rows hold where the condition's low bit is
+    set, and so does the port: its MV is the unconditioned join's rows
+    with an odd price - reserve. JAX's MV is not: its host path reads the
+    int64 visibility as row indices (ROADMAP accepted difference 12, as
+    9 for WHERE)."""
+    got, want = _hj_rows("port", "int_cond"), _hj_rows("jax", "int_cond")
+    every = _hj_rows("port", "no_cond")
+    odd = Counter({r: n for r, n in every.items() if (r[1] - r[2]) & 1})
+    assert got == odd and 0 < sum(got.values()) < sum(every.values())
+    assert want != got

@@ -55,6 +55,7 @@ MODULES = [
     "risingwave_tpu_torch.stream.simple_agg",
     "risingwave_tpu_torch.ops.extrema",
     "risingwave_tpu_torch.stream.dynamic",
+    "risingwave_tpu_torch.stream.hash_join",
 ]
 
 
@@ -107,8 +108,8 @@ def _entry_points():
     from risingwave_tpu_torch.device import resolve_device
     from risingwave_tpu_torch.frontend import Session
     from risingwave_tpu_torch.interop import (
-        agg_state_from_numpy, chunk_from_numpy, hash_table_from_numpy,
-        sorted_side_from_numpy)
+        agg_state_from_numpy, chunk_from_numpy, hash_join_side_from_numpy,
+        hash_table_from_numpy, sorted_side_from_numpy)
     from risingwave_tpu_torch.stream.hash_agg import HashAggExecutor
     from risingwave_tpu_torch.stream.snapshot_join_agg import (
         SnapshotJoinAggExecutor)
@@ -117,8 +118,10 @@ def _entry_points():
     from risingwave_tpu_torch.stream.sorted_join import SortedJoinExecutor
     from risingwave_tpu_torch.stream import (
         DynamicFilterExecutor, EowcOverWindowExecutor,
-        GeneralOverWindowExecutor, NowExecutor, SimpleAggExecutor)
-    return [NexmarkGenerator.__init__, HashAggExecutor.__init__,
+        GeneralOverWindowExecutor, HashJoinExecutor, NowExecutor,
+        SimpleAggExecutor)
+    return [HashJoinExecutor.__init__, hash_join_side_from_numpy,
+            NexmarkGenerator.__init__, HashAggExecutor.__init__,
             DynamicFilterExecutor.__init__, NowExecutor.__init__,
             SortedJoinExecutor.__init__, resolve_device, chunk_from_numpy,
             hash_table_from_numpy, agg_state_from_numpy,
@@ -144,9 +147,10 @@ def test_cuda_without_a_card_raises():
     from risingwave_tpu_torch.expr.agg import count_star
     from risingwave_tpu_torch.frontend import Session
     from risingwave_tpu_torch.interop import (
-        agg_state_from_numpy, chunk_from_numpy, hash_table_from_numpy,
-        sorted_side_from_numpy)
+        agg_state_from_numpy, chunk_from_numpy, hash_join_side_from_numpy,
+        hash_table_from_numpy, sorted_side_from_numpy)
     from risingwave_tpu_torch.stream.hash_agg import HashAggExecutor
+    from risingwave_tpu_torch.stream.hash_join import HashJoinExecutor
     from risingwave_tpu_torch.stream.snapshot_join_agg import (
         SnapshotJoinAggExecutor)
     from risingwave_tpu_torch.stream.retract_top_n import (
@@ -211,6 +215,11 @@ def test_cuda_without_a_card_raises():
                                    temporal=True).device,
         lambda: DynamicFilterExecutor(_In(), _In(), 0, capacity=64).device,
         lambda: NowExecutor(None).device,
+        lambda: HashJoinExecutor(_In(), _In(), [0], [0], [0], [0],
+                                 key_capacity=32, row_capacity=64).device,
+        lambda: hash_join_side_from_numpy(
+            keys, occupied, np.full(4, -1), keys, [occupied],
+            np.full(4, -1), occupied, occupied, 0).live.device,
     ]
     for build in builders:
         if torch.cuda.is_available():
@@ -227,6 +236,8 @@ def test_every_kernel_is_registered_with_its_source():
     assert names == ["agg_flush", "backfill_filter", "compact",
                      "dynamic_filter", "expr_eval",
                      "extrema_update", "filter_ops", "hash_agg",
+                     "hash_join_pack", "hash_join_probe",
+                     "hash_join_update",
                      "hash_table", "hll_update", "hop_window",
                      "nexmark_auction",
                      "nexmark_bid", "nexmark_person", "outer_join",
@@ -265,7 +276,11 @@ def test_wrappers_refuse_other_devices():
     from risingwave_tpu_torch.expr import hll
     from risingwave_tpu_torch.common.chunk import StreamChunk
     from risingwave_tpu_torch.common import DataType, schema
+    from risingwave_tpu_torch.stream import hash_join as hj
     t = ht.HashTable.empty(32, [torch.int64], "meta")
+    hside = hj.empty_side(32, 64, [torch.float64], [torch.float64], "meta")
+    f64 = torch.zeros(4, dtype=torch.float64, device="meta")
+    errs4 = torch.zeros(4, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         ht.lookup_or_insert(t, [torch.zeros(4, dtype=torch.int64,
                                             device="meta")],
@@ -328,6 +343,15 @@ def test_wrappers_refuse_other_devices():
             (i64.clone(),)), [count_star().spec()]),
         lambda: hll.hll_update([i64.clone()] * 8, i64, None,
                                i64.to(torch.int8), vis=b),
+        lambda: hj.probe(hside, [f64], b, [Column(f64)],
+                         i64.to(torch.int8), 8, errs4),
+        lambda: hj.delete_rows(hside, [f64], (0,), b, i64.to(torch.int32),
+                               errs4),
+        lambda: hj.insert_rows(hside, b, i64.to(torch.int32), [f64], [b],
+                               errs=errs4),
+        lambda: hj.pack(hside, hj.PACK_DIRTY),
+        lambda: hj.evict(hside, 0, 0),
+        lambda: hj.side_stats(hside),
     ]
     for refuse in refusals:
         with pytest.raises(ValueError, match="unsupported device"):
